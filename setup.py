@@ -3,6 +3,7 @@ from setuptools import setup, find_packages
 setup(
     name="muse-maskgit-pytorch-tpu",
     packages=find_packages(exclude=["tests*"]),
+    package_data={"muse_maskgit_pytorch_tpu_torch": ["csrc/*.cu"]},
     version="0.1.0",
     license="MIT",
     description="Muse: Text-to-Image Generation via Masked Generative Transformers — TPU-native (JAX/XLA/Pallas)",
@@ -28,6 +29,7 @@ setup(
     ],
     extras_require={
         "hf": ["transformers", "sentencepiece", "torch", "torchvision"],
+        "torch": ["torch>=2.4", "numpy"],
     },
     classifiers=[
         "Development Status :: 4 - Beta",
