@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Builds the port's hand-written CUDA kernels from `csrc/`, holds each against
-its plain PyTorch version at the main path's shapes, then drives the main
-path -- `MaskGit.generate` from text embeddings to 256px images at the
-width `bench.py` uses (transformer dim 512, depth 8, 8 heads x 64, seq 256,
-vocab 65536, bf16; VAE dim 256, 4 layers, LFQ 65536; batch 32, 18 steps,
-CFG 3), random weights from a seed -- and checks that it went through the
-kernels. Each phase prints one line; any failed check raises and the exit
-code is non-zero. The last line is
+Builds the port's hand-written CUDA kernels from `csrc/` (one nvcc per
+source, all at once), holds each against its plain PyTorch version at the
+shapes its path gives it, then drives the port's paths through the entry
+points a user calls, with random weights from a seed, and checks that each
+went through its kernels (launch counts set to 0 just before a path and
+read just after):
+
+  * `generate`: `MaskGit.generate` from text embeddings to 256px images at
+    the width `bench.py` uses (transformer dim 512, depth 8, 8 heads x 64,
+    seq 256, vocab 65536, bf16; VAE dim 256, 4 layers, LFQ 65536; batch 32,
+    18 steps, CFG 3) -- K1 and K2;
+  * `tokenize`: `VQGanVAE.encode` -> ids -> `decode_from_ids` at the
+    tokenizer's full width (dim 256, 4 layers, 256px, batch 32) with LFQ and
+    with EMA-VQ at the reference vq_kwargs (K 65536, codebook_dim 256,
+    cosine) -- K3 on every EMA-VQ encode;
+  * the public `ops.attend` op at the unfused attention's shapes -- K4, which
+    no model path calls (as in the JAX package).
+
+Each phase prints one line; any failed check raises and the exit code is
+non-zero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
-selects a subset (env, build, k1, k2, generate, parity) while iterating;
-a subset prints its phases' lines and no result lines.
+selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize)
+while iterating; a subset prints its phases' lines and no result lines.
 """
 
 from __future__ import annotations
@@ -29,12 +41,15 @@ import sys
 import time
 from pathlib import Path
 
-ALL_PHASES = ("env", "build", "k1", "k2", "generate", "parity")
+ALL_PHASES = ("env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize")
+KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "vq_search", "flash_attention")
 
 # main-path shapes
 BATCH, STEPS, CFG = 32, 18, 3.0
 SEQ, VOCAB, DIM, DEPTH, HEADS, DIM_HEAD, TEXT_LEN, TEXT_DIM = 256, 65536, 512, 8, 8, 64, 64, 768
 TOPK = math.ceil(0.1 * VOCAB)
+IMAGE, VAE_DIM, VAE_LAYERS, CODE_DIM = 256, 256, 4, 256
+NEAR_TIE = 1e-5  # f64 score gap within which two f32 searches may differ (unit vectors)
 
 
 def log(msg: str) -> None:
@@ -68,16 +83,17 @@ def plain_path(attend=None):
     attention `attend`), for comparison only: the package itself runs a
     plain version only for CPU tensors, so this swaps the names the model
     modules call."""
-    from muse_maskgit_pytorch_tpu_torch.models import maskgit, transformer
-    from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel
+    from muse_maskgit_pytorch_tpu_torch.models import maskgit, quantizers, transformer
+    from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel, vq
 
-    saved = transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample
+    saved = transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample, quantizers.nearest_code
     transformer.qknorm_attend = attend or attention.qknorm_attend_plain
     maskgit.fused_topk_gumbel_sample = sampling_kernel.fused_topk_gumbel_sample_plain
+    quantizers.nearest_code = vq.nearest_code_plain
     try:
         yield
     finally:
-        transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample = saved
+        transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample, quantizers.nearest_code = saved
 
 
 def attend_f64(q, k, v, null_k, null_v, q_scale, k_scale, mask=None, scale=8.0):
@@ -105,14 +121,23 @@ def phase_env(torch, ctx):
 
 
 def phase_build(torch, ctx):
-    from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel
+    from concurrent.futures import ThreadPoolExecutor
+
+    from muse_maskgit_pytorch_tpu_torch.ops import _build, attention, sampling_kernel, vq
+
+    def timed_build(name):
+        t = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    sampling_kernel._lib()
-    t1 = time.perf_counter()
-    attention._lib()
-    t2 = time.perf_counter()
-    log(f"[build] nvcc sm_90a: sampling_kernel {t1 - t0:.1f}s, qknorm_attention {t2 - t1:.1f}s")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        secs = dict(zip(KERNEL_SOURCES, pool.map(timed_build, KERNEL_SOURCES)))
+    wall = time.perf_counter() - t0
+    for lib in (sampling_kernel._lib, attention._lib, attention._flash_lib, vq._lib):
+        lib()  # load each library and bind its entry points
+    each = ", ".join(f"{name} {t:.1f}s" for name, t in secs.items())
+    log(f"[build] nvcc sm_90a, in parallel: {each}; {wall:.1f}s wall")
 
 
 def phase_k1(torch, ctx):
@@ -247,6 +272,114 @@ def phase_k2(torch, ctx):
     log(
         f"[k2] qknorm_attend ok: max abs err {err_s}; self (64,256,8,64) bf16 {ms:.3f} ms vs "
         f"plain {plain_ms:.3f} ms; cross (32,256|64,8,64) {cms:.3f} ms vs plain {cplain_ms:.3f} ms"
+    )
+
+
+def phase_k3(torch, ctx):
+    from muse_maskgit_pytorch_tpu_torch.models.quantizers import l2norm
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code, nearest_code_plain, score_gap
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, k, d = BATCH * SEQ, VOCAB, CODE_DIM
+    zeros = torch.zeros(k, device=dev)
+
+    # cosine search at the EMA-VQ encode's shape, held to the near-tie rule:
+    # each side's pick scores within 1e-5 of the f64 best
+    x = l2norm(torch.randn(n, d, generator=g, device=dev))
+    cb = l2norm(torch.randn(k, d, generator=g, device=dev))
+    ids = nearest_code(x, cb, zeros)
+    plain = nearest_code_plain(x, cb, zeros)
+    torch.cuda.synchronize()
+    gap = score_gap(x, cb, ids, zeros).max().item()
+    plain_gap = score_gap(x, cb, plain, zeros).max().item()
+    differ = (ids != plain).sum().item()
+    require(gap <= NEAR_TIE and plain_gap <= NEAR_TIE, f"K3 picks off the f64 best by {gap:.3g} (plain {plain_gap:.3g})")
+
+    # a codebook of exact duplicates (as k-means init makes): exact ids
+    distinct = l2norm(torch.randn(1024, d, generator=g, device=dev))
+    cb_dup = distinct[torch.randint(0, 1024, (k,), generator=g, device=dev)]
+    x_dup = l2norm(distinct[torch.randint(0, 1024, (n,), generator=g, device=dev)] + 0.02 * torch.randn(n, d, generator=g, device=dev))
+    dup_ids = nearest_code(x_dup, cb_dup, zeros)
+    require(torch.equal(dup_ids, nearest_code_plain(x_dup, cb_dup, zeros)), "K3 ids differ on a duplicated codebook")
+    del cb_dup, x_dup, distinct
+
+    # ragged K and n, euclidean scores (cb_sq = |c|^2 inside the wrapper)
+    xr, cbr = torch.randn(1001, d, generator=g, device=dev), torch.randn(4099, d, generator=g, device=dev)
+    scale = (xr.double() ** 2).sum(-1) + (cbr.double() ** 2).sum(-1).max()
+    for side in (nearest_code(xr, cbr), nearest_code_plain(xr, cbr)):
+        require(bool((score_gap(xr, cbr, side) <= NEAR_TIE * scale).all()), "K3 ragged euclidean off the near-tie rule")
+
+    ms = cuda_ms(lambda: nearest_code(x, cb, zeros))
+    plain_ms = cuda_ms(lambda: nearest_code_plain(x, cb, zeros))
+    ctx["k3"] = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms)
+    log(
+        f"[k3] nearest_code ok: cosine ({n}, {d}) x ({k}, {d}) f32, {differ} rows differ from plain, "
+        f"max f64 score gap {gap:.3g} (plain {plain_gap:.3g}, rule <= {NEAR_TIE:g}); duplicated codebook "
+        f"ids exact; ragged (1001 x 4099) euclidean by the rule; {ms:.3f} ms vs plain {plain_ms:.3f} ms"
+    )
+
+
+def phase_k4(torch, ctx):
+    from muse_maskgit_pytorch_tpu_torch.models.quantizers import l2norm
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, attend_plain
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+    # (b, h, n, d, kv): the unfused attention's base-stage self-attention
+    # (kv = seq + the null key) and super-res self-attention
+    shapes = {"base": (2 * BATCH, HEADS, SEQ, DIM_HEAD, SEQ + 1), "superres": (BATCH, HEADS, 1024, DIM_HEAD, 1025)}
+
+    def inputs(b, h, n, d, m, dtype):
+        # qk-normed queries and keys at scale 8, as the models attend
+        q = l2norm(torch.randn(b, h, n, d, generator=g, device=dev)).to(dtype)
+        k = l2norm(torch.randn(b, h, m, d, generator=g, device=dev)).to(dtype)
+        v = torch.randn(b, h, m, d, generator=g, device=dev).to(dtype)
+        return q, k, v
+
+    # f32: summation order only (<= 1e-4); bf16: both sides compute in f32
+    # from the same bf16 inputs and round once (<= 2e-2)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    errs = {}
+    for name, shape in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = inputs(*shape, dtype)
+            mask = torch.rand(shape[0], shape[4], generator=g, device=dev) > 0.3
+            mask[:4] = False  # fully masked rows: an average over the kv length
+            for tag, m_ in (("", None), (" masked", mask)):
+                out = attend(q, k, v, mask=m_, scale=8.0, impl="flash")
+                ref = attend_plain(q, k, v, mask=m_, scale=8.0)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                require(math.isfinite(err) and err <= tol[dtype], f"K4 {name}{tag} {dtype}: max abs err {err:.3g}")
+                errs[(name + tag, dtype)] = err
+            mean_v = v[:4].float().mean(dim=2, keepdim=True)
+            err = (out[:4].float() - mean_v).abs().max().item()
+            require(err <= tol[dtype], f"K4 fully masked rows off the mean of v by {err:.3g}")
+            del q, k, v, out, ref
+
+    times = {}
+    for name, shape in shapes.items():
+        q, k, v = inputs(*shape, torch.bfloat16)
+        times[name] = (cuda_ms(lambda: attend(q, k, v, scale=8.0)), cuda_ms(lambda: attend_plain(q, k, v, scale=8.0)))
+
+    # the path: the public op as a user calls it ("auto" is the kernel for
+    # CUDA tensors), once at each shape
+    attend.launches = 0
+    for shape in shapes.values():
+        q, k, v = inputs(*shape, torch.bfloat16)
+        out = attend(q, k, v, scale=8.0)
+        require(out.shape == q.shape and bool(torch.isfinite(out).all()), "K4 path output")
+    launches = attend.launches
+    require(launches == len(shapes), f"K4 launched {launches} times on the attend path, expected {len(shapes)}")
+    ctx["k4"] = dict(
+        launches=launches, max_abs_err=errs[("base", torch.bfloat16)], ms=times["base"][0], plain_ms=times["base"][1]
+    )
+    err_s = ", ".join(f"{n} {str(d)[6:]} {e:.2g}" for (n, d), e in errs.items())
+    log(
+        f"[k4] attend(flash) ok: max abs err {err_s}; bf16 base (64,8,256|257,64) {times['base'][0]:.3f} ms vs "
+        f"plain {times['base'][1]:.3f} ms; super-res (32,8,1024|1025,64) {times['superres'][0]:.3f} ms vs "
+        f"plain {times['superres'][1]:.3f} ms; attend path +{launches} launches"
     )
 
 
@@ -415,6 +548,84 @@ def phase_parity(torch, ctx):
     )
 
 
+def phase_tokenize(torch, ctx):
+    """images -> encode -> ids -> decode_from_ids at the tokenizer's full
+    width, for LFQ and for EMA-VQ; encode and decode ms per image as
+    `bench.py` defines them (batch time / batch), median of 3 after a
+    warm-up, host clock around work that ends in a synchronize."""
+    from muse_maskgit_pytorch_tpu_torch import VQGanVAE
+    from muse_maskgit_pytorch_tpu_torch.models.quantizers import l2norm
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code, score_gap
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    img = torch.rand(BATCH, IMAGE, IMAGE, 3, generator=g, device="cuda")
+    grid = IMAGE >> VAE_LAYERS
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def build(**kw):
+        gen = torch.Generator().manual_seed(1)
+        vae = VQGanVAE(dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, generator=gen, **kw)
+        return vae.cuda().eval()
+
+    maskgit = ctx.get("maskgit")
+    configs = {"lfq": maskgit.vae if maskgit is not None else build(), "ema_vq": build(lookup_free_quantization=False)}
+    parts = []
+    for name, vae in configs.items():
+        with torch.inference_mode():
+            _, ids, _ = vae.encode(img)  # warm-up: cuDNN chooses its algorithms
+            vae.decode_from_ids(ids)
+            nearest_code.launches = 0
+            enc, per_encode = [], []
+            for _ in range(3):
+                before = nearest_code.launches
+                (fmap, ids, aux), dt = timed(lambda: vae.encode(img))
+                per_encode.append(nearest_code.launches - before)
+                enc.append(dt)
+            launches = nearest_code.launches
+            dec = []
+            for _ in range(3):
+                out, dt = timed(lambda: vae.decode_from_ids(ids))
+                dec.append(dt)
+        require(tuple(ids.shape) == (BATCH, grid, grid) and ids.dtype == torch.int32, f"{name} ids {tuple(ids.shape)} {ids.dtype}")
+        require(0 <= ids.min().item() and ids.max().item() < VOCAB, f"{name} ids out of range")
+        require(tuple(out.shape) == (BATCH, IMAGE, IMAGE, 3) and bool(torch.isfinite(out).all()), f"{name} decode output")
+        require(bool(torch.isfinite(fmap).all()) and math.isfinite(float(aux)), f"{name} encode output")
+        enc_ms = statistics.median(enc) * 1000 / BATCH
+        dec_ms = statistics.median(dec) * 1000 / BATCH
+        line = f"{name} encode {enc_ms:.3f} ms/img, decode {dec_ms:.3f} ms/img, K3 +{per_encode[0]} per encode"
+        if name == "lfq":
+            require(launches == 0, f"LFQ encode launched K3 {launches} times")
+        else:
+            require(per_encode == [1, 1, 1], f"K3 launches per EMA-VQ encode {per_encode}, expected 1")
+            ctx["k3"]["launches"] = launches
+            q = vae.quantizer
+            with torch.inference_mode():
+                with plain_path():
+                    (_, plain_ids, _), plain_dt = timed(lambda: vae.encode(img))
+                z = l2norm(q.project_in(vae.enc_dec.encode(img)).reshape(-1, q.codebook_dim).float())
+                zeros = torch.zeros(VOCAB, device="cuda")
+                k3_ms = cuda_ms(lambda: nearest_code(z, q.codebook, zeros), iters=5, warmup=1)
+                gaps = [score_gap(z, q.codebook, t.reshape(-1), zeros).max().item() for t in (ids, plain_ids)]
+            differ = (ids != plain_ids).sum().item()
+            require(max(gaps) <= NEAR_TIE, f"EMA-VQ ids off the f64 best by {gaps}")
+            share = k3_ms / (statistics.median(enc) * 1000)
+            line += (
+                f"; ids vs plain path: {differ} of {ids.numel()} differ, max f64 gap {gaps[0]:.3g} (plain "
+                f"{gaps[1]:.3g}); plain-path encode {plain_dt * 1000 / BATCH:.3f} ms/img; K3 {k3_ms:.3f} ms "
+                f"= {share:.1%} of the encode"
+            )
+        parts.append(line)
+        del vae
+    configs.clear()
+    log(f"[tokenize] b{BATCH} {IMAGE}px dim {VAE_DIM} K {VOCAB}: " + " | ".join(parts) + f" | {ctx['smi']}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -433,7 +644,7 @@ def main(argv=None) -> int:
         return 2
     import muse_maskgit_pytorch_tpu_torch  # noqa: F401
 
-    ctx = {"k1": {}, "k2": {}}
+    ctx = {"k1": {}, "k2": {}, "k3": {}, "k4": {}}
     phase_env(torch, ctx)
     for name in phases:
         if name != "env":
@@ -453,6 +664,18 @@ def main(argv=None) -> int:
             source="muse_maskgit_pytorch_tpu_torch/csrc/qknorm_attention.cu",
             replaces="muse_maskgit_pytorch_tpu/ops/attention.py:242",
             **{k: ctx["k2"].get(k) for k in ("launches", "max_abs_err", "ms", "plain_ms")},
+        ),
+        dict(
+            name="nearest_code", route="cuda",
+            source="muse_maskgit_pytorch_tpu_torch/csrc/vq_search.cu",
+            replaces="muse_maskgit_pytorch_tpu/ops/vq.py:54",
+            **{k: ctx["k3"].get(k) for k in ("launches", "max_abs_err", "ms", "plain_ms")},
+        ),
+        dict(
+            name="attend", route="cuda",
+            source="muse_maskgit_pytorch_tpu_torch/csrc/flash_attention.cu",
+            replaces="muse_maskgit_pytorch_tpu/ops/attention.py:83",
+            **{k: ctx["k4"].get(k) for k in ("launches", "max_abs_err", "ms", "plain_ms")},
         ),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

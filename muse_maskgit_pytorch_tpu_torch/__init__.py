@@ -2,16 +2,21 @@
 
 The JAX package beside this one is the reference; this package imports
 torch and numpy only. Ported so far: the base-stage sampling path,
-`MaskGit.generate` from text embeddings to 256px images, with its two
-hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`) built
-from `csrc/` on first use. See ROADMAP.md for what is still to come.
+`MaskGit.generate` from text embeddings to 256px images, and the VQ-GAN
+tokenizer's inference (`VQGanVAE.encode` to token ids and
+`decode_from_ids` back, with the LFQ, EMA-VQ and FSQ quantizers). Their
+four hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`,
+`ops.vq`) are built from `csrc/` on first use. See ROADMAP.md for what is
+still to come.
 """
 
 from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
+    FSQ,
     LFQ,
     MaskGit,
     MaskGitTransformer,
     Transformer,
+    VectorQuantizeEMA,
     VQGanVAE,
 )
 from muse_maskgit_pytorch_tpu_torch.utils.from_jax import load_jax_state  # noqa: F401

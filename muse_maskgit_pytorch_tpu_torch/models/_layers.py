@@ -62,10 +62,15 @@ class Embedding(nn.Embedding):
 
 
 class Conv2d(nn.Conv2d):
-    """NCHW convolution with flax's lecun-normal kernel and zero bias."""
+    """NCHW convolution with flax's lecun-normal kernel and zero bias.
 
-    def __init__(self, cin: int, cout: int, kernel: int, padding: int = 0, *, generator=None):
-        super().__init__(cin, cout, kernel, padding=padding)
+    `padding` is symmetric: flax's `padding=p` or `((p, p), (p, p))`, at any
+    stride (for a 4x4 kernel at stride 2 and p 1 both give floor(h / 2))."""
+
+    def __init__(
+        self, cin: int, cout: int, kernel: int, padding: int = 0, stride: int = 1, *, generator=None
+    ):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding)
         lecun_normal_(self.weight, cin * kernel * kernel, generator)
         nn.init.zeros_(self.bias)
 

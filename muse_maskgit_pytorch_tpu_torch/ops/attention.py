@@ -1,15 +1,22 @@
-"""K2: fused qk-norm attention with a learned null key/value per head.
+"""Attention: K2, the fused qk-norm attention of the models, and K4, the
+plain flash attention of the public `attend` op.
 
-Counterpart of `muse_maskgit_pytorch_tpu/ops/attention.py`. Its Pallas kernel
-`_qknorm_kernel` is replaced on Hopper by the CUDA kernel in
-`csrc/qknorm_attention.cu` (see there for what bounds it on the H100 and
-how its design answers that); `qknorm_attend_plain` is the same function in
-plain PyTorch (the math of the JAX package's `_qknorm_xla`).
+Counterpart of `muse_maskgit_pytorch_tpu/ops/attention.py`. Its two Pallas
+kernels are replaced on Hopper by CUDA kernels (see each source for what
+bounds it on the H100 and how its design answers that):
 
-`qknorm_attend` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; the two take the same arguments. Unlike the JAX
-package there is no crossover to a library attention below some kv length:
-every attention of the models goes through this function. Forward only.
+  * `_qknorm_kernel` by `csrc/qknorm_attention.cu`, behind `qknorm_attend`;
+    `qknorm_attend_plain` is the same function in plain PyTorch (the math of
+    the JAX package's `_qknorm_xla`). Unlike the JAX package there is no
+    crossover to a library attention below some kv length: every attention
+    of the models goes through this function. Forward only.
+  * `_flash_kernel` by `csrc/flash_attention.cu`, behind
+    `attend(impl="flash")`; `attend_plain` is its plain version
+    (`xla_attention` in f32). No model path calls it, as in JAX; its
+    gradient recomputes through the plain version.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain version
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from muse_maskgit_pytorch_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
+FLASH_HEAD_DIMS = (32, 64)
 
 
 def xla_attention(
@@ -166,3 +174,108 @@ def qknorm_attend(
 
 
 qknorm_attend.launches = 0
+
+
+# -- K4: plain flash attention behind the public `attend` op ------------------
+
+
+def attend_plain(q, k, v, mask: Optional[torch.Tensor] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """K4's plain version: `xla_attention` computed in f32 (f64 for f64
+    inputs) and returned in q's dtype, as the kernel keeps its statistics
+    and sums in f32. A row whose keys are all masked averages v over its m
+    keys. K4's backward recomputes through it, as JAX's `_flash_bwd` does
+    through XLA."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    return xla_attention(q.to(acc), k.to(acc), v.to(acc), mask=mask, scale=scale).to(q.dtype)
+
+
+def _flash_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.muse_flash_attn_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        lib.muse_flash_attn_error_string.argtypes = [ctypes.c_int]
+        lib.muse_flash_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _flash_forward(q, k, v, mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """Launch K4 on CUDA tensors (b, h, n, d) / (b, h, m, d)."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the flash kernel takes f32 or bf16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share a dtype")
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash kernel takes head dim {FLASH_HEAD_DIMS}, got {d}")
+    if k.shape != (b, h, m, d) or v.shape != (b, h, m, d) or m == 0:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("attend: all inputs must be on one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bias = _mask_bias(mask, b, m, q.device)
+    out = torch.empty_like(q)
+    lib = _flash_lib()
+    err = lib.muse_flash_attn_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr() if bias is not None else None,
+        out.data_ptr(), b, h, n, m, d, float(scale), 1 if q.dtype == torch.bfloat16 else 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib.muse_flash_attn_error_string, err, "attend")
+    attend.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 forward (the plain version for CPU tensors); the backward
+    recomputes through the plain version, as JAX's `_flash_bwd` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return attend_plain(q, k, v, mask, scale)
+        return _flash_forward(q, k, v, mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            out = attend_plain(q, k, v, mask, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
+def attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Attention dispatch (the JAX package's public `attend`).
+
+    q (b, h, n, d), k/v (b, h, m, d); mask: optional bool (b, m), True = the
+    key may be attended; scale: default d ** -0.5. impl: "xla" is
+    `xla_attention`; "flash" is K4 (f32 or bf16, d 32 or 64) on CUDA
+    tensors and its plain version on CPU tensors; "auto" is "flash" for CUDA
+    tensors and "xla" for CPU tensors."""
+    if impl == "auto":
+        impl = "flash" if q.device.type == "cuda" else "xla"
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if impl == "xla":
+        return xla_attention(q, k, v, mask=mask, scale=scale)
+    if impl != "flash":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attend: unsupported device {q.device}")
+    return _FlashAttention.apply(q, k, v, mask, scale)
+
+
+attend.launches = 0

@@ -1,11 +1,12 @@
-"""Weight bridge: JAX/NNX parameters -> the port's modules.
+"""Weight bridge: JAX/NNX parameters and batch statistics -> the port's modules.
 
-`load_jax_state(module, tree)` takes the JAX module's parameters as a
-nested dict of numpy arrays (what `nnx.state(m, nnx.Param).to_pure_dict()`
-gives after `np.asarray` on each leaf) and copies them into the port's
-module of the same structure: the port names its submodules after the JAX
-attributes, so a parameter's path is the same on both sides and only the
-leaf name and layout change:
+`load_jax_state(module, tree)` takes the JAX module's state as a nested
+dict of numpy arrays (what
+`nnx.state(m, (nnx.Param, nnx.BatchStat)).to_pure_dict()` gives after
+`np.asarray` on each leaf) and copies it into the port's module of the same
+structure: the port names its submodules after the JAX attributes, so a
+leaf's path is the same on both sides and only the leaf name and layout
+change:
 
   Linear         kernel (in, out)           -> weight (out, in)
   Conv2d         kernel HWIO, bias          -> weight OIHW, bias
@@ -15,6 +16,9 @@ leaf name and layout change:
   Embedding      embedding                  -> weight
   LayerNorm      gamma; Attention null_kv (2, h, 1, d), q_scale, k_scale
                                             -> same names, as they are
+  nnx.BatchStat  (EMA-VQ codebook, cluster_size, embed_avg, initted)
+                                            -> registered buffers of the
+                                               same names and dtypes
 
 Reading JAX msgpack checkpoints directly is not ported (no flax or msgpack
 on the GPU machine); convert on a machine with JAX, then load the dict.
@@ -60,9 +64,9 @@ def _rules(module: nn.Module):
 
 
 def load_jax_state(module: nn.Module, tree: Mapping) -> List[str]:
-    """Copy every parameter of `module` from `tree`. Raises if one is
-    missing or has another shape; returns the JAX leaves that no parameter
-    of the port consumed (e.g. the not-yet-ported VAE encoder)."""
+    """Copy every parameter and buffer of `module` from `tree`. Raises if
+    one is missing or has another shape; returns the JAX leaves that the
+    port consumed none of (e.g. a not-yet-ported discriminator)."""
     flat = flatten_tree(tree)
     used = set()
     with torch.no_grad():
@@ -71,6 +75,7 @@ def load_jax_state(module: nn.Module, tree: Mapping) -> List[str]:
             rules = _rules(mod)
             if rules is None:
                 rules = [(n, n, None) for n, _ in mod.named_parameters(recurse=False)]
+            rules += [(n, n, None) for n, _ in mod.named_buffers(recurse=False)]
             for pname, jname, convert in rules:
                 param = getattr(mod, pname, None)
                 if param is None:
@@ -86,6 +91,7 @@ def load_jax_state(module: nn.Module, tree: Mapping) -> List[str]:
                         f"{key}: JAX shape {arr.shape} (converted) != port shape "
                         f"{tuple(param.shape)}"
                     )
-                param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+                dtype = np.float32 if param.is_floating_point() else None  # e.g. bool `initted`
+                param.copy_(torch.from_numpy(np.array(arr, dtype=dtype)))
                 used.add(key)
     return sorted(set(flat) - used)

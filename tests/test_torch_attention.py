@@ -1,15 +1,22 @@
-"""Port parity: K2's plain PyTorch version
-(`muse_maskgit_pytorch_tpu_torch/ops/attention.py::qknorm_attend_plain`)
-against the JAX package's `qknorm_attend` -- its Pallas kernel in interpret
-mode (`impl="flash"`) and its XLA version (`impl="xla"`) -- on the same f32
-inputs. Tolerance 1e-5: the same f32 math, summed in different orders.
+"""Port parity: the attention ops' plain PyTorch versions
+(`muse_maskgit_pytorch_tpu_torch/ops/attention.py`) against the JAX package.
+
+K2: `qknorm_attend_plain` against JAX `qknorm_attend` -- its Pallas kernel
+in interpret mode (`impl="flash"`) and its XLA version (`impl="xla"`).
+K4: the port's `attend`, both impls on the CPU, against JAX
+`attend(impl="flash", interpret=True)` and `xla_attention`, at the JAX
+tests' shapes, in value and in gradient. f32 tolerance 1e-4: at scale 8
+the scores of these inputs reach ~200, where f32 rounds them by ~1e-5, and
+that moves the outputs by a few 1e-5; gradients 5e-3 as in the JAX tests.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from muse_maskgit_pytorch_tpu.ops.attention import attend as jax_attend
 from muse_maskgit_pytorch_tpu.ops.attention import qknorm_attend as jax_qknorm
 from muse_maskgit_pytorch_tpu.ops.attention import xla_attention as jax_xla_attention
 from muse_maskgit_pytorch_tpu_torch.ops import attention as port
@@ -94,3 +101,108 @@ def test_xla_attention_matches_jax(masked):
         mask=None if mask is None else torch.from_numpy(mask), scale=8.0,
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+# -- K4: the public attend op -------------------------------------------------
+
+
+def _qkv(seed, b=2, h=4, n=48, m=67, d=64):
+    rs = np.random.RandomState(seed)
+    return tuple(rs.randn(b, h, length, d).astype(np.float32) for length in (n, m, m))
+
+
+def _both(arrays, mask):
+    j = [jnp.asarray(a) for a in arrays] + [None if mask is None else jnp.asarray(mask)]
+    t = [torch.from_numpy(a) for a in arrays] + [None if mask is None else torch.from_numpy(mask)]
+    return j, t
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+@pytest.mark.parametrize(
+    "shape, mask_p, scale",
+    [
+        (dict(), None, None),
+        (dict(), None, 8.0),
+        (dict(m=33), 0.6, 8.0),
+        (dict(n=16, m=300, d=32), 0.8, 8.0),
+    ],
+    ids=["no_mask", "no_mask-scale8", "mask", "multiblock-kv300-d32"],
+)
+def test_attend_matches_jax(impl, shape, mask_p, scale):
+    arrays = _qkv(len(shape) * 10 + (mask_p is not None), **shape)
+    b, m = arrays[1].shape[0], arrays[1].shape[2]
+    mask = None
+    if mask_p is not None:
+        mask = np.random.RandomState(1).rand(b, m) < mask_p
+        mask[:, 0] = True
+    (jq_, jk, jv_, jm), (q, k, v, tm) = _both(arrays, mask)
+    want_flash = np.asarray(jax_attend(jq_, jk, jv_, mask=jm, scale=scale, impl="flash", interpret=True, block_k=128))
+    want_xla = np.asarray(jax_xla_attention(jq_, jk, jv_, mask=jm, scale=scale if scale else None))
+    got = port.attend(q, k, v, mask=tm, scale=scale, impl=impl)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want_flash, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), want_xla, atol=1e-4, rtol=1e-4)
+
+
+def test_attend_bf16():
+    arrays = _qkv(3, n=32, m=32)
+    (jq_, jk, jv_, _), (q, k, v, _) = _both(arrays, None)
+    bf = lambda t: t.astype(jnp.bfloat16)  # noqa: E731
+    want = jax_attend(bf(jq_), bf(jk), bf(jv_), scale=8.0, impl="flash", interpret=True)
+    # the inputs rounded to bf16 on both sides
+    ref_bf = np.asarray(jax_xla_attention(*(bf(t).astype(jnp.float32) for t in (jq_, jk, jv_)), scale=8.0))
+    got = port.attend(q.bfloat16(), k.bfloat16(), v.bfloat16(), scale=8.0, impl="flash")
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    # the port computes in f32 and rounds once: one bf16 rounding apart
+    np.testing.assert_allclose(got.float().numpy(), ref_bf, atol=2e-2, rtol=0)
+    # the Pallas kernel also rounds p to bf16 before P.v
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=5e-2, rtol=0)
+
+
+def test_attend_gradients_match_jax():
+    arrays = _qkv(4, b=1, h=2, n=24, m=24, d=32)
+    mask = np.ones((1, 24), bool)
+    mask[:, -5:] = False
+    (jq_, jk, jv_, jm), (q, k, v, tm) = _both(arrays, mask)
+    cot = np.random.RandomState(5).randn(*arrays[0].shape).astype(np.float32)
+
+    def loss(q, k, v):
+        return (jax_attend(q, k, v, mask=jm, scale=8.0, impl="flash", interpret=True) * cot).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq_, jk, jv_)
+    want_xla = jax.grad(
+        lambda q, k, v: (jax_xla_attention(q, k, v, mask=jm, scale=8.0) * cot).sum(), argnums=(0, 1, 2)
+    )(jq_, jk, jv_)
+    for impl in ("flash", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (port.attend(*leaves, mask=tm, scale=8.0, impl=impl) * torch.from_numpy(cot)).sum().backward()
+        for t, w, wx in zip(leaves, want, want_xla):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-3, rtol=5e-3)
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(wx), atol=5e-3, rtol=5e-3)
+
+
+def test_attend_fully_masked_row_averages_real_keys():
+    """A row whose keys are all masked averages v over its m real keys, as
+    `xla_attention` defines it. The JAX Pallas wrapper pads kv to its block
+    with zero rows that it counts too (a JAX-side fault, ROADMAP queue 3):
+    its row is the sum over m real keys divided by the padded length."""
+    arrays = _qkv(6, b=2, h=2, n=8, m=40, d=32)
+    mask = np.ones((2, 40), bool)
+    mask[1] = False
+    (jq_, jk, jv_, jm), (q, k, v, tm) = _both(arrays, mask)
+    got = port.attend(q, k, v, mask=tm, impl="flash").numpy()
+    np.testing.assert_allclose(got[1], np.broadcast_to(arrays[2][1].mean(axis=1, keepdims=True), got[1].shape), atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(jax_xla_attention(jq_, jk, jv_, mask=jm)), atol=1e-5, rtol=1e-5)
+    jax_flash = np.asarray(jax_attend(jq_, jk, jv_, mask=jm, impl="flash", interpret=True))
+    m_pad = 128  # block_k = min(512, round_up(40, 128))
+    np.testing.assert_allclose(jax_flash[1], got[1] * 40 / m_pad, atol=1e-5)
+
+
+def test_attend_dispatch():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(7, n=8, m=8, d=32))
+    before = port.attend.launches
+    assert torch.equal(port.attend(q, k, v), port.xla_attention(q, k, v))  # auto is xla on the CPU
+    port.attend(q, k, v, impl="flash")
+    assert port.attend.launches == before  # the CPU runs the plain version
+    with pytest.raises(ValueError, match="impl"):
+        port.attend(q, k, v, impl="pallas")

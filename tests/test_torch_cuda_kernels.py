@@ -14,7 +14,7 @@ machine need not have; `-o addopts=""` drops the suite's xdist options).
 import pytest
 import torch
 
-from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel
+from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel, vq
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +90,89 @@ def test_attention_rejects_what_the_kernel_does_not_take(dev):
     q = torch.randn(1, 8, 2, 32, device=dev)  # head dim 32
     with pytest.raises(ValueError, match="head dim"):
         attention.qknorm_attend(q, q, q, q[0, 0], q[0, 0], q[0, 0, 0], q[0, 0, 0])
+
+
+# -- K3: nearest-code search ----------------------------------------------------
+
+
+def _unit(t):
+    return t / t.norm(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize(
+    "n, k, d, cosine",
+    [(300, 1000, 64, False), (77, 513, 32, True), (1000, 4099, 256, True)],
+    ids=["euclidean", "cosine-ragged", "cosine-d256"],
+)
+def test_nearest_code_matches_plain(dev, n, k, d, cosine):
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, d, generator=g, device=dev)
+    cb = torch.randn(k, d, generator=g, device=dev)
+    cb_sq = None
+    if cosine:
+        x, cb, cb_sq = _unit(x), _unit(cb), torch.zeros(k, device=dev)
+    before = vq.nearest_code.launches
+    ids = vq.nearest_code(x, cb, cb_sq)
+    assert vq.nearest_code.launches == before + 1
+    plain = vq.nearest_code_plain(x, cb, cb_sq)
+    assert ids.dtype == torch.int32 and ids.shape == (n,)
+    # near-tie rule (tests/test_torch_vq.py): each pick within tol of the f64 best
+    scale = 1.0 if cosine else (x.double() ** 2).sum(-1) + (cb.double() ** 2).sum(-1).max()
+    for side in (ids, plain):
+        assert bool((vq.score_gap(x, cb, side, cb_sq) <= 1e-5 * scale).all())
+
+
+def test_nearest_code_duplicates_exact(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    distinct = _unit(torch.randn(64, 256, generator=g, device=dev))
+    cb = distinct[torch.randint(0, 64, (4097,), generator=g, device=dev)]
+    x = _unit(distinct[torch.randint(0, 64, (333,), generator=g, device=dev)] + 0.05 * torch.randn(333, 256, generator=g, device=dev))
+    zeros = torch.zeros(len(cb), device=dev)
+    ids = vq.nearest_code(x, cb, zeros)
+    assert torch.equal(ids, vq.nearest_code_plain(x, cb, zeros))
+
+
+def test_nearest_code_rejects_what_the_kernel_does_not_take(dev):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        vq.nearest_code(torch.randn(4, 6, device=dev), torch.randn(8, 6, device=dev))
+
+
+# -- K4: plain flash attention ---------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d, m", [(64, 70), (32, 300)])
+def test_flash_attend_matches_plain(dev, dtype, d, m):
+    g = torch.Generator(device=dev).manual_seed(m + d)
+    b, h, n = 3, 2, 80  # n, m: not multiples of the kernel's tiles
+    q, k, v = (torch.randn(b, h, length, d, generator=g, device=dev).to(dtype) for length in (n, m, m))
+    mask = torch.rand(b, m, generator=g, device=dev) > 0.3
+    mask[1] = False  # row 1: every key masked, an average over the m keys
+    before = attention.attend.launches
+    out = attention.attend(q, k, v, mask=mask, scale=8.0, impl="flash")
+    assert attention.attend.launches == before + 1 and out.dtype == dtype
+    ref = attention.attend_plain(q, k, v, mask=mask, scale=8.0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    mean_v = v[1].float().mean(dim=1, keepdim=True).expand(h, n, d)
+    torch.testing.assert_close(out[1].float(), mean_v, rtol=0, atol=tol)
+
+
+def test_flash_attend_gradient_recomputes_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(1, 2, 24, 32, generator=g, device=dev, requires_grad=True) for _ in range(3))
+    mask = torch.ones(1, 24, dtype=torch.bool, device=dev)
+    mask[:, -5:] = False
+    attention.attend(q, k, v, mask=mask, scale=8.0, impl="flash").sum().backward()
+    grads = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    attention.xla_attention(q, k, v, mask=mask, scale=8.0).sum().backward()
+    for got, t in zip(grads, (q, k, v)):
+        torch.testing.assert_close(got, t.grad, rtol=5e-3, atol=5e-3)
+
+
+def test_flash_attend_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.randn(1, 2, 8, 16, device=dev)  # head dim 16
+    with pytest.raises(ValueError, match="head dim"):
+        attention.attend(q, q, q)  # "auto" is the kernel for CUDA tensors
