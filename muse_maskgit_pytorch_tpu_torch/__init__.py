@@ -6,8 +6,9 @@ torch and numpy only. Ported so far: the base-stage sampling path,
 tokenizer's inference (`VQGanVAE.encode` to token ids and
 `decode_from_ids` back, with the LFQ, EMA-VQ and FSQ quantizers). Their
 four hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`,
-`ops.vq`) are built from `csrc/` on first use. See ROADMAP.md for what is
-still to come.
+`ops.vq`) are built from `csrc/` on first use. The public modules below take
+`device=` and are built on the GPU ("cuda") unless the caller asks for the
+CPU. See ROADMAP.md for what is still to come.
 """
 
 from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401

@@ -6,9 +6,7 @@
 // key bias (b, m) (0 or -1e30 from a bool mask), it computes
 //   out = softmax(q k^T * scale + bias) v
 // with an online softmax over kv tiles: statistics and accumulation in f32,
-// the output in the input dtype. bf16 inputs are widened to f32 as they are
-// staged, so every product is exact and every sum f32 (the Pallas kernel's
-// bf16 dots with f32 accumulation, without its bf16 rounding of p).
+// the output in the input dtype.
 //
 // One difference from the Pallas kernel, on purpose: that wrapper pads kv to
 // a multiple of its block with zero rows and -1e30 bias, so a row whose real
@@ -16,19 +14,22 @@
 // score -inf and never count: such a row averages v over its m real keys,
 // as `xla_attention` (and the JAX tests) define it.
 //
-// What bounds it on the H100: arithmetic, 4 * n * m * d FLOP per (batch,
-// head) against one read of q, k, v; at d 32 or 64 the tiles are small
-// enough for CUDA cores. Design: one block per (64-query tile, head, batch),
-// 256 threads as 16 x 16; queries staged once, scaled, in shared memory; kv
-// consumed in 64-key tiles with the running max, sum and output in
-// registers (4 query rows x 4 keys of S and 4 rows x d/16 dims of the output
-// per thread), so there is no kv length limit and nothing but q, k, v and
-// the output touches device memory. Templated on d in {32, 64}. Tensor-core
-// products (mma.sync / wgmma) are later work.
+// What bounds it on the H100: 4 * n * m * d FLOP per (batch, head) against
+// one read of q, k, v and one write of the output -- the bytes below about
+// 600 keys, the tensor cores' 989 TFLOP/s above (d 64). Two kernels:
+//   * bf16 (the Pallas kernel's arithmetic: q * scale rounded to bf16, bf16
+//     products with f32 accumulation, p rounded to bf16 before p v): the
+//     Hopper core of `attention_core.cuh`, shared with K2 -- TMA ring of K/V
+//     tiles fed by a producer warp, `wgmma` for both products, P kept in
+//     registers. Templated on d in {32, 64}.
+//   * f32: CUDA-core FMA, one block per (64-query tile, head, batch), 256
+//     threads as 16 x 16, queries staged once, scaled, in shared memory; kv
+//     in 64-key tiles with the running max, sum and output in registers.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_core.cuh"
 
 namespace {
 
@@ -37,15 +38,6 @@ constexpr int KT = 64;        // keys per kv tile
 constexpr int NT = 256;       // threads: 16 x 16
 constexpr int QTP = QT + 4;   // padded strides of the transposed tiles
 constexpr int KTP = KT + 4;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
 
 // reductions over the 16 lanes that hold one row (lanes 0-15 or 16-31)
 __device__ __forceinline__ float half_max(float v) {
@@ -62,10 +54,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (D * QTP + D * KTP + KT * D + KT * QTP);
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const float* __restrict__ bias, T* __restrict__ out, int n, int m, int H,
+flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                  const float* __restrict__ bias, float* __restrict__ out, int n, int m, int H,
                   float scale) {
   constexpr int DJ = D / 16;  // output dims per thread
   extern __shared__ __align__(16) float smem[];
@@ -76,15 +68,15 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const long long bh = (long long)b * H + h;
-  const T* qb = q + bh * n * D;
-  const T* kb = k + bh * m * D;
-  const T* vb = v + bh * m * D;
+  const float* qb = q + bh * n * D;
+  const float* kb = k + bh * m * D;
+  const float* vb = v + bh * m * D;
   const float* brow = bias ? bias + (long long)b * m : nullptr;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;  // key/dim group, query group
 
   for (int e = tid; e < QT * D; e += NT) {
     const int r = e / D, c = e % D, qi = q0 + r;
-    Qt[c * QTP + r] = qi < n ? to_f32(qb[(long long)qi * D + c]) * scale : 0.0f;
+    Qt[c * QTP + r] = qi < n ? qb[(long long)qi * D + c] * scale : 0.0f;
   }
 
   float mrow[4], lrow[4], acc[4][DJ];
@@ -101,8 +93,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     for (int e = tid; e < KT * D; e += NT) {
       const int r = e / D, c = e % D, kj = kv0 + r;
       const bool in = kj < m;
-      Kt[c * KTP + r] = in ? to_f32(kb[(long long)kj * D + c]) : 0.0f;
-      Vs[r * D + c] = in ? to_f32(vb[(long long)kj * D + c]) : 0.0f;
+      Kt[c * KTP + r] = in ? kb[(long long)kj * D + c] : 0.0f;
+      Vs[r * D + c] = in ? vb[(long long)kj * D + c] : 0.0f;
     }
     __syncthreads();
 
@@ -177,23 +169,49 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     const int qi = q0 + ty * 4 + i;
     if (qi >= n) continue;
     const float inv = 1.0f / lrow[i];
-    T* o = out + (bh * n + qi) * D + tx * DJ;
+    float* o = out + (bh * n + qi) * D + tx * DJ;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) o[j] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < DJ; ++j) o[j] = acc[i][j] * inv;
   }
 }
 
-template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
-                   int H, int n, int m, float scale, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
+                       int H, int n, int m, float scale, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem_bytes<D>());
   if (e != cudaSuccess) return e;
   const dim3 grid((n + QT - 1) / QT, H, B);
-  flash_attn_kernel<D, T><<<grid, NT, smem_bytes<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<T*>(out), n, m, H, scale);
+  flash_attn_kernel<D><<<grid, NT, smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(out), n, m, H, scale);
   return cudaGetLastError();
+}
+
+// bf16 through the Hopper core: k, v as 3-D views {d, m, B * H}
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
+                        int H, int n, int m, float scale, cudaStream_t stream) {
+  namespace ac = attention_core;
+  CUtensorMap tk, tv;
+  cudaError_t e = ac::make_kv_map(&tk, k, D, D, m, (long long)B * H, D, (long long)m * D);
+  if (e == cudaSuccess) e = ac::make_kv_map(&tv, v, D, D, m, (long long)B * H, D, (long long)m * D);
+  if (e != cudaSuccess) return e;
+  ac::Params p = {};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.bias = static_cast<const float*>(bias);
+  p.q_sb = p.o_sb = (long long)H * n * D;
+  p.q_sh = p.o_sh = (long long)n * D;
+  p.q_sn = p.o_sn = D;
+  p.n = n;
+  p.m = m;
+  p.H = H;
+  p.c0_h = 0;
+  p.c2_b = H;
+  p.c2_h = 1;
+  p.scale = scale;
+  return ac::launch<D, false>(tk, tv, p, B, stream);
 }
 
 }  // namespace
@@ -201,17 +219,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 extern "C" {
 
 // q (B, H, n, d), k/v (B, H, m, d), out (B, H, n, d): contiguous, dtype
-// 0 = f32, 1 = bf16; d 32 or 64; m > 0. bias (B, m) f32 or null.
+// 0 = f32, 1 = bf16 (pointers 16-byte aligned); d 32 or 64; m > 0. bias
+// (B, m) f32 or null.
 // Returns cudaGetLastError().
 int muse_flash_attn_launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                            int B, int H, int n, int m, int d, float scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || n <= 0) return 0;
   if (m <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && dtype == 0) return launch<64, float>(q, k, v, bias, out, B, H, n, m, scale, s);
-  if (d == 64 && dtype == 1) return launch<64, __nv_bfloat16>(q, k, v, bias, out, B, H, n, m, scale, s);
-  if (d == 32 && dtype == 0) return launch<32, float>(q, k, v, bias, out, B, H, n, m, scale, s);
-  if (d == 32 && dtype == 1) return launch<32, __nv_bfloat16>(q, k, v, bias, out, B, H, n, m, scale, s);
+  if (d == 64 && dtype == 0) return launch_f32<64>(q, k, v, bias, out, B, H, n, m, scale, s);
+  if (d == 64 && dtype == 1) return launch_bf16<64>(q, k, v, bias, out, B, H, n, m, scale, s);
+  if (d == 32 && dtype == 0) return launch_f32<32>(q, k, v, bias, out, B, H, n, m, scale, s);
+  if (d == 32 && dtype == 1) return launch_bf16<32>(q, k, v, bias, out, B, H, n, m, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -12,25 +12,23 @@
 //   softmax([q^ . nk^, q^ k^T + bias]) [nv; v].
 //
 // What bounds it on the H100: at the main path's shapes (d 64, kv 256 or 64)
-// the arithmetic, 4*n*m*d per (batch, head), against one read of q, k, v.
-// Design: one block per (64-query tile, head, batch); kv is consumed in
-// 64-row tiles with an online softmax whose state is seeded with the null
-// position (m0 = s0, l0 = 1, acc0 = nv), so no kv length limit exists and
-// nothing but q, k, v and the output touches global memory. Norms and
-// softmax statistics are f32. Two kernels compute the products:
-//   * bf16 inputs (the models' path): tensor cores, `mma.sync` m16n8k16,
-//     one warp per 16 queries. The normalised q and k and the
-//     probabilities are f32 values; each is split into three bf16 parts
-//     (x = hi + mid + lo to ~24 bits), and the products take six (q.k) or
-//     three (P.v, v is bf16 already) partial products, so scores and
-//     outputs keep f32-level accuracy instead of bf16's.
-//   * f32 inputs: CUDA-core FMA, 4x4 register tiles per thread.
-// wgmma/TMA pipelines are later work.
+// the bytes, one read of q, k, v and one write of the output, against
+// 4*n*m*d FLOP that the tensor cores do faster. The online softmax is seeded
+// with the null position (m0 = s0, l0 = 1, acc0 = nv), so no kv length limit
+// exists and nothing but q, k, v and the output touches global memory. Norms
+// and softmax statistics are f32. Two kernels:
+//   * bf16 inputs (the models' path): the Hopper core of
+//     `attention_core.cuh`, shared with K4, with the TPU kernel's roundings
+//     (q^ and k^ to bf16 after the f32 norm and scale, P to bf16 before
+//     P v): TMA ring of raw K/V tiles fed by a producer warp, each K tile
+//     normalised in place once per block, `wgmma` for both products.
+//   * f32 inputs: CUDA-core FMA, one block per (64-query tile, head, batch),
+//     4x4 register tiles per thread.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_core.cuh"
 
 namespace {
 
@@ -218,272 +216,43 @@ qknorm_attn_kernel(const float* __restrict__ q, const float* __restrict__ k, con
   }
 }
 
-// -- bf16 inputs: tensor-core kernel -----------------------------------------
-
-constexpr int MW = 8;          // warps per block, 16 queries each
-constexpr int MNT = MW * 32;   // threads
-constexpr int MQT = MW * 16;   // queries per block
-constexpr int LDS = D + 8;     // padded bf16 row stride: fragment loads hit 32 banks
-constexpr int NSPLIT = 3;      // f32 value = hi + mid + lo, three bf16 parts
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (lo, hi) -> bf16x2 with `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the pair (a, b) as three bf16x2 words: x = hi + mid + lo to ~24 bits
-__device__ __forceinline__ void split3_pack(float a, float b, uint32_t parts[NSPLIT]) {
-#pragma unroll
-  for (int p = 0; p < NSPLIT; ++p) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-    parts[p] = *reinterpret_cast<const uint32_t*>(&v);
-    a -= __low2float(v);
-    b -= __high2float(v);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__global__ void __launch_bounds__(MNT, 2)
-qknorm_attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ nk,
-                       const __nv_bfloat16* __restrict__ nv, const float* __restrict__ q_scale,
-                       const float* __restrict__ k_scale, const float* __restrict__ bias,
-                       __nv_bfloat16* __restrict__ out, int n, int m, int H, long long q_sb,
-                       long long q_sn, long long k_sb, long long k_sm, long long v_sb,
-                       long long v_sm, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // parts p of the normalised queries / keys: Qs + p * MQT * LDS, Ks + p * KT * LDS
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [3][MQT][LDS]
-  __nv_bfloat16* Ks = Qs + NSPLIT * MQT * LDS;                      // [3][KT][LDS]
-  __nv_bfloat16* Vt = Ks + NSPLIT * KT * LDS;                       // [D][LDS], transposed
-  __shared__ float qsc[D], ksc[D], nkh[D], nvs[D], s0s[MQT];
-
-  const int q0 = blockIdx.x * MQT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const int d0 = 2 * lane;                  // the two dims this lane loads
-
-  if (tid < D) {
-    qsc[tid] = q_scale[tid] * scale;
-    ksc[tid] = k_scale[tid];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const float2 a = ld_pair(nk + h * D + d0);
-    const float r = rsqrtf(warp_sum(a.x * a.x + a.y * a.y) + 1e-12f);
-    nkh[d0] = a.x * r * ksc[d0];
-    nkh[d0 + 1] = a.y * r * ksc[d0 + 1];
-    const float2 w = ld_pair(nv + h * D + d0);
-    nvs[d0] = w.x;
-    nvs[d0 + 1] = w.y;
-  }
-  __syncthreads();
-
-  // -- queries: one warp per row, f32 norm and scale, split in three parts
-  for (int r = warp; r < MQT; r += MW) {
-    const int qi = q0 + r;
-    float2 a = make_float2(0.0f, 0.0f);
-    if (qi < n) a = ld_pair(q + b * q_sb + qi * q_sn + h * D + d0);
-    const float rr = rsqrtf(warp_sum(a.x * a.x + a.y * a.y) + 1e-12f);
-    const float x0 = a.x * rr * qsc[d0], x1 = a.y * rr * qsc[d0 + 1];
-    uint32_t parts[NSPLIT];
-    split3_pack(x0, x1, parts);
-#pragma unroll
-    for (int p = 0; p < NSPLIT; ++p)
-      *reinterpret_cast<uint32_t*>(&Qs[(p * MQT + r) * LDS + d0]) = parts[p];
-    const float s0 = warp_sum(x0 * nkh[d0] + x1 * nkh[d0 + 1]);
-    if (lane == 0) s0s[r] = s0;
-  }
-  __syncthreads();
-
-  const int r0 = warp * 16;  // this warp's 16 query rows
-  // online softmax state of rows g and g + 8, seeded with the null position
-  float m_r[2] = {s0s[r0 + g], s0s[r0 + g + 8]};
-  float l_r[2] = {1.0f, 1.0f};
-  float o[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const float v0 = nvs[dt * 8 + tig * 2], v1 = nvs[dt * 8 + tig * 2 + 1];
-    o[dt][0] = v0; o[dt][1] = v1; o[dt][2] = v0; o[dt][3] = v1;
-  }
-
-  for (int kv0 = 0; kv0 < m; kv0 += KT) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int r = warp; r < KT; r += MW) {
-      const int c = kv0 + r;
-      float2 a = make_float2(0.0f, 0.0f);
-      __nv_bfloat162 w = __floats2bfloat162_rn(0.0f, 0.0f);
-      if (c < m) {
-        a = ld_pair(k + b * k_sb + c * k_sm + h * D + d0);
-        w = *reinterpret_cast<const __nv_bfloat162*>(v + b * v_sb + c * v_sm + h * D + d0);
-      }
-      const float rr = rsqrtf(warp_sum(a.x * a.x + a.y * a.y) + 1e-12f);
-      uint32_t parts[NSPLIT];
-      split3_pack(a.x * rr * ksc[d0], a.y * rr * ksc[d0 + 1], parts);
-#pragma unroll
-      for (int p = 0; p < NSPLIT; ++p)
-        *reinterpret_cast<uint32_t*>(&Ks[(p * KT + r) * LDS + d0]) = parts[p];
-      Vt[d0 * LDS + r] = w.x;
-      Vt[(d0 + 1) * LDS + r] = w.y;
-    }
-    __syncthreads();
-
-    // S = Q^ K^T for 16 rows x 64 keys (8 tiles of 16 x 8), six partial
-    // products per tile, smallest first: q.k to ~2^-18 of |q||k|
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const int c = kc * 16 + tig * 2;
-      uint32_t qa[NSPLIT][4];
-#pragma unroll
-      for (int p = 0; p < NSPLIT; ++p) {
-        const __nv_bfloat16* Q = Qs + p * MQT * LDS;
-        qa[p][0] = ld32(&Q[(r0 + g) * LDS + c]);
-        qa[p][1] = ld32(&Q[(r0 + g + 8) * LDS + c]);
-        qa[p][2] = ld32(&Q[(r0 + g) * LDS + c + 8]);
-        qa[p][3] = ld32(&Q[(r0 + g + 8) * LDS + c + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t kb[NSPLIT][2];
-#pragma unroll
-        for (int p = 0; p < NSPLIT; ++p) {
-          const __nv_bfloat16* K = Ks + (p * KT + nt * 8 + g) * LDS;
-          kb[p][0] = ld32(&K[c]);
-          kb[p][1] = ld32(&K[c + 8]);
-        }
-        // a short chain into a fresh accumulator, added to S in f32: the
-        // tensor cores' accumulation does not round to nearest
-        float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16(c4, qa[2], kb[0][0], kb[0][1]);
-        mma_bf16(c4, qa[0], kb[2][0], kb[2][1]);
-        mma_bf16(c4, qa[1], kb[1][0], kb[1][1]);
-        mma_bf16(c4, qa[1], kb[0][0], kb[0][1]);
-        mma_bf16(c4, qa[0], kb[1][0], kb[1][1]);
-        mma_bf16(c4, qa[0], kb[0][0], kb[0][1]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[nt][j] += c4[j];
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = kv0 + nt * 8 + tig * 2 + j;
-        const float bj = c < m ? (bias ? bias[(long long)b * m + c] : 0.0f) : -INFINITY;
-        s[nt][j] += bj;
-        s[nt][j + 2] += bj;
-      }
-    }
-
-    // online softmax update for rows g (i = 0) and g + 8 (i = 1)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[i], mx);
-      const float alpha = expf(m_r[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        s[nt][2 * i] = expf(s[nt][2 * i] - m_new);
-        s[nt][2 * i + 1] = expf(s[nt][2 * i + 1] - m_new);
-        rs += s[nt][2 * i] + s[nt][2 * i + 1];
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l_r[i] = l_r[i] * alpha + rs;
-      m_r[i] = m_new;
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        o[dt][2 * i] *= alpha;
-        o[dt][2 * i + 1] *= alpha;
-      }
-    }
-
-    // O += P V: P's accumulator tiles are already A fragments (2 key tiles
-    // = one 16-key chunk); P in three parts, v is bf16 already
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t pa[NSPLIT][4], w[NSPLIT];
-      split3_pack(s[2 * kc][0], s[2 * kc][1], w);
-#pragma unroll
-      for (int p = 0; p < NSPLIT; ++p) pa[p][0] = w[p];
-      split3_pack(s[2 * kc][2], s[2 * kc][3], w);
-#pragma unroll
-      for (int p = 0; p < NSPLIT; ++p) pa[p][1] = w[p];
-      split3_pack(s[2 * kc + 1][0], s[2 * kc + 1][1], w);
-#pragma unroll
-      for (int p = 0; p < NSPLIT; ++p) pa[p][2] = w[p];
-      split3_pack(s[2 * kc + 1][2], s[2 * kc + 1][3], w);
-#pragma unroll
-      for (int p = 0; p < NSPLIT; ++p) pa[p][3] = w[p];
-      const int c = kc * 16 + tig * 2;
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        const int vr = (dt * 8 + g) * LDS;
-        const uint32_t v0 = ld32(&Vt[vr + c]), v1 = ld32(&Vt[vr + c + 8]);
-        float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16(c4, pa[2], v0, v1);
-        mma_bf16(c4, pa[1], v0, v1);
-        mma_bf16(c4, pa[0], v0, v1);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[dt][j] += c4[j];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + r0 + g + 8 * i;
-    if (qi >= n) continue;
-    const float inv = 1.0f / l_r[i];
-    __nv_bfloat16* po = out + (((long long)b * n + qi) * H + h) * D + tig * 2;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(po + dt * 8) = pack_bf16(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
-    }
-  }
-}
-
 constexpr size_t kSmemBytes = sizeof(float) * (D * QTP + D * KTP + KT * D + KT * QTP);
-constexpr size_t kMmaSmemBytes = sizeof(__nv_bfloat16) * LDS * (NSPLIT * MQT + NSPLIT * KT + D);
 
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* nk, const void* nv,
-                       const void* qs, const void* ks, const void* bias, void* out, int B, int n,
-                       int m, int H, long long q_sb, long long q_sn, long long k_sb, long long k_sm,
-                       long long v_sb, long long v_sm, float scale, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(qknorm_attn_mma_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMmaSmemBytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((n + MQT - 1) / MQT, H, B);
-  qknorm_attn_mma_kernel<<<grid, MNT, kMmaSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(nk),
-      static_cast<const __nv_bfloat16*>(nv), static_cast<const float*>(qs),
-      static_cast<const float*>(ks), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), n, m, H, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm, scale);
-  return cudaGetLastError();
+// bf16 through the Hopper core: k, v as 3-D views {H * D, m, B} with the
+// callers' batch and sequence strides
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* nk, const void* nv,
+                        const void* qs, const void* ks, const void* bias, void* out, int B, int n,
+                        int m, int H, long long q_sb, long long q_sn, long long k_sb, long long k_sm,
+                        long long v_sb, long long v_sm, float scale, cudaStream_t stream) {
+  namespace ac = attention_core;
+  CUtensorMap tk = {}, tv = {};  // without keys no tile is loaded, and the maps stay unused
+  if (m > 0) {
+    cudaError_t e = ac::make_kv_map(&tk, k, D, (long long)H * D, m, B, k_sm, k_sb);
+    if (e == cudaSuccess) e = ac::make_kv_map(&tv, v, D, (long long)H * D, m, B, v_sm, v_sb);
+    if (e != cudaSuccess) return e;
+  }
+  ac::Params p = {};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.bias = static_cast<const float*>(bias);
+  p.nk = static_cast<const __nv_bfloat16*>(nk);
+  p.nv = static_cast<const __nv_bfloat16*>(nv);
+  p.q_scale = static_cast<const float*>(qs);
+  p.k_scale = static_cast<const float*>(ks);
+  p.q_sb = q_sb;
+  p.q_sh = D;
+  p.q_sn = q_sn;
+  p.o_sb = (long long)n * H * D;
+  p.o_sh = D;
+  p.o_sn = (long long)H * D;
+  p.n = n;
+  p.m = m;
+  p.H = H;
+  p.c0_h = D;
+  p.c2_b = 1;
+  p.c2_h = 0;
+  p.scale = scale;
+  return ac::launch<D, true>(tk, tv, p, B, stream);
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* nk, const void* nv,
@@ -509,7 +278,8 @@ extern "C" {
 // q (B, n, H, 64), k/v (B, m, H, 64) with unit stride over (H, 64) and the
 // given element strides over batch and sequence; nk/nv (H, 64) contiguous
 // in the inputs' dtype; q_scale/k_scale (64,) f32; bias (B, m) f32 or null;
-// out (B, n, H, 64) contiguous. dtype 0 = f32, 1 = bf16.
+// out (B, n, H, 64) contiguous. dtype 0 = f32, 1 = bf16 (bf16: q, k, v
+// 16-byte aligned, their strides multiples of 8 elements).
 // Returns cudaGetLastError().
 int muse_qknorm_attn_launch(const void* q, const void* k, const void* v, const void* nk,
                             const void* nv, const void* q_scale, const void* k_scale,
@@ -519,8 +289,8 @@ int muse_qknorm_attn_launch(const void* q, const void* k, const void* v, const v
   if (B <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_mma(q, k, v, nk, nv, q_scale, k_scale, bias, out, B, n, m, H, q_sb, q_sn, k_sb,
-                      k_sm, v_sb, v_sm, scale, s);
+    return launch_bf16(q, k, v, nk, nv, q_scale, k_scale, bias, out, B, n, m, H, q_sb, q_sn, k_sb,
+                       k_sm, v_sb, v_sm, scale, s);
   return launch_f32(q, k, v, nk, nv, q_scale, k_scale, bias, out, B, n, m, H, q_sb, q_sn, k_sb,
                     k_sm, v_sb, v_sm, scale, s);
 }

@@ -27,7 +27,7 @@ from torch import nn
 from muse_maskgit_pytorch_tpu_torch.models.transformer import MaskGitTransformer
 from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE
 from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import exists, not_ported
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import exists, not_ported, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.sampling import (
     cosine_schedule,
     mask_by_topk_scores,
@@ -79,8 +79,10 @@ class MaskGit(nn.Module):
         vae: Optional[VQGanVAE] = None,
         cond_vae: Optional[VQGanVAE] = None,
         cond_image_size: Optional[int] = None,
+        device="cuda",
     ):
         super().__init__()
+        device = resolve_device(device)
         if exists(token_critic) or self_token_critic:
             raise not_ported("token critics", "A8")
         if exists(cond_vae) or exists(cond_image_size):
@@ -95,6 +97,7 @@ class MaskGit(nn.Module):
         self.self_cond = transformer.self_cond
         self.mask_id = transformer.mask_id
         self.noise_schedule = noise_schedule
+        self.to(device)  # the transformer and VAE it was given, too
 
     def _fmap_hw(self, fmap_size, image_size) -> Tuple[int, int]:
         if image_size is not None:

@@ -26,7 +26,7 @@ from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models._layers import Linear
 from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import not_ported
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import not_ported, resolve_device
 
 QuantizerOutput = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -47,8 +47,10 @@ class LFQ(nn.Module):
         inv_temperature: float = 100.0,
         entropy_group_bits: int = 8,
         generator: Optional[torch.Generator] = None,
+        device="cuda",
     ):
         super().__init__()
+        device = resolve_device(device)
         codebook_dim = int(math.log2(codebook_size))
         if 2**codebook_dim != codebook_size:
             raise ValueError("codebook_size must be a power of 2")
@@ -65,6 +67,7 @@ class LFQ(nn.Module):
         if self.has_projections:
             self.project_in = Linear(dim, codebook_dim, generator=generator)
             self.project_out = Linear(codebook_dim, dim, generator=generator)
+        self.to(device)
 
     def bits_to_indices(self, bits: torch.Tensor) -> torch.Tensor:
         """(..., codebook_dim) bool -> int32 ids, MSB first."""
@@ -102,8 +105,11 @@ class LFQ(nn.Module):
 class FSQ(nn.Module):
     """Finite scalar quantization; codebook_size == prod(levels)."""
 
-    def __init__(self, *, dim: int, levels: Tuple[int, ...], generator: Optional[torch.Generator] = None):
+    def __init__(
+        self, *, dim: int, levels: Tuple[int, ...], generator: Optional[torch.Generator] = None, device="cuda"
+    ):
         super().__init__()
+        device = resolve_device(device)
         levels = tuple(int(n) for n in levels)
         if not levels or min(levels) < 2:
             raise ValueError("FSQ needs at least one level count, each >= 2")
@@ -115,6 +121,7 @@ class FSQ(nn.Module):
         if self.has_projections:
             self.project_in = Linear(dim, self.codebook_dim, generator=generator)
             self.project_out = Linear(self.codebook_dim, dim, generator=generator)
+        self.to(device)
 
     def _levels(self, device) -> torch.Tensor:
         return torch.tensor(self.levels, dtype=torch.float32, device=device)
@@ -191,8 +198,10 @@ class VectorQuantizeEMA(nn.Module):
         threshold_ema_dead_code: float = 0.0,
         eps: float = 1e-5,
         generator: Optional[torch.Generator] = None,
+        device="cuda",
     ):
         super().__init__()
+        device = resolve_device(device)
         self.dim = dim
         self.codebook_size = codebook_size
         self.codebook_dim = codebook_dim
@@ -215,6 +224,7 @@ class VectorQuantizeEMA(nn.Module):
         self.register_buffer("cluster_size", torch.zeros(codebook_size))
         self.register_buffer("embed_avg", init.clone())
         self.register_buffer("initted", torch.tensor(not kmeans_init))
+        self.to(device)
 
     def get_codes_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
         codes = self.codebook[indices.long()]

@@ -25,7 +25,7 @@ from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models._layers import Embedding, Linear
 from muse_maskgit_pytorch_tpu_torch.ops.attention import qknorm_attend
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, not_ported
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, not_ported, resolve_device
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 
@@ -215,9 +215,11 @@ class Transformer(nn.Module):
         add_mask_id: bool = False,
         dtype=torch.float32,
         generator: Optional[torch.Generator] = None,
+        device="cuda",
         **kwargs,
     ):
         super().__init__()
+        device = resolve_device(device)
         if text_embed_dim is None:
             raise not_ported("T5 text encoding (text_embed_dim=None)", "A6")
         self.dim = dim
@@ -251,6 +253,7 @@ class Transformer(nn.Module):
         )
         self.self_cond = self_cond
         self.self_cond_to_init_embed = FeedForward(dim, dtype=dtype, generator=generator)
+        self.to(device)
 
     def _positions(self, n: int) -> torch.Tensor:
         """(n, dim) learned positional embeddings at the trained grid."""

@@ -22,7 +22,7 @@ from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models._layers import Conv2d, ConvTranspose2d
 from muse_maskgit_pytorch_tpu_torch.models.quantizers import FSQ, LFQ, VectorQuantizeEMA
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, not_ported
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, not_ported, resolve_device
 
 GROUPNORM_EPS = 1e-6
 
@@ -172,9 +172,11 @@ class VQGanVAE(nn.Module):
         lfq_kwargs: Optional[dict] = None,
         use_vgg_and_gan: bool = False,
         generator: Optional[torch.Generator] = None,
+        device="cuda",
         **kwargs,
     ):
         super().__init__()
+        device = resolve_device(device)
         if use_vgg_and_gan:
             raise not_ported("the VGG and discriminator towers (VAE training)", "A10")
         vq_kwargs = dict(
@@ -200,15 +202,16 @@ class VQGanVAE(nn.Module):
         )
         encoded_dim = self.enc_dec.encoded_dim
         if fsq_levels is not None:
-            self.quantizer = FSQ(dim=encoded_dim, levels=tuple(fsq_levels), generator=generator)
+            self.quantizer = FSQ(dim=encoded_dim, levels=tuple(fsq_levels), generator=generator, device=device)
         elif lookup_free_quantization:
             self.quantizer = LFQ(
-                dim=encoded_dim, codebook_size=codebook_size, generator=generator, **lfq_kwargs
+                dim=encoded_dim, codebook_size=codebook_size, generator=generator, device=device, **lfq_kwargs
             )
         else:
             self.quantizer = VectorQuantizeEMA(
-                dim=encoded_dim, codebook_size=codebook_size, generator=generator, **vq_kwargs
+                dim=encoded_dim, codebook_size=codebook_size, generator=generator, device=device, **vq_kwargs
             )
+        self.to(device)
 
     @property
     def encoded_dim(self) -> int:

@@ -4,8 +4,9 @@ Each `csrc/*.cu` file exposes a plain C interface and is compiled on first
 use with `nvcc` for `sm_90a` into its own shared library, which is loaded
 with `ctypes` (no PyTorch headers, so a build takes seconds). Libraries
 land in `build/torch_kernels/` at the root of the checkout, named by a hash
-of their source and flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing here runs at import time.
+of their source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -48,7 +49,11 @@ def build(name: str, extra_flags: Sequence[str] = ()) -> Path:
     return its path."""
     src = CSRC / f"{name}.cu"
     flags = [*_ARCH, *_BASE_FLAGS, *extra_flags]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out

@@ -15,8 +15,9 @@ bounds it on the H100 and how its design answers that):
     (`xla_attention` in f32). No model path calls it, as in JAX; its
     gradient recomputes through the plain version.
 
-Each wrapper launches its kernel for CUDA tensors and runs the plain version
-for CPU tensors.
+The bf16 paths of both share one Hopper flash-attention core,
+`csrc/attention_core.cuh`. Each wrapper launches its kernel for CUDA tensors
+and runs the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +32,16 @@ from muse_maskgit_pytorch_tpu_torch.ops import _build
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
 FLASH_HEAD_DIMS = (32, 64)
+
+# Max abs error allowed to a bf16 attention kernel, for the checks only
+# (chip_smoke.py and the tests): against its plain version with `round_to=
+# torch.bfloat16`, one bf16 step of outputs of order 1; against the f32 plain
+# version, the distance each Pallas kernel keeps in bf16 from its f32 oracle
+# (tests/test_torch_attention.py measures K2 <= 1e-2, K4 <= 8e-3 and holds
+# the Pallas kernels to these limits).
+BF16_VS_ROUNDED = 2e-2
+K2_BF16_FROM_F32 = 2e-2
+K4_BF16_FROM_F32 = 2e-2
 
 
 def xla_attention(
@@ -67,11 +78,17 @@ def qknorm_attend_plain(
     k_scale: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     scale: float = 8.0,
+    round_to: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of `qknorm_attend` (same arguments): f32
     l2-norms (eps 1e-12), learned scales, the null position first in the
     softmax, additive key bias 0 / -1e30 from the mask. Computes in f32
-    (f64 for f64 inputs)."""
+    (f64 for f64 inputs).
+
+    `round_to` (e.g. torch.bfloat16) rounds where the JAX package's
+    `_qknorm_kernel` rounds: q^ and k^ after the f32 norm and scale, and
+    P = exp(s - row max) before P v, the softmax sum and the null term
+    staying unrounded. Only the checks use it."""
     b, m = k.shape[:2]
     acc = torch.promote_types(q.dtype, torch.float32)
     bias = _mask_bias(mask, b, m, q.device)
@@ -83,14 +100,23 @@ def qknorm_attend_plain(
     qn = norm(q) * (q_scale.to(acc) * scale)
     kn = norm(k) * k_scale.to(acc)
     nkn = norm(null_k) * k_scale.to(acc)  # (h, d)
+    if round_to is not None:
+        qn, kn = qn.to(round_to).to(acc), kn.to(round_to).to(acc)
     sim = torch.einsum("bnhd,bmhd->bhnm", qn, kn)
     if bias is not None:
         sim = sim + bias[:, None, None, :]
     s0 = torch.einsum("bnhd,hd->bhn", qn, nkn)[..., None]  # null position
-    attn = torch.cat([s0, sim], dim=-1).softmax(dim=-1)
-    out = torch.einsum("bhnm,bmhd->bnhd", attn[..., 1:], v.to(acc))
-    out = out + attn[..., :1].transpose(1, 2) * null_v.to(acc)[None, None]
-    return out.to(q.dtype)
+    if round_to is None:
+        attn = torch.cat([s0, sim], dim=-1).softmax(dim=-1)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn[..., 1:], v.to(acc))
+        out = out + attn[..., :1].transpose(1, 2) * null_v.to(acc)[None, None]
+        return out.to(q.dtype)
+    full = torch.cat([s0, sim], dim=-1)
+    p = torch.exp(full - full.amax(dim=-1, keepdim=True))
+    pv = p[..., 1:].to(round_to).to(acc)
+    out = torch.einsum("bhnm,bmhd->bnhd", pv, v.to(acc))
+    out = out + p[..., :1].transpose(1, 2) * null_v.to(acc)[None, None]
+    return (out / p.sum(dim=-1)[..., None].transpose(1, 2)).to(q.dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -105,15 +131,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """TMA and the 16-byte loads of the bf16 kernels need 16-byte aligned
+    rows: a copy where a view starts off that."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _heads_contiguous(t: torch.Tensor) -> torch.Tensor:
     """The kernels walk batch and sequence by stride; (h, d) must be dense,
-    and the bf16 kernel reads element pairs, so pairs must be 4-byte aligned."""
+    and rows 16-byte aligned (base and strides)."""
     d = t.shape[-1]
     dense = t.stride(-1) == 1 and t.stride(-2) == d
-    aligned = t.data_ptr() % 4 == 0 and t.stride(0) % 2 == 0 and t.stride(1) % 2 == 0
-    if not (dense and aligned):
+    step = 16 // t.element_size()
+    if not (dense and t.stride(0) % step == 0 and t.stride(1) % step == 0):
         t = t.contiguous()
-    return t
+    return _aligned(t)
 
 
 def qknorm_attend(
@@ -179,14 +211,35 @@ qknorm_attend.launches = 0
 # -- K4: plain flash attention behind the public `attend` op ------------------
 
 
-def attend_plain(q, k, v, mask: Optional[torch.Tensor] = None, scale: Optional[float] = None) -> torch.Tensor:
+def attend_plain(
+    q,
+    k,
+    v,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    round_to: Optional[torch.dtype] = None,
+) -> torch.Tensor:
     """K4's plain version: `xla_attention` computed in f32 (f64 for f64
     inputs) and returned in q's dtype, as the kernel keeps its statistics
     and sums in f32. A row whose keys are all masked averages v over its m
     keys. K4's backward recomputes through it, as JAX's `_flash_bwd` does
-    through XLA."""
+    through XLA.
+
+    `round_to` (e.g. torch.bfloat16) rounds where the JAX package's
+    `_flash_kernel` rounds: q * scale (its wrapper scales q in q's dtype)
+    and P = exp(s - row max) before P v, the softmax sum staying unrounded.
+    Only the checks use it."""
     acc = torch.promote_types(q.dtype, torch.float32)
-    return xla_attention(q.to(acc), k.to(acc), v.to(acc), mask=mask, scale=scale).to(q.dtype)
+    if round_to is None:
+        return xla_attention(q.to(acc), k.to(acc), v.to(acc), mask=mask, scale=scale).to(q.dtype)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    qs = (q.to(acc) * scale).to(round_to).to(acc)
+    sim = torch.einsum("bhid,bhjd->bhij", qs, k.to(acc))
+    if mask is not None:
+        sim = sim.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.exp(sim - sim.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhij,bhjd->bhid", p.to(round_to).to(acc), v.to(acc))
+    return (out / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
 def _flash_lib() -> ctypes.CDLL:
@@ -215,7 +268,7 @@ def _flash_forward(q, k, v, mask: Optional[torch.Tensor], scale: float) -> torch
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("attend: all inputs must be on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     bias = _mask_bias(mask, b, m, q.device)
     out = torch.empty_like(q)
     lib = _flash_lib()

@@ -64,9 +64,10 @@ def _rules(module: nn.Module):
 
 
 def load_jax_state(module: nn.Module, tree: Mapping) -> List[str]:
-    """Copy every parameter and buffer of `module` from `tree`. Raises if
-    one is missing or has another shape; returns the JAX leaves that the
-    port consumed none of (e.g. a not-yet-ported discriminator)."""
+    """Copy every parameter and buffer of `module` from `tree`, in place, so
+    each stays on its module's device. Raises if one is missing or has
+    another shape; returns the JAX leaves that the port consumed none of
+    (e.g. a not-yet-ported discriminator)."""
     flat = flatten_tree(tree)
     used = set()
     with torch.no_grad():

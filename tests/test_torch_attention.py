@@ -103,6 +103,76 @@ def test_xla_attention_matches_jax(masked):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
+# -- bf16: the plain versions against the Pallas kernels' own arithmetic -----
+#
+# The distance each Pallas kernel keeps in bf16 from its f32 oracle, held
+# here to the limits that chip_smoke.py's [k2] / [k4] checks and the `cuda`
+# tests hold the CUDA kernels to (`ops/attention.py`). Measured on these
+# inputs: K2 <= 1e-2 from `_qknorm_xla`, K4 <= 8e-3 from the f32 attention
+# (no row here is fully masked: there the Pallas wrapper's padding counts).
+K2_BF16_FROM_F32, K4_BF16_FROM_F32 = port.K2_BF16_FROM_F32, port.K4_BF16_FROM_F32
+
+
+def _bf16_spacing(x):
+    """The gap between neighbouring bf16 values at |x| (float32's gap x 2^16)."""
+    return np.spacing(np.abs(np.asarray(x, np.float32))) * 2.0**16
+
+
+@pytest.mark.parametrize(
+    "n, h, d, m, mask_kind",
+    [(16, 2, 16, 8, "partial"), (64, 2, 64, 65, "partial"), (40, 2, 64, 130, "row_masked"), (64, 8, 64, 257, "none")],
+    ids=["d16-cross-mask", "d64-ragged-mask", "d64-row-masked", "d64-kv257"],
+)
+def test_plain_bf16_matches_pallas_kernel(n, h, d, m, mask_kind):
+    rs = np.random.RandomState(m + d)
+    f = lambda *s: rs.randn(*s).astype(np.float32)  # noqa: E731
+    b = 1 if m > 200 else 2
+    arrays = dict(q=f(b, n, h, d), k=f(b, m, h, d), v=f(b, m, h, d), null_k=f(h, d), null_v=f(h, d))
+    scales = dict(q_scale=1 + 0.1 * f(d), k_scale=1 + 0.1 * f(d))
+    mask = None if mask_kind == "none" else rs.rand(b, m) > 0.4
+    if mask_kind == "row_masked":
+        mask[0] = False
+    jargs = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays.values()] + [jnp.asarray(a) for a in scales.values()]
+    targs = [torch.from_numpy(a).bfloat16() for a in arrays.values()] + [torch.from_numpy(a) for a in scales.values()]
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    want = np.asarray(jax_qknorm(*jargs, mask=jmask, impl="flash", interpret=True).astype(jnp.float32))
+    oracle = np.asarray(jax_qknorm(*jargs, mask=jmask, impl="xla").astype(jnp.float32))
+    rounded = port.qknorm_attend_plain(*targs, mask=tmask, round_to=torch.bfloat16)
+    assert rounded.dtype == torch.bfloat16
+    # rounding where `_qknorm_kernel` rounds: one bf16 step of the output apart
+    # (f32 sums in another order can flip a rounding of P or of the output)
+    np.testing.assert_allclose(rounded.float().numpy(), want, atol=_bf16_spacing(np.abs(want).max()), rtol=0)
+    # the f32 plain version, and the JAX oracle, from the Pallas kernel
+    plain = port.qknorm_attend_plain(*targs, mask=tmask).float().numpy()
+    assert np.abs(want - oracle).max() <= K2_BF16_FROM_F32
+    np.testing.assert_allclose(plain, want, atol=K2_BF16_FROM_F32, rtol=0)
+    if mask_kind == "row_masked":
+        null_v = targs[4].float().expand(n, h, d).numpy()
+        np.testing.assert_array_equal(rounded[0].float().numpy(), null_v)
+
+
+@pytest.mark.parametrize(
+    "d, m, masked", [(64, 65, True), (32, 300, False), (64, 257, False)], ids=["d64-ragged-mask", "d32-kv300", "d64-kv257"]
+)
+def test_attend_plain_bf16_matches_pallas_kernel(d, m, masked):
+    arrays = list(_qkv(m + d, b=2, h=2, n=40, m=m, d=d))
+    for i in (0, 1):  # qk-normed queries and keys at scale 8, as the models attend
+        arrays[i] = arrays[i] / np.linalg.norm(arrays[i], axis=-1, keepdims=True)
+    mask = np.random.RandomState(d).rand(2, m) > 0.3 if masked else None
+    (jq_, jk, jv_, jm), (q, k, v, tm) = _both(arrays, mask)
+    bf = lambda t: t.astype(jnp.bfloat16)  # noqa: E731
+    want = np.asarray(jax_attend(bf(jq_), bf(jk), bf(jv_), mask=jm, scale=8.0, impl="flash", interpret=True), np.float32)
+    got = port.attend(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask=tm, scale=8.0, impl="flash")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=K4_BF16_FROM_F32, rtol=0)
+    # rounding where `_flash_kernel` rounds: one bf16 step of the output apart
+    # (m <= its 512-key block, so its running max is the row max)
+    rounded = port.attend_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask=tm, scale=8.0, round_to=torch.bfloat16)
+    assert rounded.dtype == torch.bfloat16
+    np.testing.assert_allclose(rounded.float().numpy(), want, atol=_bf16_spacing(np.abs(want).max()), rtol=0)
+
+
 # -- K4: the public attend op -------------------------------------------------
 
 

@@ -14,7 +14,13 @@ machine need not have; `-o addopts=""` drops the suite's xdist options).
 import pytest
 import torch
 
+from muse_maskgit_pytorch_tpu_torch import LFQ, MaskGitTransformer, VQGanVAE
 from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel, vq
+
+# bf16 attention: against the plain version with the TPU kernels' roundings,
+# one bf16 step of the output apart; against the f32 plain version, as far
+# as each Pallas kernel keeps from its f32 oracle (`ops/attention.py`)
+from muse_maskgit_pytorch_tpu_torch.ops.attention import BF16_VS_ROUNDED, K2_BF16_FROM_F32, K4_BF16_FROM_F32
 
 pytestmark = pytest.mark.cuda
 
@@ -80,10 +86,52 @@ def test_attention_matches_plain(dev, dtype, m):
     out = attention.qknorm_attend(*args, mask=mask)
     assert attention.qknorm_attend.launches == before + 1
     ref = attention.qknorm_attend_plain(*args, mask=mask)
-    # f32: summation order only; bf16: one bf16 rounding of the output apart
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    # f32: summation order only; bf16: as far as the Pallas kernel keeps from f32
+    tol = 1e-4 if dtype == torch.float32 else K2_BF16_FROM_F32
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
     torch.testing.assert_close(out[1].float(), nv.float().expand(n, h, d), rtol=0, atol=tol)
+    if dtype == torch.bfloat16:
+        rounded = attention.qknorm_attend_plain(*args, mask=mask, round_to=torch.bfloat16)
+        torch.testing.assert_close(out.float(), rounded.float(), rtol=0, atol=BF16_VS_ROUNDED)
+
+
+# the Hopper core behind both bf16 attentions: ragged kv (65 keys: one key
+# past a tile), kv over more tiles than the 3-stage ring holds (257, 1025),
+# queries not a multiple of the 128-query block
+@pytest.mark.parametrize("m", [65, 257, 1025])
+def test_qknorm_bf16_core(dev, m):
+    g = torch.Generator(device=dev).manual_seed(m)
+    b, n, h, d = 3, 200, 4, 64
+    q = torch.randn(b, n, h, d, generator=g, device=dev).bfloat16()
+    kv = torch.randn(b, m, 2 * h * d, generator=g, device=dev).bfloat16()
+    k, v = (t.reshape(b, m, h, d) for t in kv.chunk(2, dim=-1))  # strided views
+    nk, nv = (torch.randn(h, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    qs, ks = (1 + 0.1 * torch.randn(d, generator=g, device=dev) for _ in range(2))
+    mask = torch.rand(b, m, generator=g, device=dev) > 0.3
+    mask[2] = False  # row 2 attends to the null position only
+    args = (q, k, v, nk, nv, qs, ks)
+    for mk in (None, mask):
+        out = attention.qknorm_attend(*args, mask=mk)
+        rounded = attention.qknorm_attend_plain(*args, mask=mk, round_to=torch.bfloat16)
+        plain = attention.qknorm_attend_plain(*args, mask=mk)
+        torch.testing.assert_close(out.float(), rounded.float(), rtol=0, atol=BF16_VS_ROUNDED)
+        torch.testing.assert_close(out.float(), plain.float(), rtol=0, atol=K2_BF16_FROM_F32)
+    torch.testing.assert_close(out[2].float(), nv.float().expand(n, h, d), rtol=0, atol=BF16_VS_ROUNDED)
+    # the same tensors, contiguous: the TMA maps read the views by stride
+    dense = attention.qknorm_attend(q, k.contiguous(), v.contiguous(), nk, nv, qs, ks, mask=mask)
+    assert torch.equal(dense, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_qknorm_without_keys_returns_null_v(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, n, h, d = 2, 70, 2, 64
+    q = torch.randn(b, n, h, d, generator=g, device=dev).to(dtype)
+    k = v = torch.empty(b, 0, h, d, device=dev, dtype=dtype)
+    nk, nv = (torch.randn(h, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    qs = ks = torch.ones(d, device=dev)
+    out = attention.qknorm_attend(q, k, v, nk, nv, qs, ks)
+    torch.testing.assert_close(out.float(), nv.float().expand(b, n, h, d), rtol=0, atol=1e-6)
 
 
 def test_attention_rejects_what_the_kernel_does_not_take(dev):
@@ -152,10 +200,32 @@ def test_flash_attend_matches_plain(dev, dtype, d, m):
     out = attention.attend(q, k, v, mask=mask, scale=8.0, impl="flash")
     assert attention.attend.launches == before + 1 and out.dtype == dtype
     ref = attention.attend_plain(q, k, v, mask=mask, scale=8.0)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    tol = 1e-4 if dtype == torch.float32 else K4_BF16_FROM_F32
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
     mean_v = v[1].float().mean(dim=1, keepdim=True).expand(h, n, d)
     torch.testing.assert_close(out[1].float(), mean_v, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("m", [65, 257, 1025])
+def test_flash_bf16_core(dev, d, m):
+    g = torch.Generator(device=dev).manual_seed(m + d)
+    b, h, n = 2, 3, 200  # n: not a multiple of the 128-query block
+    unit = lambda t: t / t.norm(dim=-1, keepdim=True)  # noqa: E731
+    q = unit(torch.randn(b, h, n, d, generator=g, device=dev)).bfloat16()
+    # k: a strided view (every other row of a longer buffer); the wrapper copies it
+    k = unit(torch.randn(b, h, 2 * m, d, generator=g, device=dev)).bfloat16()[:, :, ::2]
+    v = torch.randn(b, h, m, d, generator=g, device=dev).bfloat16()
+    mask = torch.rand(b, m, generator=g, device=dev) > 0.3
+    mask[1] = False  # row 1: every key masked, an average over the m keys
+    for mk in (None, mask):
+        out = attention.attend(q, k, v, mask=mk, scale=8.0, impl="flash")
+        ref = attention.attend_plain(q, k, v, mask=mk, scale=8.0)
+        rounded = attention.attend_plain(q, k, v, mask=mk, scale=8.0, round_to=torch.bfloat16)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=K4_BF16_FROM_F32)
+        torch.testing.assert_close(out.float(), rounded.float(), rtol=0, atol=BF16_VS_ROUNDED)
+    mean_v = v[1].float().mean(dim=1, keepdim=True).expand(h, n, d)
+    torch.testing.assert_close(out[1].float(), mean_v, rtol=0, atol=BF16_VS_ROUNDED)
 
 
 def test_flash_attend_gradient_recomputes_plain(dev):
@@ -176,3 +246,20 @@ def test_flash_attend_rejects_what_the_kernel_does_not_take(dev):
     q = torch.randn(1, 2, 8, 16, device=dev)  # head dim 16
     with pytest.raises(ValueError, match="head dim"):
         attention.attend(q, q, q)  # "auto" is the kernel for CUDA tensors
+
+
+# -- the public modules live on the card unless asked otherwise --------------
+
+
+def test_public_modules_default_to_the_card(dev):
+    kw = dict(num_tokens=64, dim=16, seq_len=16, depth=1, dim_head=16, heads=1, text_embed_dim=8)
+    for build in (
+        lambda **d: MaskGitTransformer(generator=torch.Generator().manual_seed(0), **kw, **d),
+        lambda **d: VQGanVAE(dim=16, layers=2, codebook_size=64, generator=torch.Generator().manual_seed(0), **d),
+        lambda **d: LFQ(dim=8, codebook_size=64, generator=torch.Generator().manual_seed(0), **d),
+    ):
+        on_card, on_cpu = build(), build(device="cpu")
+        assert all(t.device.type == "cuda" for t in on_card.state_dict().values())
+        # weights are drawn from the CPU generator first, then placed
+        for a, b in zip(on_card.state_dict().values(), on_cpu.state_dict().values()):
+            assert torch.equal(a.cpu(), b)

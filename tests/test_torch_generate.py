@@ -31,13 +31,13 @@ def jax_params(module):
 def _pair(self_cond=False):
     jt = JTransformer(self_cond=self_cond, rngs=nnx.Rngs(0), **KW)
     jvae = JVAE(dim=16, layers=2, codebook_size=VOCAB, use_vgg_and_gan=False, rngs=nnx.Rngs(1))
-    pt = MaskGitTransformer(self_cond=self_cond, **KW)
-    pvae = VQGanVAE(dim=16, layers=2, codebook_size=VOCAB)
+    pt = MaskGitTransformer(self_cond=self_cond, device="cpu", **KW)
+    pvae = VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, device="cpu")
     assert load_jax_state(pt, jax_params(jt)) == []
     load_jax_state(pvae, jax_params(jvae))
     return (
         JMaskGit(image_size=16, transformer=jt, vae=jvae),
-        MaskGit(image_size=16, transformer=pt, vae=pvae),
+        MaskGit(image_size=16, transformer=pt, vae=pvae, device="cpu"),
     )
 
 

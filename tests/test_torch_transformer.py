@@ -72,7 +72,7 @@ def test_attention(cross):
 @pytest.fixture(scope="module")
 def models():
     jm = jt.MaskGitTransformer(rngs=nnx.Rngs(0), **KW)
-    pm = bridged(jm, pt.MaskGitTransformer(**KW))
+    pm = bridged(jm, pt.MaskGitTransformer(device="cpu", **KW))
     rs = np.random.RandomState(7)
     ids = rs.randint(0, VOCAB + 1, size=(B, SEQ))
     te = rs.randn(B, L, TEXT_DIM).astype(np.float32)
@@ -142,7 +142,7 @@ def test_cond_scale_one_is_single_pass(models):
 
 
 def test_bf16_compute_keeps_jax_dtypes():
-    m = pt.MaskGitTransformer(dtype=torch.bfloat16, **KW)
+    m = pt.MaskGitTransformer(dtype=torch.bfloat16, device="cpu", **KW)
     ids = torch.randint(0, VOCAB, (B, SEQ))
     with torch.no_grad():
         logits, embed = m(ids, text_embeds=torch.randn(B, L, TEXT_DIM), return_embed=True)
@@ -153,7 +153,7 @@ def test_bf16_compute_keeps_jax_dtypes():
 def test_random_init_scales_follow_jax():
     # flax initialisers: lecun-normal kernels, normal(1/sqrt(dim)) embeddings,
     # normal null_kv, ones for scales
-    m = pt.MaskGitTransformer(generator=torch.Generator().manual_seed(0), **KW)
+    m = pt.MaskGitTransformer(generator=torch.Generator().manual_seed(0), device="cpu", **KW)
     assert abs(m.to_logits.weight.std().item() - DIM ** -0.5) < 0.1 * DIM ** -0.5
     assert abs(m.token_emb.weight.std().item() - DIM ** -0.5) < 0.1 * DIM ** -0.5
     attn = m.transformer_blocks.layers[0][0]
@@ -162,7 +162,7 @@ def test_random_init_scales_follow_jax():
 
 
 def test_missing_text_embed_dim_raises():
-    kw = dict(KW, text_embed_dim=None)
+    kw = dict(KW, text_embed_dim=None, device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         pt.MaskGitTransformer(**kw)
     assert "A6" in str(not_ported("x", "A6"))

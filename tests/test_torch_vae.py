@@ -54,7 +54,7 @@ def _perturb_norms(module):
 @pytest.mark.parametrize("dim", [8, 24], ids=["no_projection", "projection"])
 def test_lfq_indices_to_codes_exact(dim):
     jl = jq.LFQ(dim=dim, codebook_size=256, rngs=nnx.Rngs(0))
-    pl = pq.LFQ(dim=dim, codebook_size=256)
+    pl = pq.LFQ(dim=dim, codebook_size=256, device="cpu")
     assert load_jax_state(pl, jax_params(jl)) == []
     ids = np.random.RandomState(1).randint(0, 256, size=(2, 4, 4))
     np.testing.assert_array_equal(
@@ -100,7 +100,7 @@ def test_glu_resblock():
 def test_decode_from_ids_pixels(layers):
     jvae = jv.VQGanVAE(dim=16, layers=layers, codebook_size=256, use_vgg_and_gan=False, rngs=nnx.Rngs(6))
     _perturb_norms(jvae)
-    pvae = pv.VQGanVAE(dim=16, layers=layers, codebook_size=256)
+    pvae = pv.VQGanVAE(dim=16, layers=layers, codebook_size=256, device="cpu")
     assert load_jax_state(pvae, jax_params(jvae)) == []
     ids = np.random.RandomState(7).randint(0, 256, size=(2, 4, 4))
     want = np.asarray(jvae.decode_from_ids(jnp.asarray(ids)))
@@ -113,17 +113,17 @@ def test_decode_from_ids_pixels(layers):
 def test_encode_side_raises_not_ported():
     # inference is ported; training (losses, codebook updates, the GAN
     # towers) is not
-    vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256)
+    vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, device="cpu")
     img = torch.zeros(1, 16, 16, 3)
     with pytest.raises(NotImplementedError, match="A10"):
         vae.encode(img, train=True)
     with pytest.raises(NotImplementedError, match="A10"):
         vae.encode(img, update_stats=True)
-    vq_vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, lookup_free_quantization=False)
+    vq_vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, lookup_free_quantization=False, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         vq_vae.encode(img, train=True)
     with pytest.raises(NotImplementedError, match="A10"):
-        pv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=True)
+        pv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=True, device="cpu")
 
 
 @pytest.mark.parametrize("size", [8, 9], ids=["even", "odd"])
@@ -173,7 +173,7 @@ def test_encoder(layers, kw):
 @pytest.mark.parametrize("dim", [8, 24], ids=["no_projection", "projection"])
 def test_lfq_forward_ids_exact(dim):
     jl = jq.LFQ(dim=dim, codebook_size=256, rngs=nnx.Rngs(14))
-    pl = pq.LFQ(dim=dim, codebook_size=256)
+    pl = pq.LFQ(dim=dim, codebook_size=256, device="cpu")
     load_jax_state(pl, jax_params(jl))
     x = np.random.RandomState(15).randn(2, 4, 4, dim).astype(np.float32)
     jout, jids, jaux = jl(jnp.asarray(x), train=False)
@@ -194,7 +194,7 @@ def test_lfq_forward_ids_exact(dim):
 )
 def test_fsq_matches_jax(levels, dim):
     jf = jq.FSQ(dim=dim, levels=levels, rngs=nnx.Rngs(16))
-    pf = pq.FSQ(dim=dim, levels=levels)
+    pf = pq.FSQ(dim=dim, levels=levels, device="cpu")
     assert load_jax_state(pf, jax_params(jf)) == []
     x = 2 * np.random.RandomState(17).randn(2, 5, 5, dim).astype(np.float32)
     jout, jids, _ = jf(jnp.asarray(x), train=False)
@@ -238,7 +238,7 @@ def test_encode_decode_slice(kw):
     cosine)."""
     jvae = jv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=False, rngs=nnx.Rngs(18), **kw)
     _perturb_norms(jvae)
-    pvae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, **kw)
+    pvae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, device="cpu", **kw)
     assert load_jax_state(pvae, jax_params(jvae)) == []
     assert pvae.codebook_size == 256
     img = np.random.RandomState(19).rand(2, 16, 16, 3).astype(np.float32)
@@ -268,16 +268,16 @@ def test_encode_decode_slice(kw):
 
 
 def test_vq_kwargs_defaults_and_prefix_routing():
-    vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=64, lookup_free_quantization=False)
+    vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=64, lookup_free_quantization=False, device="cpu")
     q = vae.quantizer
     assert isinstance(q, pq.VectorQuantizeEMA)
     assert (q.codebook_dim, q.decay, q.commitment_weight, q.kmeans_init, q.use_cosine_sim) == (256, 0.8, 1.0, True, True)
     vae = pv.VQGanVAE(
-        dim=16, layers=2, codebook_size=64, lookup_free_quantization=False,
+        dim=16, layers=2, codebook_size=64, lookup_free_quantization=False, device="cpu",
         vq_kwargs=dict(decay=0.5), vq_codebook_dim=8, vq_use_cosine_sim=False, encdec_first_conv_kernel_size=3,
     )
     q = vae.quantizer
     assert (q.codebook_dim, q.decay, q.use_cosine_sim) == (8, 0.5, False)
     assert vae.enc_dec.encoders[0].kernel_size == (3, 3)
     with pytest.raises(TypeError, match="unknown kwargs"):
-        pv.VQGanVAE(dim=16, layers=2, bogus=1)
+        pv.VQGanVAE(dim=16, layers=2, bogus=1, device="cpu")

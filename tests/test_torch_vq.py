@@ -101,7 +101,7 @@ def test_score_gap_zero_at_the_argmax():
 
 def test_ema_vq_bridge_leaves_nothing():
     jm = jq.VectorQuantizeEMA(dim=24, codebook_size=64, codebook_dim=8, rngs=nnx.Rngs(0))
-    pm = pq.VectorQuantizeEMA(dim=24, codebook_size=64, codebook_dim=8)
+    pm = pq.VectorQuantizeEMA(dim=24, codebook_size=64, codebook_dim=8, device="cpu")
     state = nnx.state(jm, (nnx.Param, nnx.BatchStat)).to_pure_dict()
     assert load_jax_state(pm, state) == []
     np.testing.assert_array_equal(pm.codebook.numpy(), np.asarray(jm.codebook[...]))
@@ -115,7 +115,7 @@ def test_ema_vq_bridge_leaves_nothing():
 def test_ema_vq_forward_matches_jax(cosine, dim):
     kw = dict(dim=dim, codebook_size=256, codebook_dim=8, use_cosine_sim=cosine)
     jm = jq.VectorQuantizeEMA(**kw, rngs=nnx.Rngs(1))
-    pm = pq.VectorQuantizeEMA(**kw)
+    pm = pq.VectorQuantizeEMA(device="cpu", **kw)
     assert load_jax_state(pm, nnx.state(jm, (nnx.Param, nnx.BatchStat)).to_pure_dict()) == []
     x = np.random.RandomState(2).randn(2, 5, 5, dim).astype(np.float32)
     jout, jids, jaux = jm(jnp.asarray(x), train=False)
@@ -130,7 +130,7 @@ def test_ema_vq_forward_matches_jax(cosine, dim):
 def test_ema_vq_codes_from_indices_match_jax():
     kw = dict(dim=24, codebook_size=64, codebook_dim=8)
     jm = jq.VectorQuantizeEMA(**kw, rngs=nnx.Rngs(3))
-    pm = pq.VectorQuantizeEMA(**kw)
+    pm = pq.VectorQuantizeEMA(device="cpu", **kw)
     load_jax_state(pm, nnx.state(jm, (nnx.Param, nnx.BatchStat)).to_pure_dict())
     ids = np.random.RandomState(4).randint(0, 64, size=(2, 4, 4))
     want = np.asarray(jm.get_codes_from_indices(jnp.asarray(ids)))
@@ -140,14 +140,14 @@ def test_ema_vq_codes_from_indices_match_jax():
 
 
 def test_ema_vq_random_init_is_unit_norm_and_seeded():
-    a = pq.VectorQuantizeEMA(dim=16, codebook_size=32, codebook_dim=8, generator=torch.Generator().manual_seed(5))
-    b = pq.VectorQuantizeEMA(dim=16, codebook_size=32, codebook_dim=8, generator=torch.Generator().manual_seed(5))
+    a = pq.VectorQuantizeEMA(dim=16, codebook_size=32, codebook_dim=8, generator=torch.Generator().manual_seed(5), device="cpu")
+    b = pq.VectorQuantizeEMA(dim=16, codebook_size=32, codebook_dim=8, generator=torch.Generator().manual_seed(5), device="cpu")
     torch.testing.assert_close(a.codebook.norm(dim=-1), torch.ones(32))
     assert torch.equal(a.codebook, b.codebook) and torch.equal(a.embed_avg, a.codebook)
 
 
 def test_ema_vq_training_raises_not_ported():
-    pm = pq.VectorQuantizeEMA(dim=16, codebook_size=32, codebook_dim=8)
+    pm = pq.VectorQuantizeEMA(dim=16, codebook_size=32, codebook_dim=8, device="cpu")
     x = torch.randn(2, 16)
     for call in (lambda: pm(x, train=True), lambda: pm(x, update_stats=True), lambda: pm.update_from_input(x)):
         with pytest.raises(NotImplementedError, match="A10"):
