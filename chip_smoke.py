@@ -183,14 +183,22 @@ def phase_build(torch, ctx):
 
     from muse_maskgit_pytorch_tpu_torch.ops import _build, attention, sampling_kernel, vq
 
-    def timed_build(name):
+    # each source with the flags its module loads it with, and the sampler's
+    # instrumented build that `[k1]` reads the clocks of a row's parts from
+    flags = {name: () for name in KERNEL_SOURCES}
+    flags["sampling_kernel"] = sampling_kernel.FLAGS
+    jobs = [*flags.items(), ("sampling_kernel", sampling_kernel.TIMING_FLAGS)]
+
+    def timed_build(job):
         t = time.perf_counter()
-        _build.build(name)
+        _build.build(*job)
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        secs = dict(zip(KERNEL_SOURCES, pool.map(timed_build, KERNEL_SOURCES)))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        times = list(pool.map(timed_build, jobs))
+    secs = dict(zip(KERNEL_SOURCES, times))
+    secs["sampling_kernel (timing)"] = times[-1]
     wall = time.perf_counter() - t0
     for lib in (sampling_kernel._lib, attention._lib, attention._flash_lib, vq._lib):
         lib()  # load each library and bind its entry points
@@ -202,6 +210,7 @@ def phase_k1(torch, ctx):
     from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import (
         fused_topk_gumbel_sample as sample,
         fused_topk_gumbel_sample_plain as plain,
+        sample_part_clocks,
         topk_threshold_plain,
     )
 
@@ -211,9 +220,9 @@ def phase_k1(torch, ctx):
     temp = 17.0 / 18.0
     seed = torch.tensor([12345], dtype=torch.int32, device=dev)
 
-    def compare(tag, logits, noise, **kw):
-        idx, prob = sample(logits, TOPK, temp, seed, noise=noise, **kw)
-        pidx, pprob = plain(logits, TOPK, temp, seed, noise=noise, **kw)
+    def compare(tag, logits, noise, k=TOPK, **kw):
+        idx, prob = sample(logits, k, temp, seed, noise=noise, **kw)
+        pidx, pprob = plain(logits, k, temp, seed, noise=noise, **kw)
         torch.cuda.synchronize()
         require(torch.equal(idx, pidx), f"K1 {tag}: idx differ at {(idx != pidx).sum().item()} rows")
         rel = ((prob - pprob).abs() / pprob.abs().clamp_min(1e-30)).max().item()
@@ -228,11 +237,52 @@ def phase_k1(torch, ctx):
     # cfg_pair: cond rows then null rows, combined in the kernel
     pair = (torch.randn(2 * rows, VOCAB, generator=g, device=dev) * 3).to(torch.bfloat16)
     err = max(err, compare("cfg_pair", pair, noise, cfg_pair=True, cond_scale=CFG))
-    del pair
     # an odd row count, f32 logits
     odd = torch.randn(1001, VOCAB, generator=g, device=dev) * 3
     err = max(err, compare("odd rows f32", odd, noise[:1001]))
     del odd
+
+    # rows built to stress the threshold and the persistent loop: row counts
+    # below the SM count, one past a multiple of it and the compact steps';
+    # k = 1 and k = V; heavy ties (five distinct bf16 values); a constant
+    # row; a range far below the magnitude (the tree's mids collide); V not
+    # a multiple of 8 (bf16 and f32, read from global memory)
+    tied = (torch.randint(0, 5, (133, VOCAB), generator=g, device=dev).float() * 0.75 - 1.0).to(torch.bfloat16)
+    tied[1] = 2.5
+    narrow = 1000.0 + torch.rand(7, VOCAB, generator=g, device=dev) * 1e-3
+    stress = {
+        "7 rows": (logits[:7], TOPK, {}),
+        "133 rows": (logits[:133], TOPK, {}),
+        "1024 rows": (logits[:1024], TOPK, {}),
+        "k=1": (logits[:133], 1, {}),
+        "k=V": (logits[:133], VOCAB, {}),
+        "tied and constant": (tied, TOPK, {}),
+        "tied k=V": (tied, VOCAB, {}),
+        "tied cfg_pair": (torch.cat([tied[:66], tied[66:132]]), TOPK, dict(cfg_pair=True, cond_scale=CFG)),
+        "narrow f32": (narrow, TOPK, {}),
+        "V=1000 bf16": (logits[:133, :1000], 100, {}),
+        "V=1001 bf16": (logits[:133, :1001], 101, {}),
+        "V=4099 f32": (logits[:133, :4099].float() * 1.7, 410, {}),
+        "V=4096 bf16": (logits[:1024, :4096], 410, {}),
+    }
+    for tag, (x, k, kw) in stress.items():
+        n_rows = x.shape[0] // (2 if kw else 1)
+        err = max(err, compare(tag, x.contiguous(), noise[:n_rows, : x.shape[1]].contiguous(), k=k, **kw))
+    del tied, narrow
+    # a NaN and an infinity in a row guess no bins: no fault, and the rows
+    # beside them are as exact as before
+    broken = logits[:133].clone()
+    broken[3, 77] = float("nan")
+    broken[5, 4099] = float("inf")
+    broken[8, 12] = float("-inf")
+    bidx, _ = sample(broken, TOPK, temp, seed, noise=noise[:133])
+    pidx, _ = plain(logits[:133], TOPK, temp, seed, noise=noise[:133])
+    torch.cuda.synchronize()
+    sound = torch.ones(133, dtype=torch.bool, device=dev)
+    sound[[3, 5, 8]] = False
+    require(torch.equal(bidx[sound], pidx[sound]), "K1 rows beside a NaN or infinite row differ")
+    require(int(bidx[5]) == 4099, "K1 did not pick the +inf logit of its row")
+    del broken
 
     # in-kernel Philox noise
     # temperature 0: the draw is a row maximum (bf16 rows hold tied maxima,
@@ -266,11 +316,35 @@ def phase_k1(torch, ctx):
     # arithmetic, a few f32 operations per logit, takes less
     bound_ms, bound_by = bound(0, nbytes(logits, seed) + rows * 8, PEAK_F32)
     ctx["k1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    # the compact steps' row counts, by device time (CUDA-graph replay: the
+    # wrapper's Python would outlast the kernel in an eager loop)
+    small = {n: graph_ms(lambda: sample(logits[:n], TOPK, temp, seed)) for n in (1024, 4096)}
+    small_bound = {n: bound(0, nbytes(logits[:n], seed) + n * 8, PEAK_F32)[0] for n in small}
+    # the routes that read global memory: cfg_pair bf16 (two rows read for
+    # one sampled) and f32 logits (four-byte reads), each with its own bound
+    pair_ms = cuda_ms(lambda: sample(pair, TOPK, temp, seed, cfg_pair=True, cond_scale=CFG))
+    pair_bound, _ = bound(0, nbytes(pair, seed) + rows * 8, PEAK_F32)
+    del pair
+    f32_ms = cuda_ms(lambda: sample(l32, TOPK, temp, seed))
+    f32_bound, _ = bound(0, nbytes(l32, seed) + rows * 8, PEAK_F32)
+    ctx["k1_routes"] = dict(
+        cfg_pair_bf16=dict(ms=pair_ms, bound_ms=pair_bound), f32=dict(ms=f32_ms, bound_ms=f32_bound),
+        **{f"bf16_rows_{n}": dict(ms=small[n], bound_ms=small_bound[n]) for n in small},
+    )
+    small_s = ", ".join(f"{n} rows {small[n]:.4f} ms (bound {small_bound[n]:.4f})" for n in small)
+    # where a row's time goes: SM clocks per row in each part, from the
+    # instrumented build (block 0, averaged over its rows)
+    parts = sample_part_clocks(logits, TOPK, temp, seed)
+    ctx["k1_routes"]["part_clocks_per_row"] = parts
+    parts_s = ", ".join(f"{name} {c:.0f}" for name, c in parts.items())
     log(
-        f"[k1] fused_topk_gumbel_sample ok: ids exact (bf16, cfg_pair, odd f32), prob abs err "
-        f"{err:.3g}; temp0=argmax, top-k set, Philox agree {agree_philox:.4f}, freq dev "
-        f"{dev_max:.4f}; ({rows}, {VOCAB}) bf16 {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms ({bound_by})"
+        f"[k1] fused_topk_gumbel_sample ok: ids exact (bf16, cfg_pair, odd f32; {', '.join(stress)}), "
+        f"prob abs err {err:.3g} (rel <= 1e-5); temp0=argmax, top-k set, Philox agree {agree_philox:.4f}, "
+        f"freq dev {dev_max:.4f}; ({rows}, {VOCAB}) bf16 {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.0%} of it reached; device time by graph replay: "
+        f"{small_s}; cfg_pair bf16 (2 x {rows}, {VOCAB}) {pair_ms:.3f} ms, bound {pair_bound:.3f} ms (bytes); "
+        f"f32 ({rows}, {VOCAB}) {f32_ms:.3f} ms, bound {f32_bound:.3f} ms (bytes); SM clocks a row by part "
+        f"(instrumented build, {sum(parts.values()):.0f} in all): {parts_s}"
     )
 
 
@@ -875,6 +949,7 @@ def main(argv=None) -> int:
         dict(
             name=name, route="cuda", source=f"muse_maskgit_pytorch_tpu_torch/csrc/{src}",
             replaces=f"muse_maskgit_pytorch_tpu/ops/{tpu}", **{k: ctx[tag][k] for k in keys},
+            **({"routes": ctx["k1_routes"]} if tag == "k1" else {}),
         )
         for tag, name, src, tpu in rows
     ]

@@ -2,12 +2,26 @@
 
 Counterpart of `muse_maskgit_pytorch_tpu/ops/sampling_kernel.py`, whose
 Pallas kernel `_sample_kernel` this replaces on Hopper with the CUDA kernel
-in `csrc/sampling_kernel.cu` (see there for what bounds it on the H100 and
-how its design answers that). Per row of (rows, V) logits: optional CFG
-combine, a top-k threshold by 10 rounds of value bisection, the logsumexp of
-the unfiltered row, gumbel noise (injected, or Philox4x32-10 keyed on
+in `csrc/sampling_kernel.cu`. Per row of (rows, V) logits: optional CFG
+combine, the top-k threshold of 10 rounds of value bisection, the logsumexp
+of the unfiltered row, gumbel noise (injected, or Philox4x32-10 keyed on
 (seed, row)), the first-index argmax of `l / max(temp, 1e-10) + g` over
 `l >= threshold`, and the softmax probability of the chosen id.
+
+By bytes the kernel needs 0.32 ms for the main path's step 0 (1.07 GB of
+bf16 logits at 3.35 TB/s); it takes about 1.1 ms there (NVIDIA H100 80GB
+HBM3, 700 W), bound by the instructions an SM spends on a row, not by HBM.
+It makes three passes over a row instead of one per bisection round: the
+ten rounds only compare against the 1023 node values of a tree that the
+row's (min, max) fix, so one pass counts every logit into a 1024-bin
+histogram over those values and the rounds become look-ups in its suffix
+sum (`topk_threshold_histogram_plain` is that algorithm in plain PyTorch,
+equal bit for bit to the bisection `topk_threshold_plain`). One persistent
+block on each SM walks the rows; a bf16 row streams from HBM by 1-D bulk
+copies into a ring of 16 KB chunks in shared memory while the row before it
+draws its noise, which only the columns at or above the threshold need.
+See the header of `csrc/sampling_kernel.cu`; `sample_part_clocks` reports
+where a row's clocks go.
 
 `fused_topk_gumbel_sample` launches the kernel for CUDA tensors and runs
 `fused_topk_gumbel_sample_plain` (the same function in plain PyTorch, with
@@ -88,6 +102,38 @@ def topk_threshold_plain(l: torch.Tensor, k: int) -> torch.Tensor:
     return lo
 
 
+def topk_threshold_histogram_plain(l: torch.Tensor, k: int) -> torch.Tensor:
+    """`topk_threshold_plain` in the form the kernel computes it: one
+    counting pass in place of one per round, the same (rows, 1) result bit
+    for bit.
+
+    The bisection only compares against the mids of a depth-10 tree that
+    (min, max) fix. Level by level (the bisection's f32 operations), the
+    tree's 1024 leaf intervals have lower ends E[0..1023], sorted, with the
+    mid of node j at depth d at E[(2 j + 1) << (9 - d)]. Each logit is
+    counted into the bin g with E[g] <= x < E[g + 1]; the suffix sum S[m]
+    of the bins is count(l >= E[m]), and the ten rounds are ten look-ups."""
+    rows = l.shape[0]
+    lo = l.amin(dim=-1, keepdim=True)  # (rows, 2^d) interval ends at depth d
+    hi = l.amax(dim=-1, keepdim=True)
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        lo, hi = torch.stack([lo, mid], dim=-1), torch.stack([mid, hi], dim=-1)
+        lo, hi = lo.reshape(rows, -1), hi.reshape(rows, -1)
+    E = lo.contiguous()  # (rows, 1024)
+    bins = 1 << BISECT_ITERS
+    # the largest g with E[g] <= x (E[0] is the row minimum, so g >= 0)
+    g = torch.searchsorted(E, l.contiguous(), right=True) - 1
+    hist = torch.zeros(rows, bins, dtype=torch.int64, device=l.device)
+    hist.scatter_add_(1, g, torch.ones_like(g))
+    S = hist.flip(-1).cumsum(-1).flip(-1)
+    leaf = torch.zeros(rows, 1, dtype=torch.int64, device=l.device)
+    for d in range(BISECT_ITERS):
+        m = (2 * leaf + 1) << (BISECT_ITERS - 1 - d)
+        leaf = 2 * leaf + (S.gather(1, m) >= k).long()
+    return E.gather(1, leaf)
+
+
 def fused_topk_gumbel_sample_plain(
     logits: torch.Tensor,
     k: int,
@@ -127,10 +173,25 @@ def fused_topk_gumbel_sample_plain(
 # ---------------------------------------------------------------------------
 
 
-def _lib() -> ctypes.CDLL:
-    # -fmad=false: the CFG combine must round its multiply before the add,
-    # as the plain version and the JAX kernel do
-    lib = _build.load("sampling_kernel", extra_flags=["-fmad=false"])
+# -fmad=false: the CFG combine must round its multiply before the add, as the
+# plain version and the JAX kernel do
+FLAGS = ["-fmad=false"]
+# the diagnostic build that also reports the clocks of each part of a row
+TIMING_FLAGS = [*FLAGS, "-DSAMPLER_TIMING"]
+PARTS = (
+    "await copies",
+    "min/max",
+    "tree",
+    "pass B",
+    "threshold",
+    "pass C marks",
+    "pass C list",
+    "pass C scores",
+    "row end",
+)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.muse_sample_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -139,6 +200,52 @@ def _lib() -> ctypes.CDLL:
         lib.muse_sample_error_string.argtypes = [ctypes.c_int]
         lib.muse_sample_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _bind(_build.load("sampling_kernel", extra_flags=FLAGS))
+
+
+_timing_lib: Optional[ctypes.CDLL] = None
+
+
+def sample_part_clocks(logits: torch.Tensor, k: int, temperature: float, seed: torch.Tensor) -> dict:
+    """Diagnostic: where the kernel's time on a row goes. Runs the
+    `-DSAMPLER_TIMING` build of the kernel on (rows, V) CUDA logits (Philox
+    noise, no cfg_pair) and returns SM clocks per row for each of `PARTS`, as
+    the first thread of block 0 saw them, averaged over that block's rows.
+    The instrumented build is a few percent slower than the kernel; it is
+    not counted as a launch and nothing on a model's path calls it."""
+    global _timing_lib
+    if logits.device.type != "cuda" or logits.dim() != 2:
+        raise ValueError("sample_part_clocks needs (rows, V) logits on a CUDA device")
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"logits must be f32 or bf16, got {logits.dtype}")
+    if _timing_lib is None:
+        _timing_lib = _bind(ctypes.CDLL(str(_build.build("sampling_kernel", TIMING_FLAGS))))
+    logits = logits.contiguous()
+    rows, V = logits.shape
+    idx = torch.empty(rows, dtype=torch.int32, device=logits.device)
+    prob = torch.zeros(rows + len(PARTS), dtype=torch.float32, device=logits.device)
+    err = _timing_lib.muse_sample_launch(
+        logits.data_ptr(),
+        None,
+        seed.reshape(-1)[:1].contiguous().data_ptr(),
+        idx.data_ptr(),
+        prob.data_ptr(),
+        rows,
+        V,
+        int(k),
+        float(temperature),
+        1.0,
+        1 if logits.dtype == torch.bfloat16 else 0,
+        0,
+        torch.cuda.current_stream(logits.device).cuda_stream,
+    )
+    _build.check(_timing_lib.muse_sample_error_string, err, "sample_part_clocks")
+    blocks = min(rows, torch.cuda.get_device_properties(logits.device).multi_processor_count)
+    rows_of_block0 = -(-rows // blocks)
+    return {name: c / rows_of_block0 for name, c in zip(PARTS, prob[rows:].tolist())}
 
 
 def fused_topk_gumbel_sample(

@@ -38,12 +38,19 @@ def _gumbel(shape, g, dev):
     return -torch.log(-torch.log(u))
 
 
+# (rows, V): 1000 is a multiple of 8 but not of a 16 KB chunk, 1001 is neither
+# (read from global memory); 7 rows are fewer than the persistent grid's
+# blocks, 133 one more than it on an H100, 1024 a compact step's count;
+# 65536 fills the staged ring's 8 chunks a row, 70000 is past the staged limit
+SAMPLER_SHAPES = [(37, 4096), (37, 1000), (37, 1001), (7, 65536), (133, 65536), (1024, 4096), (133, 70000)]
+
+
 @pytest.mark.parametrize("cfg_pair", [False, True], ids=["single", "cfg_pair"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("V", [4096, 1000])  # 1000: not a multiple of 8
-def test_sampler_matches_plain(dev, dtype, cfg_pair, V):
+@pytest.mark.parametrize("rows, V", SAMPLER_SHAPES)
+def test_sampler_matches_plain(dev, dtype, cfg_pair, rows, V):
     g = torch.Generator(device=dev).manual_seed(V + 2 * cfg_pair)
-    rows, k = 37, -(-V // 10)
+    k = -(-V // 10)
     logits = (torch.randn((2 if cfg_pair else 1) * rows, V, generator=g, device=dev) * 3).to(dtype)
     noise = _gumbel((rows, V), g, dev)
     seed = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -56,6 +63,56 @@ def test_sampler_matches_plain(dev, dtype, cfg_pair, V):
     assert torch.equal(idx, pidx)
     # the row's logsumexp is summed in another order
     torch.testing.assert_close(prob, pprob, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("which_k", ["one", "tenth", "all"])
+def test_sampler_tied_and_constant_rows(dev, dtype, which_k):
+    # five distinct values a row (most columns tie at the threshold), one
+    # constant row: the ids stay exact, ties to the lowest index
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows, V = 40, 8192
+    k = {"one": 1, "tenth": -(-V // 10), "all": V}[which_k]
+    logits = (torch.randint(0, 5, (rows, V), generator=g, device=dev).float() * 0.75 - 1.0).to(dtype)
+    logits[3] = 2.5
+    noise = _gumbel((rows, V), g, dev)
+    noise[5] = 0.0  # ties in the score too
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    idx, prob = sampling_kernel.fused_topk_gumbel_sample(logits, k, 0.8, seed, noise=noise)
+    pidx, pprob = sampling_kernel.fused_topk_gumbel_sample_plain(logits, k, 0.8, seed, noise=noise)
+    assert torch.equal(idx, pidx)
+    torch.testing.assert_close(prob, pprob, rtol=1e-5, atol=0)
+
+
+def test_sampler_nan_and_infinite_rows_do_not_fault(dev):
+    # a row that holds a NaN or an infinity guesses no histogram bins; the
+    # rows beside it stay exact and +inf wins its row
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows, V = 40, 65536
+    logits = (torch.randn(rows, V, generator=g, device=dev) * 3).to(torch.bfloat16)
+    noise = _gumbel((rows, V), g, dev)
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    k = -(-V // 10)
+    pidx, _ = sampling_kernel.fused_topk_gumbel_sample_plain(logits, k, 0.8, seed, noise=noise)
+    broken = logits.clone()
+    broken[3, 77] = float("nan")
+    broken[5, 4099] = float("inf")
+    broken[8, 12] = float("-inf")
+    for x in (broken, broken.float()):
+        idx, _ = sampling_kernel.fused_topk_gumbel_sample(x, k, 0.8, seed, noise=noise)
+        torch.cuda.synchronize()
+        sound = torch.ones(rows, dtype=torch.bool, device=dev)
+        sound[[3, 5, 8]] = False
+        assert torch.equal(idx[sound], pidx[sound])
+        assert int(idx[5]) == 4099
+
+
+def test_sampler_part_clocks(dev):
+    logits = torch.randn(300, 65536, device=dev).to(torch.bfloat16)
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    parts = sampling_kernel.sample_part_clocks(logits, 6554, 1.0, seed)
+    assert tuple(parts) == sampling_kernel.PARTS
+    assert all(c >= 0 for c in parts.values()) and sum(parts.values()) > 0
 
 
 def test_sampler_philox_stream_matches_plain(dev):

@@ -7,15 +7,24 @@ The ids must be identical: the threshold comes from the same f32 bisection
 operations and the argmax breaks ties at the lowest index on both sides.
 The chosen probabilities agree to rtol 1e-5: the logsumexp of a row is
 summed in a different order on each side.
+
+The histogram form of the threshold (`topk_threshold_histogram_plain`, the
+algorithm of the CUDA kernel) is held to exact equality, bit for bit, with
+the ten-round bisection of the port and of the JAX kernel's body.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from muse_maskgit_pytorch_tpu.ops.sampling_kernel import (
+    _BISECT_ITERS,
     fused_topk_gumbel_sample as jax_sample,
 )
 from muse_maskgit_pytorch_tpu_torch.ops import sampling_kernel as port
@@ -129,3 +138,85 @@ def test_zero_temperature_is_first_argmax():
     idx, _ = port.fused_topk_gumbel_sample(logits, 2, 0.0, torch.tensor([3], dtype=torch.int32))
     assert idx.tolist() in ([1, 0], [2, 0], [1, 2], [2, 2])  # a row maximum
     assert bool((logits.gather(1, idx.long()[:, None])[:, 0] == logits.amax(-1)).all())
+
+
+# ---------------------------------------------------------------------------
+# the histogram form of the threshold: exact equality with the bisection
+# ---------------------------------------------------------------------------
+
+
+def _jax_bisection(l, k):
+    """The threshold of the JAX kernel's body (`_sample_kernel`, step 1),
+    the same operations on a (rows, V) f32 array."""
+    l = jnp.asarray(l)
+    lo = jnp.min(l, axis=-1, keepdims=True)
+    hi = jnp.max(l, axis=-1, keepdims=True)
+
+    def bisect(_, lohi):
+        lo, hi = lohi
+        mid = 0.5 * (lo + hi)
+        cnt = jnp.sum((l >= mid).astype(jnp.float32), axis=-1, keepdims=True)
+        ge = cnt >= k
+        return jnp.where(ge, mid, lo), jnp.where(ge, hi, mid)
+
+    lo, hi = jax.lax.fori_loop(0, _BISECT_ITERS, bisect, (lo, hi))
+    return np.asarray(lo)
+
+
+def _threshold_rows(kind):
+    rs = np.random.RandomState(sum(map(ord, kind)))
+    if kind == "bf16":  # bf16-valued rows, as the bf16 trunk's head gives
+        l = (rs.randn(6, 8192) * 3).astype(np.float32)
+        return np.array(jnp.asarray(l, jnp.bfloat16).astype(jnp.float32))
+    if kind == "f32_odd":  # V not a multiple of 8
+        return (rs.randn(9, 4099) * 3).astype(np.float32)
+    if kind == "few_values":  # heavy ties
+        return rs.randint(0, 5, (7, 4099)).astype(np.float32) * 0.75 - 1.0
+    if kind == "constant":
+        return np.full((3, 1000), 2.5, np.float32)
+    if kind == "tiny":  # denormal scale
+        return ((rs.randn(5, 4099) * 3).astype(np.float32) * np.float32(1e-38)).astype(np.float32)
+    if kind == "huge":
+        return ((rs.randn(5, 4099) * 3).astype(np.float32) * np.float32(1e30)).astype(np.float32)
+    if kind == "narrow":  # a range far below the magnitude: the tree's mids collide
+        return (1000.0 + rs.rand(5, 2048) * 1e-3).astype(np.float32)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("which_k", ["one", "tenth", "all"])
+@pytest.mark.parametrize(
+    "kind", ["bf16", "f32_odd", "few_values", "constant", "tiny", "huge", "narrow"]
+)
+def test_histogram_threshold_equals_bisection(kind, which_k):
+    l = _threshold_rows(kind)
+    V = l.shape[1]
+    k = {"one": 1, "tenth": math.ceil(0.1 * V), "all": V}[which_k]
+    t = torch.from_numpy(l)
+    want = port.topk_threshold_plain(t, k)
+    got = port.topk_threshold_histogram_plain(t, k)
+    assert got.shape == want.shape == (l.shape[0], 1)
+    # exact equality, compared as bits (so -0.0 and 0.0 would differ too)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+    if kind != "tiny":  # XLA's CPU backend flushes denormals to zero: not IEEE there
+        np.testing.assert_array_equal(got.numpy().view(np.int32), _jax_bisection(l, k).view(np.int32))
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(
+    seed=st.integers(0, 2**31 - 1),
+    V=st.integers(1, 700),
+    scale=st.sampled_from([1e-3, 1.0, 3.0, 1e4]),
+    offset=st.sampled_from([0.0, -7.0, 300.0]),
+    levels=st.sampled_from([0, 3, 40]),  # 0: continuous values, else that many distinct ones
+    k_frac=st.floats(0.0, 1.0),
+)
+def test_histogram_threshold_equals_bisection_random(seed, V, scale, offset, levels, k_frac):
+    rs = np.random.RandomState(seed)
+    l = rs.randn(4, V)
+    if levels:
+        l = np.round(l * levels / 4) * 4 / levels
+    t = torch.from_numpy((l * scale + offset).astype(np.float32))
+    k = min(V, max(1, round(k_frac * V)))
+    want = port.topk_threshold_plain(t, k)
+    got = port.topk_threshold_histogram_plain(t, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))  # exact
