@@ -12,6 +12,11 @@ read just after):
     the width `bench.py` uses (transformer dim 512, depth 8, 8 heads x 64,
     seq 256, vocab 65536, bf16; VAE dim 256, 4 layers, LFQ 65536; batch 32,
     18 steps, CFG 3) -- K1 and K2;
+  * `cascade`: texts -> 512px at that width: the base stage's token grid
+    conditions a super-res stage (seq 1024, `cond_image_size` 256, the same
+    VAE), batch 16, 18 steps each, CFG 3, as the chain `bench.py` defines
+    and through `Muse(texts)` with a T5 v1.1-base shaped encoder in front,
+    handing over ids and pixels -- K1 and K2 at the super-res shapes;
   * `tokenize`: `VQGanVAE.encode` -> ids -> `decode_from_ids` at the
     tokenizer's full width (dim 256, 4 layers, 256px, batch 32) with LFQ and
     with EMA-VQ at the reference vq_kwargs (K 65536, codebook_dim 256,
@@ -25,9 +30,9 @@ non-zero. The last line is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
-selects a subset (env, build, k1, k2, k3, k4, generate, profile, parity,
-tokenize) while iterating; a subset prints its phases' lines and no result
-lines.
+selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
+t5, cascade, profile) while iterating; a subset prints its phases' lines
+and no result lines.
 """
 
 from __future__ import annotations
@@ -42,7 +47,12 @@ import sys
 import time
 from pathlib import Path
 
-ALL_PHASES = ("env", "build", "k1", "k2", "k3", "k4", "generate", "profile", "parity", "tokenize")
+# `profile` runs last, and `cascade` profiles at its end: once torch.profiler
+# has run in a process, every later launch costs the host more, and the
+# requests of `generate` and `cascade` are paced by the host's launches
+ALL_PHASES = (
+    "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "cascade", "profile",
+)
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "vq_search", "flash_attention")
 
 # main-path shapes
@@ -51,6 +61,27 @@ SEQ, VOCAB, DIM, DEPTH, HEADS, DIM_HEAD, TEXT_LEN, TEXT_DIM = 256, 65536, 512, 8
 TOPK = math.ceil(0.1 * VOCAB)
 IMAGE, VAE_DIM, VAE_LAYERS, CODE_DIM = 256, 256, 4, 256
 NEAR_TIE = 1e-5  # f64 score gap within which two f32 searches may differ (unit vectors)
+# the cascade: batch, the super-res stage's sequence and image, its conditioning grid
+CAS_BATCH, SR_SEQ, SR_IMAGE, COND_TOKENS = 16, 1024, 512, 256
+# 57-63 bytes each: with the end token, a T5 length of 64, so 64 + 256 cross-attention keys
+PROMPTS = (
+    "a watercolor painting of a lighthouse on a cliff at sunrise",
+    "two red foxes playing in fresh snow under tall pine trees",
+    "an astronaut riding a bicycle across the surface of the moon",
+    "a bowl of ripe cherries on a wooden table by a sunny window",
+    "a steam locomotive crossing an old stone bridge in autumn fog",
+    "a close-up photograph of a dragonfly resting on a green reed",
+    "a small sailing boat on a calm lake with mountains behind it",
+    "an old library with tall shelves and a ladder, warm lamp lights",
+    "a street market at night with paper lanterns and wet cobbles",
+    "a field of sunflowers under a stormy sky, oil on canvas style",
+    "a robot watering potted plants on a balcony above the city",
+    "a slice of lemon cake on a blue plate beside a cup of coffee",
+    "a herd of elephants walking along a wide river at golden hour",
+    "a snowy mountain village with smoke rising from its chimneys",
+    "a hummingbird hovering at a bright pink flower, macro photo",
+    "a cozy cabin interior with a fireplace and a sleeping dog",
+)
 
 # the H100 SXM's peaks (NVIDIA data sheet), for each kernel's bound
 HBM_BYTES_S = 3.35e12   # device memory
@@ -335,6 +366,19 @@ def phase_k1(torch, ctx):
     # where a row's time goes: SM clocks per row in each part, from the
     # instrumented build (block 0, averaged over its rows)
     parts = sample_part_clocks(logits, TOPK, temp, seed)
+    # the super-res stage's step 0: 16 x 1024 rows, ids exact under injected noise
+    del l32, noise
+    sr_rows = CAS_BATCH * SR_SEQ
+    big = torch.cat([logits, (torch.randn(sr_rows - rows, VOCAB, generator=g, device=dev) * 3).to(torch.bfloat16)])
+    big_noise = -torch.log(-torch.log(torch.rand(sr_rows, VOCAB, generator=g, device=dev).clamp(1e-9, 1 - 1e-9)))
+    err = max(err, compare(f"{sr_rows} rows bf16 injected", big, big_noise))
+    del big_noise
+    sr_ms = cuda_ms(lambda: sample(big, TOPK, temp, seed))
+    sr_plain_ms = cuda_ms(lambda: plain(big, TOPK, temp, seed), iters=2, warmup=1)
+    sr_bound, _ = bound(0, nbytes(big, seed) + sr_rows * 8, PEAK_F32)
+    del big
+    ctx["k1"]["max_abs_err"] = err
+    ctx["k1_routes"][f"bf16_rows_{sr_rows}"] = dict(ms=sr_ms, plain_ms=sr_plain_ms, bound_ms=sr_bound)
     ctx["k1_routes"]["part_clocks_per_row"] = parts
     parts_s = ", ".join(f"{name} {c:.0f}" for name, c in parts.items())
     log(
@@ -342,7 +386,9 @@ def phase_k1(torch, ctx):
         f"prob abs err {err:.3g} (rel <= 1e-5); temp0=argmax, top-k set, Philox agree {agree_philox:.4f}, "
         f"freq dev {dev_max:.4f}; ({rows}, {VOCAB}) bf16 {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.0%} of it reached; device time by graph replay: "
-        f"{small_s}; cfg_pair bf16 (2 x {rows}, {VOCAB}) {pair_ms:.3f} ms, bound {pair_bound:.3f} ms (bytes); "
+        f"{small_s}; super-res step 0 ({sr_rows}, {VOCAB}) bf16 ids exact, {sr_ms:.3f} ms vs plain "
+        f"{sr_plain_ms:.3f} ms, bound {sr_bound:.3f} ms (bytes), {sr_bound / sr_ms:.0%} of it reached; "
+        f"cfg_pair bf16 (2 x {rows}, {VOCAB}) {pair_ms:.3f} ms, bound {pair_bound:.3f} ms (bytes); "
         f"f32 ({rows}, {VOCAB}) {f32_ms:.3f} ms, bound {f32_bound:.3f} ms (bytes); SM clocks a row by part "
         f"(instrumented build, {sum(parts.values()):.0f} in all): {parts_s}"
     )
@@ -352,6 +398,7 @@ def phase_k2(torch, ctx):
     from muse_maskgit_pytorch_tpu_torch.ops.attention import (
         BF16_VS_ROUNDED,
         K2_BF16_FROM_F32,
+        key_mask_bias,
         qknorm_attend,
         qknorm_attend_plain,
     )
@@ -359,6 +406,18 @@ def phase_k2(torch, ctx):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(2)
     hd = HEADS * DIM_HEAD
+
+    def sr_mask(b, text):
+        """The super-res cross-attention's key mask under CFG: `text` text
+        keys then 256 conditioning keys; the cond half (rows 0..b/2-1) sees
+        its text (all of it at 64, ragged lengths 8..`text` else), the null
+        half has every text key off; the conditioning keys are on for all."""
+        mask = torch.ones(b, text + COND_TOKENS, dtype=torch.bool, device=dev)
+        mask[b // 2 :, :text] = False
+        if text != TEXT_LEN:
+            lengths = torch.randint(8, text + 1, (b // 2, 1), generator=g, device=dev)
+            mask[: b // 2, :text] = torch.arange(text, device=dev)[None] < lengths
+        return mask
 
     def inputs(b, n, m, dtype, masked_rows=0):
         # k and v as column slices of one to_kv output, as the model passes them
@@ -371,7 +430,9 @@ def phase_k2(torch, ctx):
         qs = 1 + 0.1 * torch.randn(DIM_HEAD, generator=g, device=dev)
         ks = 1 + 0.1 * torch.randn(DIM_HEAD, generator=g, device=dev)
         mask = None
-        if masked_rows:
+        if masked_rows == "superres":
+            mask = sr_mask(b, m - COND_TOKENS)
+        elif masked_rows:
             mask = torch.rand(b, m, generator=g, device=dev) > 0.3
             mask[:masked_rows] = False  # only the null position remains
         return (q, k, v, nk, nv, qs, ks), mask
@@ -380,6 +441,13 @@ def phase_k2(torch, ctx):
         "self": (2 * BATCH, SEQ, SEQ, 0),
         "cross": (BATCH, SEQ, TEXT_LEN, 0),
         "cross_masked": (BATCH, SEQ, TEXT_LEN, 4),
+        # the super-res stage at batch 16 under CFG: self-attention over 1024
+        # positions; cross-attention over 64 text + 256 conditioning keys, a
+        # key tile fully off for half the rows and fully on for the others;
+        # and a text of 16, where the last tile of 272 keys is ragged
+        "sr_self": (2 * CAS_BATCH, SR_SEQ, SR_SEQ, 0),
+        "sr_cross": (2 * CAS_BATCH, SR_SEQ, TEXT_LEN + COND_TOKENS, "superres"),
+        "sr_cross_272": (2 * CAS_BATCH, SR_SEQ, 16 + COND_TOKENS, "superres"),
     }
     # f32: both sides compute in f32, differing only in summation order
     # (<= 1e-4). bf16: against the plain version with the TPU kernel's
@@ -405,7 +473,7 @@ def phase_k2(torch, ctx):
                     f"K2 {name} bf16 vs the TPU-rounding plain version: {rerr:.3g} > {BF16_VS_ROUNDED:g}",
                 )
                 rounded_errs[name] = rerr
-            if masked:
+            if masked and masked != "superres":
                 nv = args[4].float()
                 got = out[:masked].float()
                 require(
@@ -413,11 +481,13 @@ def phase_k2(torch, ctx):
                     "K2 fully masked rows must return null_v",
                 )
 
-    def timed(b, n, m):
-        args, _ = inputs(b, n, m, torch.bfloat16)
+    def timed(b, n, m, masked=0):
+        args, mask = inputs(b, n, m, torch.bfloat16, masked)
         q, k, v = args[:3]
-        flop = 4.0 * b * HEADS * n * m * DIM_HEAD
-        bound_ms, bound_by = bound(flop, nbytes(*args) + nbytes(q), PEAK_BF16_TC)  # + the output
+        # the products over the keys that this mask leaves on (all, without one)
+        keys_on = float(mask.sum()) if mask is not None else b * m
+        flop = 4.0 * HEADS * n * keys_on * DIM_HEAD
+        bound_ms, bound_by = bound(flop, nbytes(*args, mask) + nbytes(q), PEAK_BF16_TC)  # + the output
         # SDPA on the already-normalised inputs with the null key and value
         # concatenated: the attention core only, not the same function
         qn, kn, nk = (t.float() / t.float().norm(dim=-1, keepdim=True) for t in (q, k, args[3]))
@@ -426,15 +496,25 @@ def phase_k2(torch, ctx):
         vn = torch.cat([args[4].expand(b, 1, HEADS, DIM_HEAD), v], dim=1).transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         return dict(
-            ms=graph_ms(lambda: qknorm_attend(*args)),
-            eager_ms=cuda_ms(lambda: qknorm_attend(*args), iters=20),
-            plain_ms=graph_ms(lambda: qknorm_attend_plain(*args), iters=5),
+            ms=graph_ms(lambda: qknorm_attend(*args, mask=mask)),
+            eager_ms=cuda_ms(lambda: qknorm_attend(*args, mask=mask), iters=20),
+            plain_ms=graph_ms(lambda: qknorm_attend_plain(*args, mask=mask), iters=5),
             core_ms=graph_ms(lambda: sdpa(qn, kn, vn, scale=1.0)),
             bound_ms=bound_ms,
             bound_by=bound_by,
         )
 
     t_self, t_cross = timed(2 * BATCH, SEQ, SEQ), timed(BATCH, SEQ, TEXT_LEN)
+    sr_times = {name: timed(*shapes[name]) for name in ("sr_self", "sr_cross", "sr_cross_272")}
+    ctx["k2_shapes"] = {
+        name: dict(shape=list(shapes[name][:3]), max_abs_err=errs[(name, torch.bfloat16)], **t)
+        for name, t in sr_times.items()
+    }
+    # the wrapper turns the bool key mask into an f32 bias on every call
+    # (inside each masked time above): its own device time at the super-res shape
+    sr_key_mask = sr_mask(2 * CAS_BATCH, TEXT_LEN)
+    bias_ms = graph_ms(lambda: key_mask_bias(sr_key_mask, *sr_key_mask.shape, dev))
+    ctx["k2_shapes"]["sr_cross"]["mask_bias_ms"] = bias_ms
     ctx["k2"] = dict(
         max_abs_err=errs[("self", torch.bfloat16)], library_ms=None,
         **{k: t_self[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
@@ -451,7 +531,11 @@ def phase_k2(torch, ctx):
 
     log(
         f"[k2] qknorm_attend ok: max abs err vs f32 plain {err_s}; bf16 vs TPU-rounding plain {rerr_s}; "
-        f"self (64,256,8,64) bf16 {line(t_self)}; cross (32,256|64,8,64) {line(t_cross)}"
+        f"self (64,256,8,64) bf16 {line(t_self)}; cross (32,256|64,8,64) {line(t_cross)}; super-res self "
+        f"(32,1024,8,64) {line(sr_times['sr_self'])}; super-res cross (32,1024|320,8,64), the null half's text "
+        f"keys off, {line(sr_times['sr_cross'])}; super-res cross (32,1024|272,8,64), ragged text, "
+        f"{line(sr_times['sr_cross_272'])} (the SDPA beside a masked shape runs without the mask; each masked "
+        f"time holds the wrapper's mask -> bias conversion, {bias_ms:.4f} ms at (32, 320))"
     )
 
 
@@ -618,6 +702,43 @@ def build_models(torch, dtype=None, with_vae=True):
     return MaskGit(image_size=256, transformer=transformer, vae=vae).eval()
 
 
+def build_superres(torch, vae, dtype=None):
+    """The cascade's super-res MaskGit at `bench.py`'s width: seq 1024 on a
+    32x32 grid, conditioned on the 256 tokens of a 256px image; `vae` is
+    both its VAE and its cond VAE (None: ids in, ids out). Random weights
+    from seed 1."""
+    from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer
+
+    gen = torch.Generator().manual_seed(1)
+    transformer = MaskGitTransformer(
+        num_tokens=VOCAB, dim=DIM, seq_len=SR_SEQ, depth=DEPTH, dim_head=DIM_HEAD, heads=HEADS,
+        text_embed_dim=TEXT_DIM, dtype=dtype or torch.bfloat16, generator=gen,
+    )
+    return MaskGit(
+        image_size=SR_IMAGE, cond_image_size=IMAGE, transformer=transformer, vae=vae, cond_vae=vae
+    ).eval()
+
+
+def profile_rows(prof):
+    """(device ms, count, name) of every kernel a torch.profiler run saw, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1000, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
+def kernel_total(rows, part):
+    """(device ms, launches) of the profiled kernels whose name holds `part`.
+    K1 is `sample_kernel`; K2 is the attention core's qk-norm instance,
+    `flash_core_kernel<64, true>` (K4's bf16 instances are <32|64, false>)."""
+    hits = [r for r in rows if part in r[2]]
+    return sum(r[0] for r in hits), sum(r[1] for r in hits)
+
+
 def phase_generate(torch, ctx):
     from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
     from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
@@ -695,25 +816,14 @@ def phase_profile(torch, ctx):
         maskgit.generate(generator=gen, text_embeds=text, timesteps=STEPS, cond_scale=CFG)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1000
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us / 1000, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = profile_rows(prof)
     device_ms = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] the profiler saw no device time: not measured | {ctx['smi']}")
         return
 
-    def total(part):
-        hits = [r for r in rows if part in r[2]]
-        return sum(r[0] for r in hits), sum(r[1] for r in hits)
-
-    # K2 is the core's qk-norm instance (K4's bf16 instances are <32|64, false>)
-    (k2_ms, k2_n), (k1_ms, k1_n) = total("flash_core_kernel<64, true>"), total("sample_kernel")
+    k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
+    k1_ms, k1_n = kernel_total(rows, "sample_kernel")
     require(
         (k1_n, k2_n) == (STEPS, STEPS * DEPTH * 2),
         f"the profiler counted K1 x{k1_n}, K2 x{k2_n} in a request, expected x{STEPS}, x{STEPS * DEPTH * 2}",
@@ -756,17 +866,19 @@ def phase_parity(torch, ctx):
         u = torch.rand(*shape, generator=g, device="cuda").clamp(1e-9, 1 - 1e-9)
         return -torch.log(-torch.log(u))
 
-    def agreement(fn):
-        """Agreement with the plain path of: the kernel path, the path with
-        the TPU-rounding attention (the floor), the path with the f64 one."""
-        out = fn()
+    def agreement(fn, floors=True):
+        """Agreement with the plain path of: the kernel path and, with
+        `floors`, the path with the TPU-rounding attention (the floor) and
+        the path with the f64 one."""
+        out = [fn()]
         with plain_path():
             ref = fn()
-        with plain_path(attend=attend_bf16_rounded):
-            rounded = fn()
-        with plain_path(attend=attend_f64):
-            exact = fn()
-        return tuple((t == ref).float().mean().item() for t in (out, rounded, exact))
+        if floors:
+            with plain_path(attend=attend_bf16_rounded):
+                out.append(fn())
+            with plain_path(attend=attend_f64):
+                out.append(fn())
+        return tuple((t == ref).float().mean().item() for t in out)
 
     maskgit = ctx.get("maskgit") or build_models(torch)
     ctx["maskgit"] = maskgit
@@ -776,15 +888,19 @@ def phase_parity(torch, ctx):
     text = torch.randn(b, TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
     noise = gumbel(STEPS, b, SEQ, VOCAB)
 
-    def generate(model):
+    def generate(model, sampler="fused", **cond):
         return lambda: model.generate(
-            text_embeds=text, timesteps=STEPS, cond_scale=CFG,
-            injected_gumbel_noise=noise, return_ids=True,
+            text_embeds=text, timesteps=STEPS, cond_scale=CFG, sampler=sampler,
+            injected_gumbel_noise=noise, return_ids=True, **cond,
         )
 
     bf16_full, bf16_full_floor, bf16_full_f64 = agreement(generate(maskgit))
+    # the exact top-k sampler against the fused one, same noise: they differ
+    # by design (the bisection threshold keeps a few more candidates, and
+    # the exact path takes the chosen probability in bf16); printed only
+    xla_vs_fused = (generate(maskgit, "xla")() == generate(maskgit)()).float().mean().item()
     f32 = build_models(torch, dtype=torch.float32, with_vae=False)
-    f32_full = agreement(generate(f32))[0]
+    f32_full = agreement(generate(f32), floors=False)[0]
     del f32, noise
     require(f32_full >= 0.99, f"f32 T{STEPS} kernel vs plain token agreement {f32_full:.4f} < 0.99")
 
@@ -793,12 +909,13 @@ def phase_parity(torch, ctx):
     text = torch.randn(bs, TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
 
     @torch.inference_mode()
-    def decode_step(x_in, cand, step, noise):
+    def decode_step(x_in, cand, step, noise, model=maskgit, cond=None):
         # the body of one decode step, through the models' entry points
-        tr = maskgit.transformer
-        ctx_kv = mg._double_ctx_kv(tr.precompute_context_kv(text_embeds=text))
+        tr = model.transformer
+        ctx_kv = mg._double_ctx_kv(tr.precompute_context_kv(text_embeds=text, conditioning_token_ids=cond))
         logits = tr.forward_with_cond_scale(
-            x_in, text_embeds=text, cond_scale=CFG, gather_positions=cand, context_kv=ctx_kv,
+            x_in, text_embeds=text, conditioning_token_ids=cond, cond_scale=CFG, gather_positions=cand,
+            context_kv=ctx_kv,
         )
         idx, _ = mg.fused_topk_gumbel_sample(
             logits.reshape(-1, VOCAB), TOPK, float(temps[step]), seed, noise=noise.reshape(-1, VOCAB),
@@ -815,12 +932,40 @@ def phase_parity(torch, ctx):
     step9, floor9, f64_9 = agreement(lambda: decode_step(half, cand, 9, noise9))
     require(step0 >= floor0 - 0.01, f"bf16 step 0 token agreement {step0:.4f} < floor {floor0:.4f} - 0.01")
     require(step9 >= floor9 - 0.01, f"bf16 step 9 token agreement {step9:.4f} < floor {floor9:.4f} - 0.01")
+    del noise0, noise9
+
+    # -- the super-res stage the same way, batch 4 (4096 tokens a step, as
+    # above): every attention has 1024 queries, the cross-attention 64 text
+    # + 256 conditioning keys with the null half's text keys off
+    sbs = 4
+    text = torch.randn(sbs, TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
+    cond = torch.randint(0, VOCAB, (sbs, IMAGE >> VAE_LAYERS, IMAGE >> VAE_LAYERS), generator=g, device="cuda")
+    superres = ctx.get("superres") or build_superres(torch, maskgit.vae)
+    ctx["superres"] = superres
+    noise = gumbel(STEPS, sbs, SR_SEQ, VOCAB)
+    sr_f32 = build_superres(torch, None, dtype=torch.float32)
+    sr_f32_full = agreement(generate(sr_f32, cond_token_ids=cond), floors=False)[0]
+    del sr_f32, noise
+    require(sr_f32_full >= 0.99, f"super-res f32 T{STEPS} kernel vs plain token agreement {sr_f32_full:.4f} < 0.99")
+    all_masked = torch.full((sbs, SR_SEQ), mask_id, dtype=torch.long, device="cuda")
+    noise0 = gumbel(sbs, SR_SEQ, VOCAB)
+    sr0, sr_floor0, sr_f64_0 = agreement(lambda: decode_step(all_masked, None, 0, noise0, superres, cond))
+    cand = torch.argsort(torch.rand(sbs, SR_SEQ, generator=g, device="cuda"), dim=-1)[:, : SR_SEQ // 2]
+    half = torch.randint(0, VOCAB, (sbs, SR_SEQ), generator=g, device="cuda").scatter(1, cand, mask_id)
+    noise9 = gumbel(sbs, SR_SEQ // 2, VOCAB)
+    sr9, sr_floor9, sr_f64_9 = agreement(lambda: decode_step(half, cand, 9, noise9, superres, cond))
+    require(sr0 >= sr_floor0 - 0.01, f"super-res bf16 step 0 token agreement {sr0:.4f} < floor {sr_floor0:.4f} - 0.01")
+    require(sr9 >= sr_floor9 - 0.01, f"super-res bf16 step 9 token agreement {sr9:.4f} < floor {sr_floor9:.4f} - 0.01")
     log(
         f"[parity] injected noise, token agreement with the plain path (kernel path | TPU-rounding "
         f"attention floor | f64 attention): f32 generate b{b} T{STEPS} {f32_full:.4f} (checked >= 0.99); "
         f"bf16 step 0 b{bs} {step0:.4f} | {floor0:.4f} | {f64_0:.4f}, bf16 step 9 b{bs} {step9:.4f} | "
         f"{floor9:.4f} | {f64_9:.4f} (checked >= floor - 0.01); bf16 generate b{b} T{STEPS} "
-        f"{bf16_full:.4f} | {bf16_full_floor:.4f} | {bf16_full_f64:.4f} (printed)"
+        f"{bf16_full:.4f} | {bf16_full_floor:.4f} | {bf16_full_f64:.4f} (printed); super-res (seq {SR_SEQ}, "
+        f"{COND_TOKENS} conditioning tokens) b{sbs}: f32 generate T{STEPS} {sr_f32_full:.4f} (checked >= 0.99), "
+        f"bf16 step 0 {sr0:.4f} | {sr_floor0:.4f} | {sr_f64_0:.4f}, bf16 step 9 {sr9:.4f} | {sr_floor9:.4f} | "
+        f"{sr_f64_9:.4f} (checked >= floor - 0.01); sampler=\"xla\" vs \"fused\" bf16 generate b{b} "
+        f"T{STEPS}, same noise: {xla_vs_fused:.4f} (printed: they differ by design)"
     )
 
 
@@ -908,6 +1053,192 @@ def phase_tokenize(torch, ctx):
     log(f"[tokenize] b{BATCH} {IMAGE}px dim {VAE_DIM} K {VOCAB}: " + " | ".join(parts) + f" | {ctx['smi']}")
 
 
+def phase_t5(torch, ctx):
+    """`t5_encode_text_with_mask` of the 16 fixed prompts with a T5
+    v1.1-base shaped encoder (d_model 768, d_ff 2048, 12 heads x 64, 12
+    layers, gated; random weights from seed 0, the byte tokenizer), f32
+    with TF32 off: ms per batch, median of 5 after a warm-up, host clock
+    around work that ends in a synchronize."""
+    from muse_maskgit_pytorch_tpu_torch.models import t5
+
+    for p in PROMPTS:
+        require(57 <= len(p.encode()) <= 63, f"prompt of {len(p.encode())} bytes: {p!r}")
+    t0 = time.perf_counter()
+    model, _ = t5.get_model_and_tokenizer(t5.DEFAULT_T5_NAME)
+    t_build = time.perf_counter() - t0
+    cfg = model.cfg
+    require(
+        (cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.d_kv, cfg.num_layers, cfg.gated) == (768, 2048, 12, 64, 12, True),
+        f"not the v1.1-base shape: {cfg}",
+    )
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        embeds, mask = t5.t5_encode_text_with_mask(list(PROMPTS))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    require(tuple(embeds.shape) == (CAS_BATCH, TEXT_LEN, TEXT_DIM), f"T5 embeddings {tuple(embeds.shape)}")
+    require(embeds.is_cuda and embeds.dtype == torch.float32, f"T5 embeddings on {embeds.device} in {embeds.dtype}")
+    require(bool(torch.isfinite(embeds).all()), "non-finite T5 embeddings")
+    lengths = mask.sum(-1).tolist()
+    require(lengths == [len(p.encode()) + 1 for p in PROMPTS], f"T5 mask lengths {lengths}")
+    require(bool((embeds[~mask] == 0).all()), "T5 padding is not zero")
+    require(bool(((embeds != 0).any(-1) == mask).all()), "the mask cannot be read back from the embeddings")
+    ms = statistics.median(times[1:]) * 1000
+    ctx["t5_ms"] = ms
+    params = sum(p.numel() for p in model.parameters())
+    log(
+        f"[t5] t5_encode_text_with_mask ok: {CAS_BATCH} prompts of {min(lengths)}-{max(lengths)} tokens -> "
+        f"{tuple(embeds.shape)} f32, padding exactly 0, finite; v1.1-base shape ({params / 1e6:.1f}M parameters, "
+        f"random init), {ms:.2f} ms per batch (median of 5, first call {times[0] * 1000:.1f} ms) | {ctx['smi']} | "
+        f"encoder built {t_build:.1f}s"
+    )
+
+
+def phase_cascade(torch, ctx):
+    """texts -> 512px at batch 16: (a) the chain `bench.py` times, the base
+    stage's token grid handed to the super-res stage, from text embeddings;
+    (b) `Muse(texts)` in both hand-offs; (c) one chain request under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from muse_maskgit_pytorch_tpu_torch import Muse
+    from muse_maskgit_pytorch_tpu_torch.models.maskgit import child_generators
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+
+    t0 = time.perf_counter()
+    base = ctx.get("maskgit") or build_models(torch)
+    ctx["maskgit"] = base
+    superres = ctx.get("superres") or build_superres(torch, base.vae)
+    ctx["superres"] = superres
+    muse = Muse(base, superres)
+    t_build = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(0)
+    text = torch.randn(CAS_BATCH, TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
+    mask = torch.ones(CAS_BATCH, TEXT_LEN, dtype=torch.bool, device="cuda")
+    kw = dict(text_embeds=text, text_mask=mask, timesteps=STEPS, cond_scale=CFG)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def chain(seed):
+        g_base, g_sr = child_generators(torch.Generator().manual_seed(seed), "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        marks[0].record()
+        ids = base.generate(generator=g_base, return_ids=True, **kw)
+        marks[1].record()
+        img = superres.generate(generator=g_sr, cond_token_ids=ids, **kw)
+        marks[2].record()
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t, marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
+
+    def check(img, what):
+        require(tuple(img.shape) == (CAS_BATCH, SR_IMAGE, SR_IMAGE, 3), f"{what}: image shape {tuple(img.shape)}")
+        require(bool(torch.isfinite(img).all()), f"{what}: non-finite pixels")
+
+    # -- (a) the chain
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chain(100)  # warm-up: cuBLAS / cuDNN choose their algorithms at the new shapes
+    t_warm = time.perf_counter() - t0
+    counted = (fused_topk_gumbel_sample, qknorm_attend, attend, nearest_code)  # K1, K2, K4, K3
+    for fn in counted:
+        fn.launches = 0
+    times, base_ms, sr_ms, per_request = [], [], [], []
+    for i in range(3):
+        before = [fn.launches for fn in counted]
+        img, dt, b_ms, s_ms = chain(i)
+        per_request.append(tuple(fn.launches - n for fn, n in zip(counted, before)))
+        times.append(dt)
+        base_ms.append(b_ms)
+        sr_ms.append(s_ms)
+        check(img, "chain")
+    chain_launches = [fn.launches for fn in counted]
+    # each stage: one K1 a step; a self- and a cross-attention a layer a step;
+    # the LFQ tokenizer searches no codebook, so K3 stays at 0 like K4
+    want = (2 * STEPS, 2 * STEPS * DEPTH * 2, 0, 0)
+    for got in per_request:
+        require(got == want, f"K1, K2, K4, K3 launched {got} times in a cascade request, expected {want}")
+    chain_peak = torch.cuda.max_memory_allocated() / 2**30
+    req = statistics.median(times)
+    img_s = CAS_BATCH / req
+    base_med, sr_med = statistics.median(base_ms), statistics.median(sr_ms)
+
+    # -- (b) Muse, from prompts, in both hand-offs
+    def muse_request(cond_via):
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator().manual_seed(3)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = muse(
+            list(PROMPTS), generator=gen, cond_scale=CFG, timesteps=STEPS, cond_via=cond_via,
+            return_pil_images=False,
+        )
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        check(img, f"Muse cond_via={cond_via}")
+        require(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, f"Muse cond_via={cond_via}: pixels outside [0, 1]")
+        return img, dt * 1000, torch.cuda.max_memory_allocated() / 2**30
+
+    muse_request("pixels")  # warm-up: the tokenizer's encode at this batch, T5
+    for fn in counted:
+        fn.launches = 0
+    ids_img, ids_ms, ids_peak = muse_request("ids")
+    muse_ids_launches = tuple(fn.launches for fn in counted)
+    pix_img, pix_ms, pix_peak = muse_request("pixels")
+    muse_launches = tuple(fn.launches for fn in counted)
+    require(muse_ids_launches == want, f"Muse(ids) launched K1, K2, K4, K3 {muse_ids_launches}, expected {want}")
+    require(muse_launches == tuple(2 * n for n in want), f"Muse launched K1, K2, K4, K3 {muse_launches} in two requests")
+    # one seed twice: the stages' seeds are the same (checked, and for a
+    # generator on the card as for one on the host); the pixels are printed,
+    # not checked, since cuBLAS and cuDNN may sum in another order each run
+    again, _, _ = muse_request("ids")
+    repeat_diff = (again - ids_img).abs().max().item()
+    seeds = [
+        [c.initial_seed() for c in child_generators(torch.Generator(device=d).manual_seed(3), "cuda")]
+        for d in ("cpu", "cuda", "cpu")
+    ]
+    require(seeds[0] == seeds[1] == seeds[2], f"Muse's child seeds depend on where the generator lives: {seeds}")
+    differ = (pix_img != ids_img).float().mean().item()
+
+    # -- (c) one chain request under the profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_host, _, _ = chain(7)
+    rows = profile_rows(prof)
+    require(rows, "torch.profiler saw no device time in a cascade request")
+    device_ms = sum(r[0] for r in rows)
+    k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
+    k1_ms, k1_n = kernel_total(rows, "sample_kernel")
+    require((k1_n, k2_n) == want[:2], f"the profiler counted K1 x{k1_n}, K2 x{k2_n} in a cascade request")
+    top = "; ".join(f"{ms:.1f} ms x{n} {name[:70]}" for ms, n, name in rows[:12])
+    prof_s = (
+        f"one request under torch.profiler: device {device_ms:.1f} ms in {prof_host * 1000:.1f} ms; K2 "
+        f"{k2_ms:.2f} ms x{k2_n}, K1 {k1_ms:.2f} ms x{k1_n}; top kernels: {top}"
+    )
+
+    ctx["cascade"] = dict(
+        img_s=img_s, request_ms=req * 1000, base_ms=base_med, superres_ms=sr_med,
+        muse_ids_ms=ids_ms, muse_pixels_ms=pix_ms, peak_gib=max(chain_peak, ids_peak, pix_peak),
+    )
+    ctx["cascade_launches"] = dict(zip(("k1", "k2", "k4", "k3"), chain_launches))
+    ctx["cascade_per_request"] = dict(zip(("k1", "k2", "k4", "k3"), per_request[0]))
+    log(
+        f"[cascade] b{CAS_BATCH} T{STEPS}+{STEPS} cfg{CFG:g} text embeddings -> base ids -> super-res -> "
+        f"{SR_IMAGE}px: {img_s:.3f} img/s (median of {', '.join(f'{t * 1000:.1f}' for t in times)} ms); device "
+        f"time by stage (CUDA events, median): base {base_med:.1f} ms = {base_med / (base_med + sr_med):.1%}, "
+        f"super-res {sr_med:.1f} ms = {sr_med / (base_med + sr_med):.1%}; K1 +{per_request[0][0]}, K2 "
+        f"+{per_request[0][1]}, K4 +{per_request[0][2]}, K3 +{per_request[0][3]} launches per request; peak memory "
+        f"{chain_peak:.2f} GiB | "
+        f"Muse(texts) {tuple(ids_img.shape)} in [0, 1]: cond_via=ids {ids_ms:.1f} ms (peak {ids_peak:.2f} GiB), "
+        f"cond_via=pixels {pix_ms:.1f} ms (peak {pix_peak:.2f} GiB), {differ:.1%} of the pixels differ between "
+        f"the hand-offs; one seed twice: equal child seeds from a host and a card generator, max pixel difference "
+        f"{repeat_diff:.3g} | {prof_s} | {ctx['smi']} | models built "
+        f"{t_build:.1f}s, warm-up {t_warm:.1f}s"
+    )
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -927,32 +1258,45 @@ def main(argv=None) -> int:
     import muse_maskgit_pytorch_tpu_torch  # noqa: F401
 
     ctx = {"k1": {}, "k2": {}, "k3": {}, "k4": {}}
+    t_start = time.perf_counter()
     phase_env(torch, ctx)
     for name in phases:
         if name != "env":
             globals()[f"phase_{name}"](torch, ctx)
+    log(f"[done] {', '.join(phases)} in {time.perf_counter() - t_start:.1f} s")
     if set(phases) != set(ALL_PHASES):
         return 0  # a subset measures too little for the result lines
 
-    # launches per request, as counted: K1 and K2 per `generate` request, K3
-    # per EMA-VQ encode, K4 in one `generate` request plus one encode of each
-    # tokenizer (the model paths)
-    ctx["k4"]["launches_per_request"] = ctx["k4_per_request"] + ctx["k4_per_encode"]
+    # launches per request, as counted: K1 and K2 per `generate` request and
+    # per cascade request, K3 per EMA-VQ encode, K4 in one `generate`
+    # request, one cascade request and one encode of each tokenizer (the
+    # model paths). `launches` sums the timed requests of both driven paths.
+    ctx["k4"]["launches_per_request"] = (
+        ctx["k4_per_request"] + ctx["k4_per_encode"] + ctx["cascade_per_request"]["k4"]
+    )
+    for tag in ("k1", "k2", "k4", "k3"):
+        ctx[tag]["launches"] += ctx["cascade_launches"][tag]
+        ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
     rows = [
         ("k1", "fused_topk_gumbel_sample", "sampling_kernel.cu", "sampling_kernel.py:57"),
         ("k2", "qknorm_attend", "qknorm_attention.cu", "attention.py:242"),
         ("k3", "nearest_code", "vq_search.cu", "vq.py:54"),
         ("k4", "attend", "flash_attention.cu", "attention.py:83"),
     ]
-    keys = ("launches", "launches_per_request", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = (
+        "launches", "launches_per_request", "launches_per_cascade_request", "max_abs_err", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms",
+    )
     kernels = [
         dict(
             name=name, route="cuda", source=f"muse_maskgit_pytorch_tpu_torch/csrc/{src}",
             replaces=f"muse_maskgit_pytorch_tpu/ops/{tpu}", **{k: ctx[tag][k] for k in keys},
             **({"routes": ctx["k1_routes"]} if tag == "k1" else {}),
+            **({"shapes": ctx["k2_shapes"]} if tag == "k2" else {}),
         )
         for tag, name, src, tpu in rows
     ]
+    print(json.dumps({"cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ctx["smi"], flush=True)
     result = {

@@ -1,11 +1,12 @@
 """PyTorch / CUDA port of `muse_maskgit_pytorch_tpu` for NVIDIA Hopper (H100).
 
 The JAX package beside this one is the reference; this package imports
-torch and numpy only. Ported so far: the base-stage sampling path,
-`MaskGit.generate` from text embeddings to 256px images, and the VQ-GAN
-tokenizer's inference (`VQGanVAE.encode` to token ids and
-`decode_from_ids` back, with the LFQ, EMA-VQ and FSQ quantizers). Their
-four hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`,
+torch and numpy only. Ported so far: the sampling path from prompts to
+images (`Muse(base, superres)(texts)`: the frozen T5 text encoder, the 256px
+base stage and the 512px super-res stage of `MaskGit.generate`, handed over
+as pixels or as token ids), and the VQ-GAN tokenizer's inference
+(`VQGanVAE.encode` to token ids and `decode_from_ids` back, with the LFQ,
+EMA-VQ and FSQ quantizers). Their four hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`,
 `ops.vq`) are built from `csrc/` on first use. The public modules below take
 `device=` and are built on the GPU ("cuda") unless the caller asks for the
 CPU. See ROADMAP.md for what is still to come.
@@ -16,8 +17,12 @@ from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
     LFQ,
     MaskGit,
     MaskGitTransformer,
+    Muse,
+    T5Encoder,
     Transformer,
     VectorQuantizeEMA,
     VQGanVAE,
+    t5_encode_text,
+    vaes_share_weights,
 )
 from muse_maskgit_pytorch_tpu_torch.utils.from_jax import load_jax_state  # noqa: F401

@@ -1,7 +1,9 @@
-"""MaskGit iterative parallel decoding, base stage (counterpart of
-`muse_maskgit_pytorch_tpu/models/maskgit.py`).
+"""MaskGit iterative parallel decoding and the Muse base -> super-res
+cascade (counterpart of `muse_maskgit_pytorch_tpu/models/maskgit.py`).
 
-`generate` is the port's main path: text embeddings -> token grid -> images.
+`generate` is the port's main path: texts or text embeddings (and, in a
+super-res stage, conditioning tokens) -> token grid -> images; `Muse` chains
+a base and a super-res stage from prompts to images.
 The JAX package runs the decode as a few `lax.scan` segments inside one
 jitted function; here it is a Python loop that never waits on the device.
 Everything the loop branches on is computed on the host once per call: the
@@ -10,9 +12,10 @@ values, `utils.sampling`), the compact segment plan, and one (T,) int32
 tensor of per-step sampler seeds drawn from the caller's `torch.Generator`,
 which the sampler kernel reads from device memory.
 
-Each step samples with K1 (`ops.sampling_kernel.fused_topk_gumbel_sample`,
-the JAX package's `sampler="fused"` semantics) and attends with K2 through
-the transformer.
+Each step attends with K2 through the transformer and samples with K1
+(`ops.sampling_kernel.fused_topk_gumbel_sample`, the JAX package's
+`sampler="fused"`) or, with `sampler="xla"`, by the exact `top_k` filter in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -27,12 +30,16 @@ from torch import nn
 from muse_maskgit_pytorch_tpu_torch.models.transformer import MaskGitTransformer
 from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE
 from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import exists, not_ported, resolve_device
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, not_ported, resolve_device
+from muse_maskgit_pytorch_tpu_torch.utils.images import to_pil_images
 from muse_maskgit_pytorch_tpu_torch.utils.sampling import (
     cosine_schedule,
+    first_argmax,
+    gumbel_sample,
     mask_by_topk_scores,
     mask_counts,
     step_temperatures,
+    top_k,
 )
 
 SEED_HIGH = 2**31 - 1
@@ -85,19 +92,28 @@ class MaskGit(nn.Module):
         device = resolve_device(device)
         if exists(token_critic) or self_token_critic:
             raise not_ported("token critics", "A8")
-        if exists(cond_vae) or exists(cond_image_size):
-            raise not_ported("the super-res stage (cond_vae, cond_image_size)", "A7")
-        if exists(vae):
-            if vae.codebook_size != transformer.num_tokens:
-                raise ValueError("transformer num_tokens must equal the vae codebook size")
-            vae.eval().requires_grad_(False)
+        if exists(cond_vae) and not exists(cond_image_size):
+            raise ValueError("cond_image_size must be specified if conditioning")
+        # the tokenizers are frozen; a super-res stage conditions on the
+        # tokens of `cond_vae` (its own VAE when none is given)
+        for v in (vae, cond_vae):
+            if exists(v):
+                v.eval().requires_grad_(False)
         self.vae = vae
+        self.has_separate_cond_vae = exists(cond_vae)
+        self.cond_vae = cond_vae if exists(cond_vae) else vae
+        if exists(vae) and not (
+            vae.codebook_size == self.cond_vae.codebook_size == transformer.num_tokens
+        ):
+            raise ValueError("transformer num_tokens must equal the vae codebook size")
         self.image_size = image_size
+        self.cond_image_size = cond_image_size
+        self.resize_image_for_cond_image = exists(cond_image_size)
         self.transformer = transformer
         self.self_cond = transformer.self_cond
         self.mask_id = transformer.mask_id
         self.noise_schedule = noise_schedule
-        self.to(device)  # the transformer and VAE it was given, too
+        self.to(device)  # the transformer and VAEs it was given, too
 
     def _fmap_hw(self, fmap_size, image_size) -> Tuple[int, int]:
         if image_size is not None:
@@ -135,6 +151,7 @@ class MaskGit(nn.Module):
         timesteps: int = 18,
         cond_scale: float = 3.0,
         return_ids: bool = False,
+        sampler: str = "auto",
         injected_gumbel_noise: Optional[torch.Tensor] = None,
         compact: Union[bool, str] = "auto",
         known_token_ids=None,
@@ -142,32 +159,63 @@ class MaskGit(nn.Module):
         cfg_fold: bool = True,
         null_fold: bool = True,
     ) -> torch.Tensor:
-        """Text embeddings (b, L, text_embed_dim) -> images (b, h, w, 3), or
-        token grids (b, fh, fw) with `return_ids`.
+        """Texts, or text embeddings (b, L, text_embed_dim), -> images
+        (b, h, w, 3), or token grids (b, fh, fw) with `return_ids`.
+
+        `texts` are encoded by the transformer's frozen T5 on its device. A
+        super-res stage (`cond_image_size` set) also needs `cond_token_ids`
+        (b, ...), or `cond_images` (b, h, w, 3) that its `cond_vae` encodes
+        to ids; the tokens join every cross-attention's context.
 
         `generator`: a `torch.Generator` on the embeddings' device; the
-        per-step sampler seeds are drawn from it once per call (seed 0 when
+        per-step seeds are drawn from it once per call (seed 0 when
         omitted). `injected_gumbel_noise` (T, b, seq, vocab) replaces the
-        sampler's own noise, for parity runs. `compact`, `cfg_fold`,
-        `null_fold`, `temperature` and `topk_filter_thres` behave as in the
-        JAX package."""
-        if texts is not None:
-            raise not_ported("texts (T5 text encoding)", "A6")
+        sampler's own noise, for parity runs.
+
+        `sampler`: "fused" is K1 (the top-k threshold by ten rounds of
+        bisection, inside the kernel); "xla" is the exact `top_k` filter, a
+        first-index argmax of `filtered / max(temp, 1e-10) + gumbel` and the
+        chosen token's softmax probability, in plain PyTorch. "auto" is
+        "xla" with injected noise, as in the JAX package, and "fused"
+        otherwise: the JAX package's vocabulary threshold was measured on a
+        TPU, this package measured none, so without injected noise "auto" is
+        always K1. "xla" draws each step's noise from a generator seeded
+        with that step's seed.
+
+        `compact`, `cfg_fold`, `null_fold`, `temperature` and
+        `topk_filter_thres` behave as in the JAX package; `null_fold` is a
+        no-op in a super-res stage."""
         if negative_texts is not None or neg_text_embeds is not None:
             raise not_ported("negative prompts", "A8")
-        if cond_images is not None or cond_token_ids is not None:
-            raise not_ported("conditioning images and tokens (super-res stage)", "A7")
         if known_token_ids is not None or known_mask is not None:
             raise not_ported("editing (known_token_ids / known_mask)", "A8")
         if not isinstance(cond_scale, (int, float)):
             raise not_ported("scheduled, traced or per-sample cond_scale", "A8")
-        if text_embeds is None:
-            raise ValueError("generate needs text_embeds")
+        if sampler not in ("auto", "fused", "xla"):
+            raise ValueError(f"sampler must be 'auto', 'fused' or 'xla', got {sampler!r}")
+        if sampler == "auto":
+            sampler = "xla" if injected_gumbel_noise is not None else "fused"
         fh, fw = self._fmap_hw(fmap_size, image_size)
         seq_len = fh * fw
+        if isinstance(texts, str):
+            texts = [texts]
+        if text_embeds is None:
+            if texts is None:
+                raise ValueError("generate needs texts or text_embeds")
+            text_embeds = self.transformer.encode_text(texts)
         device = text_embeds.device
         if text_mask is None:
             text_mask = (text_embeds != 0).any(dim=-1)
+
+        cond_ids = cond_token_ids
+        if self.resize_image_for_cond_image and cond_ids is None:
+            if cond_images is None:
+                raise ValueError(
+                    "conditioning image (or cond_token_ids) must be passed in for super res maskgit"
+                )
+            _, cond_ids, _ = self.cond_vae.encode(cond_images)
+        if cond_ids is not None:
+            cond_ids = cond_ids.to(device)
 
         if compact == "auto":
             compact = timesteps > 1
@@ -187,16 +235,16 @@ class MaskGit(nn.Module):
             injected_gumbel_noise = injected_gumbel_noise.to(device)
 
         ids = self._decode(
-            text_embeds, text_mask, seq_len, seeds, counts, temps, step_kb,
-            injected_gumbel_noise, float(cond_scale), topk_filter_thres, cfg_fold, null_fold,
+            text_embeds, text_mask, cond_ids, seq_len, seeds, counts, temps, step_kb,
+            injected_gumbel_noise, float(cond_scale), topk_filter_thres, cfg_fold, null_fold, sampler,
         ).reshape(-1, fh, fw)
         if return_ids or not exists(self.vae):
             return ids
         return self.vae.decode_from_ids(ids)
 
     def _decode(
-        self, text_embeds, text_mask, seq_len, seeds, counts, temps, step_kb,
-        noise, cond_scale, topk_filter_thres, cfg_fold, null_fold,
+        self, text_embeds, text_mask, cond_ids, seq_len, seeds, counts, temps, step_kb,
+        noise, cond_scale, topk_filter_thres, cfg_fold, null_fold, sampler,
     ) -> torch.Tensor:
         transformer = self.transformer
         mask_id = self.mask_id
@@ -205,9 +253,18 @@ class MaskGit(nn.Module):
         vocab = transformer.dim_out
         k = max(math.ceil((1 - topk_filter_thres) * vocab), 1)
         cfg_on = cond_scale != 1
-        fuse_cfg = cfg_on and not cfg_fold  # CFG combine inside the sampler
+        # CFG combine inside the fused sampler; with "xla" the transformer
+        # combines the logits itself
+        fuse_cfg = sampler == "fused" and cfg_on and not cfg_fold
+        step_seeds = None
+        if sampler == "xla" and noise is None:
+            step_seeds = seeds.tolist()  # the one host read of this path, before the loop
 
-        ctx_kv = transformer.precompute_context_kv(text_embeds=text_embeds)
+        # the context (text, then conditioning tokens) is the same at every
+        # step: its K/V are projected once
+        ctx_kv = transformer.precompute_context_kv(
+            text_embeds=text_embeds, conditioning_token_ids=cond_ids
+        )
         if cfg_on:
             ctx_kv = _double_ctx_kv(ctx_kv)
 
@@ -243,6 +300,7 @@ class MaskGit(nn.Module):
                 x_in,
                 text_embeds=text_embeds,
                 text_mask=text_mask,
+                conditioning_token_ids=cond_ids,
                 self_cond_embed=self_cond,
                 cond_scale=cond_scale,
                 return_embed=True,
@@ -255,18 +313,31 @@ class MaskGit(nn.Module):
             if self.self_cond:
                 self_cond = embed.to(self_cond.dtype)
 
-            rows = (2 * b if fuse_cfg else b) * npos
-            pred, prob = fused_topk_gumbel_sample(
-                logits.reshape(rows, vocab),
-                k,
-                float(temps[i]),
-                seeds[i : i + 1],
-                noise=g.reshape(b * npos, vocab) if g is not None else None,
-                cfg_pair=fuse_cfg,
-                cond_scale=cond_scale if fuse_cfg else 1.0,
-            )
-            pred = pred.reshape(b, npos).long()
-            prob = prob.reshape(b, npos)
+            if sampler == "fused":
+                rows = (2 * b if fuse_cfg else b) * npos
+                pred, prob = fused_topk_gumbel_sample(
+                    logits.reshape(rows, vocab),
+                    k,
+                    float(temps[i]),
+                    seeds[i : i + 1],
+                    noise=g.reshape(b * npos, vocab) if g is not None else None,
+                    cfg_pair=fuse_cfg,
+                    cond_scale=cond_scale if fuse_cfg else 1.0,
+                )
+                pred = pred.reshape(b, npos).long()
+                prob = prob.reshape(b, npos)
+            else:
+                filtered = top_k(logits, topk_filter_thres)
+                if g is not None:
+                    # a tensor, not a python scalar, divides: CUDA would turn
+                    # the latter into a multiply by its reciprocal
+                    safe_temp = torch.full((), max(float(temps[i]), 1e-10), device=device)
+                    pred = first_argmax(filtered.float() / safe_temp + g)
+                else:
+                    gen = torch.Generator(device=device).manual_seed(step_seeds[i])
+                    pred = gumbel_sample(filtered, float(temps[i]), gen)
+                # the softmax in the logits' own dtype, as the JAX package takes it
+                prob = torch.softmax(logits, dim=-1).gather(-1, pred[..., None])[..., 0].float()
 
             if kb is None:
                 is_mask = x_in == mask_id
@@ -277,3 +348,142 @@ class MaskGit(nn.Module):
                 ids = ids.scatter(1, sel, pred[:, :n_sel])
                 scores = torch.full_like(scores, -1e5).scatter_(1, sel, 1.0 - prob[:, :n_sel])
         return ids
+
+
+# ---------------------------------------------------------------------------
+# Muse cascade
+# ---------------------------------------------------------------------------
+
+
+def vaes_share_weights(a: Optional[VQGanVAE], b: Optional[VQGanVAE]) -> bool:
+    """True iff two VAEs carry the SAME weights: the precondition for handing
+    one stage's token ids to the other (`Muse(cond_via="ids")`).
+
+    Recognised, in order, by object identity; by every parameter and buffer
+    lying in the same storage (modules built around shared tensors); and,
+    for VAEs restored separately from one checkpoint, by one comparison of
+    the values on the device (shapes and dtypes first, then a single flag
+    read by the host)."""
+    if a is None or b is None:
+        return a is b
+    if a is b:
+        return True
+    ta, tb = list(a.state_dict().values()), list(b.state_dict().values())
+    if len(ta) != len(tb):
+        return False
+    if any(x.shape != y.shape or x.dtype != y.dtype for x, y in zip(ta, tb)):
+        return False
+    if all(x.data_ptr() == y.data_ptr() for x, y in zip(ta, tb)):
+        return True
+    return bool(torch.stack([(x == y.to(x.device)).all() for x, y in zip(ta, tb)]).all())
+
+
+def child_generators(generator: Optional[torch.Generator], device) -> List[torch.Generator]:
+    """Two generators on `device`, one for each stage of a cascade, derived from
+    the caller's generator as JAX splits a key: by its seed
+    (`generator.initial_seed()`, 0 when there is none), not by its state,
+    which is left as it was. The child seeds are drawn on the host, so one
+    seed gives the same children whether the caller's generator lives on the
+    CPU or on the card; two calls with one generator give the same images,
+    as two calls with one JAX key do."""
+    seed = generator.initial_seed() if generator is not None else 0
+    host = torch.Generator().manual_seed(seed)
+    seeds = torch.randint(0, SEED_HIGH, (2,), generator=host).tolist()
+    return [torch.Generator(device=device).manual_seed(s) for s in seeds]
+
+
+class Muse(nn.Module):
+    """base 256px MaskGit -> super-res 512px MaskGit -> (optionally) PIL."""
+
+    def __init__(self, base: MaskGit, superres: MaskGit, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        if not superres.resize_image_for_cond_image:
+            raise ValueError("the super-res stage must be built with cond_image_size")
+        # an upscaling ratio that is no integer would floor silently where
+        # sizes are derived from it
+        if superres.image_size % base.image_size != 0:
+            raise ValueError(
+                f"super-res image_size {superres.image_size} must be an exact "
+                f"multiple of the base stage's {base.image_size}"
+            )
+        self.base_maskgit = base
+        self.superres_maskgit = superres
+        self.to(device)
+
+    @torch.inference_mode()
+    def forward(
+        self,
+        texts: List[str],
+        generator: Optional[torch.Generator] = None,
+        cond_scale: float = 3.0,
+        temperature: float = 1.0,
+        timesteps: int = 18,
+        superres_timesteps: Optional[int] = None,
+        return_lowres: bool = False,
+        return_pil_images: bool = True,
+        rerank_candidates: int = 1,
+        image_size: Optional[Union[int, Tuple[int, int]]] = None,
+        cond_via: str = "pixels",
+    ):
+        """Prompts -> clamped super-res images (b, H, W, 3) in [0, 1], as PIL
+        images unless `return_pil_images=False`; with `return_lowres` also
+        the clamped base-stage images.
+
+        `cond_via`: how the base stage conditions the super-res stage.
+        "pixels" (default): decode the base tokens, clamp to [0, 1], and let
+        the super-res stage re-encode the image through its cond VAE. "ids":
+        hand the base stage's token grid over directly; valid only when the
+        super-res stage's cond VAE carries the base stage's weights
+        (`vaes_share_weights`), where it skips a decode and an encode and
+        hands over exactly the tokens the base stage chose
+        (`encode(decode(ids))` is not the identity).
+
+        `generator`: see `child_generators`; the base stage gets the first
+        child, the super-res stage the second."""
+        # ValueError, not assert: a wrong-codebook ids hand-off would give
+        # garbage images silently
+        if cond_via not in ("pixels", "ids"):
+            raise ValueError(f"cond_via must be 'pixels' or 'ids', got {cond_via!r}")
+        base, superres = self.base_maskgit, self.superres_maskgit
+        if cond_via == "ids" and not vaes_share_weights(superres.cond_vae, base.vae):
+            raise ValueError(
+                "cond_via='ids' requires the cascade stages to share one VAE "
+                "(the super-res cond codebook must be the base stage's); "
+                "this cascade's differ: use cond_via='pixels'"
+            )
+        if rerank_candidates > 1:
+            raise not_ported("re-ranked base-stage candidates (rerank_candidates > 1)", "A8")
+        if image_size is not None:
+            raise not_ported("variable-resolution cascades (image_size)", "A8")
+        g_base, g_sr = child_generators(generator, base.transformer.token_emb.weight.device)
+
+        via_ids = cond_via == "ids"
+        base_out = base.generate(
+            texts=texts, generator=g_base, cond_scale=cond_scale, temperature=temperature,
+            timesteps=timesteps, return_ids=via_ids,
+        )
+        if via_ids:
+            lowres_image = None
+            sr_cond = dict(cond_token_ids=base_out)
+        else:
+            # the decoder's output is clamped before it conditions the next stage
+            lowres_image = base_out.clamp(0.0, 1.0)
+            sr_cond = dict(cond_images=lowres_image)
+
+        superres_image = superres.generate(
+            texts=texts, generator=g_sr, cond_scale=cond_scale, temperature=temperature,
+            timesteps=default(superres_timesteps, timesteps), **sr_cond,
+        ).clamp(0.0, 1.0)
+
+        if via_ids and return_lowres:
+            # decoded only because the caller asked for the images
+            lowres_image = base.vae.decode_from_ids(base_out).clamp(0.0, 1.0)
+
+        if return_pil_images:
+            superres_image = to_pil_images(superres_image)
+            if return_lowres:
+                lowres_image = to_pil_images(lowres_image)
+        if not return_lowres:
+            return superres_image
+        return superres_image, lowres_image

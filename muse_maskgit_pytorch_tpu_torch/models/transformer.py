@@ -8,7 +8,10 @@ dtype, logits stay in the compute dtype. Every attention goes through K2
 (`ops.attention.qknorm_attend`); classifier-free guidance runs as one
 doubled-batch forward with the `cfg_fold` (combine before the bias-free
 vocab head) and `null_fold` (the null half's cross-attention is the constant
-`Attention.null_out`) optimisations.
+`Attention.null_out`) optimisations. Texts are encoded by the frozen T5 of
+`models.t5` (`encode_text`); a super-res stage's conditioning token ids join
+the cross-attention context after the text and stay attendable in the CFG
+null half, where `null_fold` then folds nothing.
 
 Parameter names mirror the JAX module tree, so `utils.from_jax` maps
 weights by path.
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models._layers import Embedding, Linear
+from muse_maskgit_pytorch_tpu_torch.models.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 from muse_maskgit_pytorch_tpu_torch.ops.attention import qknorm_attend
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, not_ported, resolve_device
 
@@ -210,6 +214,7 @@ class Transformer(nn.Module):
         seq_len: int,
         seq_hw: Optional[tuple] = None,
         dim_out: Optional[int] = None,
+        t5_name: Optional[str] = None,
         text_embed_dim: Optional[int] = None,
         self_cond: bool = False,
         add_mask_id: bool = False,
@@ -220,8 +225,7 @@ class Transformer(nn.Module):
     ):
         super().__init__()
         device = resolve_device(device)
-        if text_embed_dim is None:
-            raise not_ported("T5 text encoding (text_embed_dim=None)", "A6")
+        self.t5_name = default(t5_name, DEFAULT_T5_NAME)
         self.dim = dim
         self.mask_id = num_tokens if add_mask_id else None
         self.num_tokens = num_tokens
@@ -245,6 +249,7 @@ class Transformer(nn.Module):
         self.norm = LayerNorm(dim)
         self.dim_out = default(dim_out, num_tokens)
         self.to_logits = Linear(dim, self.dim_out, dtype=dtype, generator=generator)
+        text_embed_dim = default(text_embed_dim, lambda: get_encoded_dim(self.t5_name))
         self.text_embed_dim = text_embed_dim
         self.text_embed_proj = (
             Linear(text_embed_dim, dim, dtype=dtype, generator=generator)
@@ -261,19 +266,33 @@ class Transformer(nn.Module):
             raise not_ported("positions off the trained grid (variable resolution)", "A8")
         return self.pos_emb.weight
 
-    def _context(self, text_embeds: torch.Tensor) -> torch.Tensor:
+    def encode_text(self, texts) -> torch.Tensor:
+        """Texts -> (b, n, text_embed_dim) T5 embeddings, padding zeroed, on
+        this module's device (the frozen encoder named `t5_name`)."""
+        return t5_encode_text(texts, name=self.t5_name, device=self.token_emb.weight.device)
+
+    def _context(
+        self, text_embeds: torch.Tensor, conditioning_token_ids: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """The cross-attention context: the projected text, then the token
+        embeddings of the flattened conditioning ids (super-res stage)."""
         if exists(self.text_embed_proj):
             text_embeds = self.text_embed_proj(text_embeds)
-        return text_embeds.to(self.dtype)
+        context = text_embeds.to(self.dtype)
+        if exists(conditioning_token_ids):
+            cond_ids = conditioning_token_ids.reshape(context.shape[0], -1)
+            context = torch.cat([context, self.token_emb(cond_ids).to(self.dtype)], dim=-2)
+        return context
 
     def precompute_context_kv(
-        self, *, text_embeds: torch.Tensor, conditioning_token_ids=None
+        self, *, text_embeds: torch.Tensor, conditioning_token_ids: Optional[torch.Tensor] = None
     ) -> List[KV]:
-        """Per-layer cross-attention K/V of the static context, projected once
-        per generate instead of once per step per layer."""
-        if exists(conditioning_token_ids):
-            raise not_ported("conditioning token ids (super-res stage)", "A7")
-        return self.transformer_blocks.compute_context_kv(self._context(text_embeds))
+        """Per-layer cross-attention K/V of the static context (projected
+        text, then conditioning-token embeddings), projected once per
+        generate instead of once per step per layer."""
+        return self.transformer_blocks.compute_context_kv(
+            self._context(text_embeds, conditioning_token_ids)
+        )
 
     def _cfg_combine(self, out2: torch.Tensor, b: int, cond_scale: float, fold: bool):
         """`null + (cond - null) * s` over a doubled batch: on the pre-head
@@ -293,7 +312,7 @@ class Transformer(nn.Module):
         cond_scale: float = 3.0,
         return_embed: bool = False,
         text_mask: Optional[torch.Tensor] = None,
-        conditioning_token_ids=None,
+        conditioning_token_ids: Optional[torch.Tensor] = None,
         self_cond_embed: Optional[torch.Tensor] = None,
         return_raw_double: bool = False,
         gather_positions: Optional[torch.Tensor] = None,
@@ -302,15 +321,16 @@ class Transformer(nn.Module):
         null_fold: bool = True,
     ):
         """CFG as ONE doubled-batch forward (cond rows then null rows, the
-        null half with its text mask zeroed). Semantics of every flag as in
-        the JAX module."""
+        null half with its TEXT mask zeroed; conditioning image tokens stay
+        attendable there). Semantics of every flag as in the JAX module;
+        `null_fold` is a no-op when conditioning tokens are given, because
+        the null half's cross-attention is then no constant."""
         if not isinstance(cond_scale, (int, float)):
             raise not_ported("tensor-valued or scheduled cond_scale", "A8")
-        if exists(conditioning_token_ids):
-            raise not_ported("conditioning token ids (super-res stage)", "A7")
         if cond_scale == 1:
             return self(
                 x, text_embeds=text_embeds, text_mask=text_mask, self_cond_embed=self_cond_embed,
+                conditioning_token_ids=conditioning_token_ids,
                 context_kv=context_kv, return_embed=return_embed, gather_positions=gather_positions,
             )
 
@@ -326,12 +346,13 @@ class Transformer(nn.Module):
             dup(x),
             text_embeds=dup(text_embeds),
             text_mask=torch.cat([text_mask, torch.zeros_like(text_mask)], dim=0),
+            conditioning_token_ids=dup(conditioning_token_ids),
             self_cond_embed=dup(self_cond_embed),
             return_embed=True,
             gather_positions=dup(gather_positions),
             context_kv=context_kv,
             skip_head=fold,
-            null_rows=b if null_fold else 0,
+            null_rows=b if (null_fold and not exists(conditioning_token_ids)) else 0,
         )
         if return_raw_double:
             return out2, embed2[:b]
@@ -344,11 +365,12 @@ class Transformer(nn.Module):
         self,
         x: torch.Tensor,
         *,
-        text_embeds: torch.Tensor,
+        texts=None,
+        text_embeds: Optional[torch.Tensor] = None,
         text_mask: Optional[torch.Tensor] = None,
         return_embed: bool = False,
         self_cond_embed: Optional[torch.Tensor] = None,
-        conditioning_token_ids=None,
+        conditioning_token_ids: Optional[torch.Tensor] = None,
         gather_positions: Optional[torch.Tensor] = None,
         context_kv: Optional[List[KV]] = None,
         skip_head: bool = False,
@@ -358,15 +380,29 @@ class Transformer(nn.Module):
 
         `gather_positions` (b, k) restricts the vocab head to those
         positions; `skip_head` returns (gathered pre-head embeddings, full
-        embeddings); `null_rows` see `TransformerBlocks.forward`."""
-        if exists(conditioning_token_ids):
-            raise not_ported("conditioning token ids (super-res stage)", "A7")
+        embeddings); `null_rows` see `TransformerBlocks.forward`.
+        `conditioning_token_ids` (b, ...) join the context after the text,
+        always attendable; with `context_kv` given they only extend the mask
+        (the cache already holds their K/V)."""
+        if null_rows and exists(conditioning_token_ids):
+            # conditioning tokens stay attendable in the CFG null half, so
+            # its cross-attention is no constant
+            raise ValueError("null_rows needs a context without conditioning_token_ids")
+        if exists(texts) == exists(text_embeds):
+            raise ValueError("pass exactly one of texts and text_embeds")
+        if exists(texts):
+            text_embeds = self.encode_text(texts)
         b, n = x.shape
-        context = self._context(text_embeds) if context_kv is None else None
+        context = (
+            self._context(text_embeds, conditioning_token_ids) if context_kv is None else None
+        )
         if text_mask is None:
             context_mask = (text_embeds != 0).any(dim=-1)
         else:
             context_mask = text_mask
+        if exists(conditioning_token_ids):
+            n_cond = conditioning_token_ids.reshape(b, -1).shape[-1]
+            context_mask = F.pad(context_mask, (0, n_cond), value=True)
 
         h = (self.token_emb(x) + self._positions(n)).to(self.dtype)
         if self.self_cond:

@@ -61,7 +61,7 @@ def xla_attention(
     return torch.einsum("bhij,bhjd->bhid", attn, v)
 
 
-def _mask_bias(mask: Optional[torch.Tensor], b: int, m: int, device) -> Optional[torch.Tensor]:
+def key_mask_bias(mask: Optional[torch.Tensor], b: int, m: int, device) -> Optional[torch.Tensor]:
     if mask is None:
         return None
     zero = torch.zeros((), dtype=torch.float32, device=device)
@@ -91,7 +91,7 @@ def qknorm_attend_plain(
     staying unrounded. Only the checks use it."""
     b, m = k.shape[:2]
     acc = torch.promote_types(q.dtype, torch.float32)
-    bias = _mask_bias(mask, b, m, q.device)
+    bias = key_mask_bias(mask, b, m, q.device)
 
     def norm(t):
         t = t.to(acc)
@@ -182,7 +182,7 @@ def qknorm_attend(
             raise ValueError("qknorm_attend: all inputs must be on one device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share a dtype")
-    bias = _mask_bias(mask, b, m, q.device)
+    bias = key_mask_bias(mask, b, m, q.device)
     q, k, v = _heads_contiguous(q), _heads_contiguous(k), _heads_contiguous(v)
     nk = null_k.to(q.dtype).contiguous()
     nv = null_v.to(q.dtype).contiguous()
@@ -269,7 +269,7 @@ def _flash_forward(q, k, v, mask: Optional[torch.Tensor], scale: float) -> torch
     if k.device != q.device or v.device != q.device:
         raise ValueError("attend: all inputs must be on one device")
     q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
-    bias = _mask_bias(mask, b, m, q.device)
+    bias = key_mask_bias(mask, b, m, q.device)
     out = torch.empty_like(q)
     lib = _flash_lib()
     err = lib.muse_flash_attn_launch(

@@ -14,8 +14,9 @@ change:
                                                flipped in space
   GroupNorm      scale, bias                -> weight, bias
   Embedding      embedding                  -> weight
-  LayerNorm      gamma; Attention null_kv (2, h, 1, d), q_scale, k_scale
-                                            -> same names, as they are
+  LayerNorm      gamma; Attention null_kv (2, h, 1, d), q_scale, k_scale;
+                 T5 RMSNorm weight          -> same names, as they are
+  nnx.List       blocks.0, blocks.1, ...    -> nn.ModuleList of the same name
   nnx.BatchStat  (EMA-VQ codebook, cluster_size, embed_avg, initted)
                                             -> registered buffers of the
                                                same names and dtypes
@@ -67,11 +68,21 @@ def load_jax_state(module: nn.Module, tree: Mapping) -> List[str]:
     """Copy every parameter and buffer of `module` from `tree`, in place, so
     each stays on its module's device. Raises if one is missing or has
     another shape; returns the JAX leaves that the port consumed none of
-    (e.g. a not-yet-ported discriminator)."""
+    (e.g. a not-yet-ported discriminator).
+
+    One port module may stand under several paths where the JAX tree holds a
+    subtree for each: a `MaskGit` built with `vae=v, cond_vae=v` keeps one
+    object, while the JAX `MaskGit` stores an eval clone under `vae` and
+    another under `cond_vae`. Every such subtree is consumed, and they must
+    agree: two different subtrees for one shared module raise. A path that
+    the JAX tree leaves out (it stores an aliased module once) is fine as
+    long as another path of the same module is there."""
     flat = flatten_tree(tree)
     used = set()
+    loaded = {}  # id(tensor) -> the key it was loaded from
+    missing = {}  # id(tensor) -> the first key that was looked for
     with torch.no_grad():
-        for mod_name, mod in module.named_modules():
+        for mod_name, mod in module.named_modules(remove_duplicate=False):
             prefix = f"{mod_name}." if mod_name else ""
             rules = _rules(mod)
             if rules is None:
@@ -83,7 +94,8 @@ def load_jax_state(module: nn.Module, tree: Mapping) -> List[str]:
                     continue
                 key = prefix + jname
                 if key not in flat:
-                    raise KeyError(f"JAX state has no {key!r} for {prefix}{pname}")
+                    missing.setdefault(id(param), (key, prefix + pname))
+                    continue
                 arr = flat[key]
                 if convert is not None:
                     arr = convert(arr)
@@ -93,6 +105,18 @@ def load_jax_state(module: nn.Module, tree: Mapping) -> List[str]:
                         f"{tuple(param.shape)}"
                     )
                 dtype = np.float32 if param.is_floating_point() else None  # e.g. bool `initted`
-                param.copy_(torch.from_numpy(np.array(arr, dtype=dtype)))
+                arr = np.array(arr, dtype=dtype)
                 used.add(key)
+                if id(param) in loaded:
+                    if not np.array_equal(param.cpu().numpy(), arr):
+                        raise ValueError(
+                            f"{loaded[id(param)]} and {key} differ in the JAX state but are one shared "
+                            "tensor in the port: build the port with separate modules"
+                        )
+                    continue
+                param.copy_(torch.from_numpy(arr))
+                loaded[id(param)] = key
+    for pid, (key, pname) in missing.items():
+        if pid not in loaded:
+            raise KeyError(f"JAX state has no {key!r} for {pname}")
     return sorted(set(flat) - used)

@@ -18,7 +18,7 @@ its jitted scan. Two details matter there:
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -67,6 +67,49 @@ def step_temperatures(temperature: float, timesteps: int) -> np.ndarray:
     `steps_left * (temperature * (1 / T))`."""
     steps_left = np.arange(timesteps - 1, -1, -1).astype(np.float32)
     return steps_left * (np.float32(temperature) * (np.float32(1.0) / np.float32(timesteps)))
+
+
+# ---------------------------------------------------------------------------
+# gumbel sampling
+# ---------------------------------------------------------------------------
+
+
+def log(t: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    return torch.log(t.clamp(min=eps))
+
+
+def gumbel_noise(
+    shape, generator: Optional[torch.Generator] = None, device=None, dtype=torch.float32
+) -> torch.Tensor:
+    """-log(-log(u)), u ~ U[0, 1) drawn from `generator` on `device`."""
+    u = torch.rand(tuple(shape), generator=generator, device=device, dtype=dtype)
+    return -log(-log(u))
+
+
+def first_argmax(t: torch.Tensor) -> torch.Tensor:
+    """Index of the FIRST maximal value along the last axis (int64), as
+    `jnp.argmax` returns it, in a form that does not depend on how a device
+    reduces ties: the lowest index among the positions equal to the maximum."""
+    n = t.shape[-1]
+    idx = torch.arange(n, device=t.device, dtype=torch.int32)
+    at_max = t == t.amax(dim=-1, keepdim=True)
+    first = torch.where(at_max, idx, n).amin(dim=-1)
+    return first.clamp_(max=n - 1).long()  # a row with a NaN has no position equal to its maximum
+
+
+def gumbel_sample(
+    logits: torch.Tensor,
+    temperature=1.0,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """First-index argmax of `logits / max(temperature, 1e-10) + gumbel`
+    over the last axis (int64 ids). The noise is drawn in f32 from
+    `generator` on the logits' device and the sum is taken in f32, whatever
+    the logits' dtype (the JAX package draws its noise in the logits' dtype;
+    the two random streams cannot agree anyway)."""
+    temperature = max(float(temperature), 1e-10)
+    g = gumbel_noise(logits.shape, generator, logits.device)
+    return first_argmax(logits.float() / temperature + g)
 
 
 # ---------------------------------------------------------------------------

@@ -179,6 +179,50 @@ def test_qknorm_bf16_core(dev, m):
     assert torch.equal(dense, out)
 
 
+# the super-res cross-attention under CFG: text keys then 256 conditioning
+# keys; the cond half sees its (ragged) text, the null half has every text
+# key off, the conditioning keys are on for all. At 64 text keys a whole
+# key tile is off for half the rows and on for the others; at 16 the tiles
+# are ragged (272 keys)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("text", [64, 16, 8])
+def test_qknorm_superres_cross_mask(dev, dtype, text):
+    g = torch.Generator(device=dev).manual_seed(text)
+    b, n, h, d, m = 6, 200, 2, 64, text + 256
+    q = torch.randn(b, n, h, d, generator=g, device=dev).to(dtype)
+    kv = torch.randn(b, m, 2 * h * d, generator=g, device=dev).to(dtype)
+    k, v = (t.reshape(b, m, h, d) for t in kv.chunk(2, dim=-1))
+    nk, nv = (torch.randn(h, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    qs, ks = (1 + 0.1 * torch.randn(d, generator=g, device=dev) for _ in range(2))
+    mask = torch.ones(b, m, dtype=torch.bool, device=dev)
+    mask[b // 2 :, :text] = False
+    lengths = torch.randint(1, text + 1, (b // 2, 1), generator=g, device=dev)
+    mask[: b // 2, :text] = torch.arange(text, device=dev)[None] < lengths
+    args = (q, k, v, nk, nv, qs, ks)
+    out = attention.qknorm_attend(*args, mask=mask)
+    ref = attention.qknorm_attend_plain(*args, mask=mask)
+    tol = 1e-4 if dtype == torch.float32 else K2_BF16_FROM_F32
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    # the null half equals an attention over the conditioning keys alone
+    cond_only = attention.qknorm_attend(q[b // 2 :], k[b // 2 :, text:], v[b // 2 :, text:], nk, nv, qs, ks)
+    torch.testing.assert_close(out[b // 2 :].float(), cond_only.float(), rtol=0, atol=tol)
+    if dtype == torch.bfloat16:
+        rounded = attention.qknorm_attend_plain(*args, mask=mask, round_to=torch.bfloat16)
+        torch.testing.assert_close(out.float(), rounded.float(), rtol=0, atol=BF16_VS_ROUNDED)
+
+
+def test_xla_sampler_first_index_on_the_card(dev):
+    # rows of heavy ties: the first maximal index, as on the CPU
+    from muse_maskgit_pytorch_tpu_torch.utils.sampling import first_argmax, top_k
+
+    g = torch.Generator().manual_seed(2)
+    t = torch.randint(0, 3, (64, 5, 4096), generator=g).float()
+    assert torch.equal(first_argmax(t.to(dev)).cpu(), first_argmax(t))
+    assert torch.equal(first_argmax(t.to(dev)).cpu(), t.argmax(-1))
+    logits = torch.randn(64, 4096, generator=g).bfloat16()
+    assert torch.equal(top_k(logits.to(dev), 0.9).cpu(), top_k(logits, 0.9))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_qknorm_without_keys_returns_null_v(dev, dtype):
     g = torch.Generator(device=dev).manual_seed(11)

@@ -7,11 +7,14 @@ the tests mean the same on a machine with a GPU)."""
 import pytest
 import torch
 
+from muse_maskgit_pytorch_tpu_torch.models.t5 import T5Config
 from muse_maskgit_pytorch_tpu_torch import (
     FSQ,
     LFQ,
     MaskGit,
     MaskGitTransformer,
+    Muse,
+    T5Encoder,
     Transformer,
     VectorQuantizeEMA,
     VQGanVAE,
@@ -26,8 +29,17 @@ def _maskgit(**kw):
     return MaskGit(image_size=16, transformer=transformer, vae=vae, **kw)
 
 
+def _muse(**kw):
+    base = _maskgit(device="cpu")
+    superres = _maskgit(device="cpu", cond_image_size=8)
+    return Muse(base, superres, **kw)
+
+
 PUBLIC = {
     "MaskGit": _maskgit,
+    "MaskGit super-res": lambda **kw: _maskgit(cond_image_size=8, **kw),
+    "Muse": _muse,
+    "T5Encoder": lambda **kw: T5Encoder(T5Config(16, 32, 2, 8, 1, True, vocab_size=64), **kw),
     "MaskGitTransformer": lambda **kw: MaskGitTransformer(**_T, **kw),
     "Transformer": lambda **kw: Transformer(**_T, **kw),
     "VQGanVAE": lambda **kw: VQGanVAE(dim=16, layers=2, codebook_size=64, **kw),

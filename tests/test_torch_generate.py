@@ -1,7 +1,10 @@
-"""Port parity for the whole slice: JAX `MaskGit.generate(text_embeds,
-text_mask, injected_gumbel_noise=g, sampler="fused")` against the port's
-`MaskGit.generate` with the same weights (bridged) and the same noise. The
-token grids must be identical; the decoded images agree to 1e-4 (f32).
+"""Port parity for the base stage as a whole: JAX `MaskGit.generate(
+text_embeds, text_mask, injected_gumbel_noise=g, sampler=...)` against the
+port's `MaskGit.generate` with the same weights (bridged), the same noise
+and the same sampler ("fused": the bisection threshold of K1; "xla": the
+exact `top_k` filter, which is also what "auto" means under injected noise
+in both packages). The token grids must be identical; the decoded images
+agree to 1e-4 (f32).
 """
 
 import subprocess
@@ -18,8 +21,10 @@ from flax import nnx
 from muse_maskgit_pytorch_tpu.models.maskgit import MaskGit as JMaskGit
 from muse_maskgit_pytorch_tpu.models.transformer import MaskGitTransformer as JTransformer
 from muse_maskgit_pytorch_tpu.models.vqgan_vae import VQGanVAE as JVAE
-from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE, load_jax_state
+from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, Muse, VQGanVAE, load_jax_state
+from muse_maskgit_pytorch_tpu_torch.models.t5 import HFTokenizer
 
+ROOT = Path(__file__).resolve().parents[1]
 VOCAB, SEQ, B, L, TEXT_DIM = 256, 16, 2, 5, 24
 KW = dict(num_tokens=VOCAB, dim=32, seq_len=SEQ, depth=2, dim_head=16, heads=2, text_embed_dim=TEXT_DIM)
 
@@ -55,15 +60,15 @@ def _inputs(timesteps, seed=0):
     return te, mask, g
 
 
-def _generate_both(jm, pm, timesteps, **kw):
+def _generate_both(jm, pm, timesteps, sampler="fused", **kw):
     te, mask, g = _inputs(timesteps)
     want = jm.generate(
         text_embeds=jnp.asarray(te), text_mask=jnp.asarray(mask), timesteps=timesteps,
-        injected_gumbel_noise=jnp.asarray(g), sampler="fused", **kw,
+        injected_gumbel_noise=jnp.asarray(g), sampler=sampler, **kw,
     )
     got = pm.generate(
         text_embeds=torch.from_numpy(te), text_mask=torch.from_numpy(mask), timesteps=timesteps,
-        injected_gumbel_noise=torch.from_numpy(g), **kw,
+        injected_gumbel_noise=torch.from_numpy(g), sampler=sampler, **kw,
     )
     return np.asarray(want), got.numpy()
 
@@ -78,10 +83,40 @@ def test_token_grids_identical(pair, compact, cfg_fold):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("cfg_fold", [True, False], ids=["cfg_fold", "cfg_logits"])
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "full"])
+@pytest.mark.parametrize("sampler", ["xla", "auto"])
+def test_token_grids_identical_xla_sampler(pair, sampler, compact, cfg_fold):
+    # the exact top-k path: what JAX `generate(injected_gumbel_noise=...,
+    # sampler="xla")` gives, and what "auto" means under injected noise
+    want, got = _generate_both(
+        *pair, 6, sampler=sampler, cond_scale=3.0, compact=compact, cfg_fold=cfg_fold, return_ids=True
+    )
+    np.testing.assert_array_equal(got, want)
+
+
+def test_auto_sampler_is_xla_under_injected_noise(pair):
+    _, pm = pair
+    te, mask, g = _inputs(6)
+    kw = dict(text_embeds=torch.from_numpy(te), timesteps=6, injected_gumbel_noise=torch.from_numpy(g), return_ids=True)
+    xla, auto = pm.generate(sampler="xla", **kw), pm.generate(**kw)
+    assert torch.equal(xla, auto)
+    with pytest.raises(ValueError, match="sampler must be"):
+        pm.generate(sampler="pallas", **kw)
+
+
 @pytest.mark.parametrize("timesteps", [7, 12])
 def test_token_grids_identical_other_step_counts(pair, timesteps):
     # step counts whose schedules round differently under torch.linspace
     want, got = _generate_both(*pair, timesteps, cond_scale=2.5, temperature=0.8, return_ids=True)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("timesteps", [7, 12])
+def test_token_grids_identical_other_step_counts_xla_sampler(pair, timesteps):
+    want, got = _generate_both(
+        *pair, timesteps, sampler="xla", cond_scale=2.5, temperature=0.8, return_ids=True
+    )
     np.testing.assert_array_equal(got, want)
 
 
@@ -96,13 +131,13 @@ def test_images_match(pair):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
-def test_generator_drives_the_sampler_noise(pair):
+def test_generator_drives_the_sampler_noise(pair, sampler="fused"):
     _, pm = pair
     te = torch.from_numpy(_inputs(4)[0])
 
     def run(seed):
         gen = torch.Generator().manual_seed(seed) if seed is not None else None
-        return pm.generate(generator=gen, text_embeds=te, timesteps=4, return_ids=True)
+        return pm.generate(generator=gen, text_embeds=te, timesteps=4, return_ids=True, sampler=sampler)
 
     a, b, c = run(1), run(1), run(2)
     assert torch.equal(a, b) and not torch.equal(a, c)
@@ -110,29 +145,48 @@ def test_generator_drives_the_sampler_noise(pair):
     assert int(a.max()) < VOCAB  # no mask id reaches the output
 
 
+def test_generator_drives_the_xla_sampler_noise(pair):
+    test_generator_drives_the_sampler_noise(pair, sampler="xla")
+
+
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        (dict(texts=["a photo"]), "A6"),
+        (dict(negative_texts=["a blur"] * B), "A8"),
         (dict(neg_text_embeds=torch.zeros(B, L, TEXT_DIM)), "A8"),
-        (dict(cond_token_ids=torch.zeros(B, 4, 4, dtype=torch.long)), "A7"),
+        (dict(known_token_ids=torch.zeros(B, 4, 4, dtype=torch.long), known_mask=torch.zeros(B, 4, 4, dtype=torch.bool)), "A8"),
         (dict(cond_scale=(1.0, 3.0)), "A8"),
         (dict(fmap_size=8), "A8"),
+        (dict(muse=dict(rerank_candidates=2)), "A8"),
+        (dict(muse=dict(image_size=32)), "A8"),
+        (dict(hf_tokenizer="google/t5-v1_1-base"), "A13"),
     ],
 )
 def test_unported_options_raise(pair, kwargs, item):
     _, pm = pair
-    kw = dict(text_embeds=torch.zeros(B, L, TEXT_DIM), timesteps=2) | kwargs
     with pytest.raises(NotImplementedError, match=item):
-        pm.generate(**kw)
+        if "hf_tokenizer" in kwargs:
+            HFTokenizer(kwargs["hf_tokenizer"])
+        elif "muse" in kwargs:
+            sr = MaskGit(image_size=32, cond_image_size=16, transformer=pm.transformer, vae=pm.vae, device="cpu")
+            Muse(pm, sr, device="cpu")(["a photo"], timesteps=2, **kwargs["muse"])
+        else:
+            pm.generate(**(dict(text_embeds=torch.zeros(B, L, TEXT_DIM), timesteps=2) | kwargs))
 
 
 def test_port_imports_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "muse_maskgit_pytorch_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py"
+    )
+    assert "muse_maskgit_pytorch_tpu_torch.models.t5" in modules
+    assert "muse_maskgit_pytorch_tpu_torch.utils.images" in modules
     code = (
-        "import sys, muse_maskgit_pytorch_tpu_torch; "
+        f"import sys, importlib, muse_maskgit_pytorch_tpu_torch; [importlib.import_module(m) for m in {modules!r}]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'muse_maskgit_pytorch_tpu')]; "
         "assert not bad, bad"
     )
     subprocess.run(
-        [sys.executable, "-c", code], check=True, timeout=120, cwd=Path(__file__).resolve().parents[1]
+        [sys.executable, "-c", code], check=True, timeout=120, cwd=ROOT
     )

@@ -106,3 +106,43 @@ def test_top_k_keeps_threshold_ties():
     want = np.asarray(jax_sampling.top_k(jnp.asarray(logits), thres=0.6))
     got = port_sampling.top_k(torch.from_numpy(logits), thres=0.6).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_log_and_gumbel_noise_follow_jax():
+    t = np.array([0.0, 1e-30, 1e-20, 0.3, 1.0], np.float32)
+    np.testing.assert_array_equal(
+        port_sampling.log(torch.from_numpy(t)).numpy(), np.asarray(jax_sampling.log(jnp.asarray(t)))
+    )
+    gen = torch.Generator().manual_seed(0)
+    g = port_sampling.gumbel_noise((4000, 16), gen)
+    again = port_sampling.gumbel_noise((4000, 16), torch.Generator().manual_seed(0))
+    assert torch.equal(g, again) and g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+    # a standard gumbel: mean = Euler's constant, variance = pi^2 / 6
+    assert abs(g.mean().item() - 0.5772) < 0.02 and abs(g.var().item() - np.pi ** 2 / 6) < 0.05
+
+
+def test_first_argmax_breaks_ties_at_the_lowest_index():
+    rs = np.random.RandomState(1)
+    t = rs.choice(np.array([-np.inf, 0.5, 2.0], np.float32), size=(50, 3, 12))
+    t[0] = -np.inf  # a row of nothing but -inf still has a first maximum
+    want = np.asarray(jnp.argmax(jnp.asarray(t), axis=-1))
+    got = port_sampling.first_argmax(torch.from_numpy(t))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_gumbel_sample(temperature):
+    # temperature 0 is clamped to 1e-10: the noise cannot move the argmax;
+    # at temperature 1 the draws follow softmax(logits)
+    p = torch.tensor([0.5, 0.25, 0.125, 0.125])
+    logits = p.log().expand(20000, 4)
+    ids = port_sampling.gumbel_sample(logits, temperature, torch.Generator().manual_seed(0))
+    assert ids.shape == (20000,) and ids.dtype == torch.int64
+    freq = torch.bincount(ids, minlength=4).float() / 20000
+    if temperature == 0.0:
+        assert torch.equal(freq, torch.tensor([1.0, 0.0, 0.0, 0.0]))
+        want = jax_sampling.gumbel_sample(jax.random.PRNGKey(0), jnp.asarray(logits.numpy()[:8]), temperature=0.0)
+        np.testing.assert_array_equal(ids[:8].numpy(), np.asarray(want))
+    else:
+        assert (freq - p).abs().max().item() < 0.015  # > 4 sigma at 20000 draws

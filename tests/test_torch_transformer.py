@@ -133,6 +133,66 @@ def test_cached_context_kv_and_raw_double(models):
     np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
 
 
+@pytest.fixture(scope="module")
+def cond_ids():
+    return np.random.RandomState(8).randint(0, VOCAB, size=(B, 2, 3))  # a (2, 3) grid of conditioning tokens
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["context", "context_kv"])
+def test_forward_with_conditioning_token_ids(models, cond_ids, cached):
+    # the super-res stage's context: projected text, then the token
+    # embeddings of the conditioning ids, which no text mask hides
+    jm, pm, ids, te, mask, _ = models
+    jkw = dict(text_embeds=jnp.asarray(te), text_mask=jnp.asarray(mask), conditioning_token_ids=jnp.asarray(cond_ids))
+    pkw = dict(text_embeds=torch.from_numpy(te), text_mask=torch.from_numpy(mask),
+               conditioning_token_ids=torch.from_numpy(cond_ids))
+    if cached:
+        jkw["context_kv"] = jm.precompute_context_kv(text_embeds=jnp.asarray(te), conditioning_token_ids=jnp.asarray(cond_ids))
+        with torch.no_grad():
+            pkw["context_kv"] = pm.precompute_context_kv(
+                text_embeds=torch.from_numpy(te), conditioning_token_ids=torch.from_numpy(cond_ids)
+            )
+        assert pkw["context_kv"][0][0].shape[1] == L + 6
+    jl, je = jm(jnp.asarray(ids), return_embed=True, **jkw)
+    with torch.no_grad():
+        pl, pe = pm(torch.from_numpy(ids), return_embed=True, **pkw)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(pe.numpy(), np.asarray(je), **TOL)
+
+
+@pytest.mark.parametrize("gather", [False, True], ids=["full", "gather"])
+@pytest.mark.parametrize("null_fold", [False, True], ids=["nofold_null", "null_fold"])
+@pytest.mark.parametrize("cfg_fold", [False, True], ids=["nofold_cfg", "cfg_fold"])
+def test_forward_with_cond_scale_and_conditioning_token_ids(models, cond_ids, cfg_fold, null_fold, gather):
+    # the null half keeps the conditioning tokens, so `null_fold` folds nothing
+    jm, pm, ids, te, mask, gpos = models
+    common = dict(cond_scale=3.0, return_embed=True, cfg_fold=cfg_fold, null_fold=null_fold)
+    jkv = jm.precompute_context_kv(text_embeds=jnp.asarray(te), conditioning_token_ids=jnp.asarray(cond_ids))
+    jkv = [(jnp.concatenate([k, k]), jnp.concatenate([v, v])) for k, v in jkv]
+    jl, je = jm.forward_with_cond_scale(
+        jnp.asarray(ids), text_embeds=jnp.asarray(te), text_mask=jnp.asarray(mask),
+        conditioning_token_ids=jnp.asarray(cond_ids), context_kv=jkv,
+        gather_positions=jnp.asarray(gpos) if gather else None, **common,
+    )
+    with torch.no_grad():
+        pkv = pm.precompute_context_kv(text_embeds=torch.from_numpy(te), conditioning_token_ids=torch.from_numpy(cond_ids))
+        pkv = [(torch.cat([k, k]), torch.cat([v, v])) for k, v in pkv]
+        pl, pe = pm.forward_with_cond_scale(
+            torch.from_numpy(ids), text_embeds=torch.from_numpy(te), text_mask=torch.from_numpy(mask),
+            conditioning_token_ids=torch.from_numpy(cond_ids), context_kv=pkv,
+            gather_positions=torch.from_numpy(gpos) if gather else None, **common,
+        )
+        uncached = pm.forward_with_cond_scale(
+            torch.from_numpy(ids), text_embeds=torch.from_numpy(te), text_mask=torch.from_numpy(mask),
+            conditioning_token_ids=torch.from_numpy(cond_ids),
+            gather_positions=torch.from_numpy(gpos) if gather else None, **common,
+        )[0]
+    assert pl.shape == jl.shape
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(pe.numpy(), np.asarray(je), **TOL)
+    np.testing.assert_allclose(uncached.numpy(), pl.numpy(), **TOL)
+
+
 def test_cond_scale_one_is_single_pass(models):
     jm, pm, ids, te, mask, _ = models
     jl = jm.forward_with_cond_scale(jnp.asarray(ids), text_embeds=jnp.asarray(te), cond_scale=1.0)
@@ -162,7 +222,15 @@ def test_random_init_scales_follow_jax():
 
 
 def test_missing_text_embed_dim_raises():
+    # the width then comes from the named T5's config table; a name the
+    # table does not hold raises (nothing asks a hub)
     kw = dict(KW, text_embed_dim=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        pt.MaskGitTransformer(**kw)
+    m = pt.MaskGitTransformer(**kw)
+    assert m.t5_name == "google/t5-v1_1-base" and m.text_embed_dim == 768
+    assert m.text_embed_proj.weight.shape == (DIM, 768)
+    assert pt.MaskGitTransformer(**kw, t5_name="t5-small").text_embed_dim == 512
+    with pytest.raises(ValueError, match="unknown t5 config"):
+        pt.MaskGitTransformer(**kw, t5_name="no/such-model")
+    with pytest.raises(ValueError, match="exactly one of texts and text_embeds"):
+        m(torch.zeros(B, SEQ, dtype=torch.long))
     assert "A6" in str(not_ported("x", "A6"))
