@@ -22,16 +22,23 @@ read just after):
     with EMA-VQ at the reference vq_kwargs (K 65536, codebook_dim 256,
     cosine) -- K3 on every EMA-VQ encode;
   * the public `ops.attend` op at the unfused attention's shapes -- K4, which
-    no model path calls (as in the JAX package).
+    no model path calls (as in the JAX package);
+  * `surfaces`: every other sampling surface at the base stage's width --
+    a negative prompt, a guidance ramp with `cfg_fold=False` (K1 reading its
+    scale from device memory), per-row scales, 256x384 and 320px requests,
+    `can_remask_prev_masked`, a SelfCritic and a TokenCritic decode,
+    `MaskGit.edit`, `generate_reranked` by log-likelihood and by critic,
+    `Muse.edit` at 512px and `Muse(texts)` re-ranked at 256x384 -> 512x768
+    -- K1 and K2 at the shapes these give them.
 
-Each phase prints one line; any failed check raises and the exit code is
-non-zero. The last line is
+Each phase prints one line (`surfaces` one a request); any failed check
+raises and the exit code is non-zero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
 selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
-t5, cascade, profile) while iterating; a subset prints its phases' lines
+t5, surfaces, cascade, profile) while iterating; a subset prints its phases' lines
 and no result lines.
 """
 
@@ -51,7 +58,7 @@ from pathlib import Path
 # has run in a process, every later launch costs the host more, and the
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
-    "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "cascade", "profile",
+    "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "cascade", "profile",
 )
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "vq_search", "flash_attention")
 
@@ -63,6 +70,8 @@ IMAGE, VAE_DIM, VAE_LAYERS, CODE_DIM = 256, 256, 4, 256
 NEAR_TIE = 1e-5  # f64 score gap within which two f32 searches may differ (unit vectors)
 # the cascade: batch, the super-res stage's sequence and image, its conditioning grid
 CAS_BATCH, SR_SEQ, SR_IMAGE, COND_TOKENS = 16, 1024, 512, 256
+# the sampling surfaces: base-stage and cascade batches, a negative text's length
+SURF_BATCH, SURF_CAS_BATCH, NEG_TEXT_LEN = 8, 4, 16
 # 57-63 bytes each: with the end token, a T5 length of 64, so 64 + 256 cross-attention keys
 PROMPTS = (
     "a watercolor painting of a lighthouse on a cliff at sunrise",
@@ -268,6 +277,10 @@ def phase_k1(torch, ctx):
     # cfg_pair: cond rows then null rows, combined in the kernel
     pair = (torch.randn(2 * rows, VOCAB, generator=g, device=dev) * 3).to(torch.bfloat16)
     err = max(err, compare("cfg_pair", pair, noise, cfg_pair=True, cond_scale=CFG))
+    # the same route with the scale read from device memory, as a guidance
+    # ramp's step gives it (1 + 4 * 1/17: not a bf16 value)
+    ramp_scale = torch.tensor([1.0 + 4.0 / 17.0], device=dev)
+    err = max(err, compare("cfg_pair device scale", pair, noise, cfg_pair=True, cond_scale=ramp_scale))
     # an odd row count, f32 logits
     odd = torch.randn(1001, VOCAB, generator=g, device=dev) * 3
     err = max(err, compare("odd rows f32", odd, noise[:1001]))
@@ -355,11 +368,17 @@ def phase_k1(torch, ctx):
     # one sampled) and f32 logits (four-byte reads), each with its own bound
     pair_ms = cuda_ms(lambda: sample(pair, TOPK, temp, seed, cfg_pair=True, cond_scale=CFG))
     pair_bound, _ = bound(0, nbytes(pair, seed) + rows * 8, PEAK_F32)
+    dev_scale_ms = cuda_ms(lambda: sample(pair, TOPK, temp, seed, cfg_pair=True, cond_scale=ramp_scale))
+    dev_scale_plain_ms = cuda_ms(
+        lambda: plain(pair, TOPK, temp, seed, cfg_pair=True, cond_scale=ramp_scale), iters=2, warmup=1
+    )
+    dev_scale_bound, _ = bound(0, nbytes(pair, seed, ramp_scale) + rows * 8, PEAK_F32)
     del pair
     f32_ms = cuda_ms(lambda: sample(l32, TOPK, temp, seed))
     f32_bound, _ = bound(0, nbytes(l32, seed) + rows * 8, PEAK_F32)
     ctx["k1_routes"] = dict(
         cfg_pair_bf16=dict(ms=pair_ms, bound_ms=pair_bound), f32=dict(ms=f32_ms, bound_ms=f32_bound),
+        cfg_pair_bf16_device_scale=dict(ms=dev_scale_ms, plain_ms=dev_scale_plain_ms, bound_ms=dev_scale_bound),
         **{f"bf16_rows_{n}": dict(ms=small[n], bound_ms=small_bound[n]) for n in small},
     )
     small_s = ", ".join(f"{n} rows {small[n]:.4f} ms (bound {small_bound[n]:.4f})" for n in small)
@@ -382,13 +401,14 @@ def phase_k1(torch, ctx):
     ctx["k1_routes"]["part_clocks_per_row"] = parts
     parts_s = ", ".join(f"{name} {c:.0f}" for name, c in parts.items())
     log(
-        f"[k1] fused_topk_gumbel_sample ok: ids exact (bf16, cfg_pair, odd f32; {', '.join(stress)}), "
+        f"[k1] fused_topk_gumbel_sample ok: ids exact (bf16, cfg_pair, cfg_pair device scale, odd f32; {', '.join(stress)}), "
         f"prob abs err {err:.3g} (rel <= 1e-5); temp0=argmax, top-k set, Philox agree {agree_philox:.4f}, "
         f"freq dev {dev_max:.4f}; ({rows}, {VOCAB}) bf16 {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.0%} of it reached; device time by graph replay: "
         f"{small_s}; super-res step 0 ({sr_rows}, {VOCAB}) bf16 ids exact, {sr_ms:.3f} ms vs plain "
         f"{sr_plain_ms:.3f} ms, bound {sr_bound:.3f} ms (bytes), {sr_bound / sr_ms:.0%} of it reached; "
-        f"cfg_pair bf16 (2 x {rows}, {VOCAB}) {pair_ms:.3f} ms, bound {pair_bound:.3f} ms (bytes); "
+        f"cfg_pair bf16 (2 x {rows}, {VOCAB}) {pair_ms:.3f} ms, with the scale in device memory {dev_scale_ms:.3f} "
+        f"ms vs plain {dev_scale_plain_ms:.3f} ms, bound {pair_bound:.3f} ms (bytes); "
         f"f32 ({rows}, {VOCAB}) {f32_ms:.3f} ms, bound {f32_bound:.3f} ms (bytes); SM clocks a row by part "
         f"(instrumented build, {sum(parts.values()):.0f} in all): {parts_s}"
     )
@@ -432,6 +452,11 @@ def phase_k2(torch, ctx):
         mask = None
         if masked_rows == "superres":
             mask = sr_mask(b, m - COND_TOKENS)
+        elif masked_rows == "negative":
+            # negative prompts: the cond half sees its 64-token text, the
+            # other half a negative text of 16, padded to 64
+            mask = torch.ones(b, m, dtype=torch.bool, device=dev)
+            mask[b // 2 :, NEG_TEXT_LEN:] = False
         elif masked_rows:
             mask = torch.rand(b, m, generator=g, device=dev) > 0.3
             mask[:masked_rows] = False  # only the null position remains
@@ -448,6 +473,14 @@ def phase_k2(torch, ctx):
         "sr_self": (2 * CAS_BATCH, SR_SEQ, SR_SEQ, 0),
         "sr_cross": (2 * CAS_BATCH, SR_SEQ, TEXT_LEN + COND_TOKENS, "superres"),
         "sr_cross_272": (2 * CAS_BATCH, SR_SEQ, 16 + COND_TOKENS, "superres"),
+        # the sampling surfaces at batch 8 under CFG (phase `surfaces`): a
+        # 320px base stage (400 queries, 3 x 128 + 16), a 256 x 384
+        # rectangle (384), a negative prompt's cross-attention, and the
+        # 512 x 768 super-res stage at batch 4 (1536)
+        "surf_self_400": (2 * SURF_BATCH, 400, 400, 0),
+        "surf_self_384": (2 * SURF_BATCH, 384, 384, 0),
+        "surf_neg_cross": (2 * SURF_BATCH, SEQ, TEXT_LEN, "negative"),
+        "surf_sr_self_1536": (2 * SURF_CAS_BATCH, 1536, 1536, 0),
     }
     # f32: both sides compute in f32, differing only in summation order
     # (<= 1e-4). bf16: against the plain version with the TPU kernel's
@@ -473,7 +506,7 @@ def phase_k2(torch, ctx):
                     f"K2 {name} bf16 vs the TPU-rounding plain version: {rerr:.3g} > {BF16_VS_ROUNDED:g}",
                 )
                 rounded_errs[name] = rerr
-            if masked and masked != "superres":
+            if masked and masked not in ("superres", "negative"):
                 nv = args[4].float()
                 got = out[:masked].float()
                 require(
@@ -506,10 +539,21 @@ def phase_k2(torch, ctx):
 
     t_self, t_cross = timed(2 * BATCH, SEQ, SEQ), timed(BATCH, SEQ, TEXT_LEN)
     sr_times = {name: timed(*shapes[name]) for name in ("sr_self", "sr_cross", "sr_cross_272")}
+    surf_times = {name: timed(*shapes[name]) for name in shapes if name.startswith("surf_")}
     ctx["k2_shapes"] = {
         name: dict(shape=list(shapes[name][:3]), max_abs_err=errs[(name, torch.bfloat16)], **t)
-        for name, t in sr_times.items()
+        for name, t in (sr_times | surf_times).items()
     }
+    # K2 has no backward yet: inputs that need a gradient are refused (no
+    # output without a graph), under no_grad they run
+    (q, *rest), _ = inputs(2, 70, 70, torch.bfloat16)
+    try:
+        qknorm_attend(q.detach().requires_grad_(), *rest)
+        raise AssertionError("K2 took an input that needs a gradient")
+    except RuntimeError as e:
+        require("no backward" in str(e), f"K2 refused a gradient input with {e}")
+    with torch.no_grad():
+        qknorm_attend(q.detach().requires_grad_(), *rest)
     # the wrapper turns the bool key mask into an f32 bias on every call
     # (inside each masked time above): its own device time at the super-res shape
     sr_key_mask = sr_mask(2 * CAS_BATCH, TEXT_LEN)
@@ -534,8 +578,12 @@ def phase_k2(torch, ctx):
         f"self (64,256,8,64) bf16 {line(t_self)}; cross (32,256|64,8,64) {line(t_cross)}; super-res self "
         f"(32,1024,8,64) {line(sr_times['sr_self'])}; super-res cross (32,1024|320,8,64), the null half's text "
         f"keys off, {line(sr_times['sr_cross'])}; super-res cross (32,1024|272,8,64), ragged text, "
-        f"{line(sr_times['sr_cross_272'])} (the SDPA beside a masked shape runs without the mask; each masked "
-        f"time holds the wrapper's mask -> bias conversion, {bias_ms:.4f} ms at (32, 320))"
+        f"{line(sr_times['sr_cross_272'])}; surfaces: self (16,400,8,64) {line(surf_times['surf_self_400'])}; "
+        f"self (16,384,8,64) {line(surf_times['surf_self_384'])}; negative-prompt cross (16,256|64,8,64), the "
+        f"negative half's keys {NEG_TEXT_LEN}..63 off, {line(surf_times['surf_neg_cross'])}; super-res self "
+        f"(8,1536,8,64) {line(surf_times['surf_sr_self_1536'])} (the SDPA beside a masked shape runs without the "
+        f"mask; each masked time holds the wrapper's mask -> bias conversion, {bias_ms:.4f} ms at (32, 320)); "
+        f"inputs that need a gradient raise (no backward yet)"
     )
 
 
@@ -694,12 +742,12 @@ def build_models(torch, dtype=None, with_vae=True):
     from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE
 
     gen = torch.Generator().manual_seed(0)
-    vae = VQGanVAE(dim=256, layers=4, codebook_size=VOCAB, generator=gen) if with_vae else None
+    vae = VQGanVAE(dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, generator=gen) if with_vae else None
     transformer = MaskGitTransformer(
         num_tokens=VOCAB, dim=DIM, seq_len=SEQ, depth=DEPTH, dim_head=DIM_HEAD, heads=HEADS,
         text_embed_dim=TEXT_DIM, dtype=dtype or torch.bfloat16, generator=gen,
     )
-    return MaskGit(image_size=256, transformer=transformer, vae=vae).eval()
+    return MaskGit(image_size=IMAGE, transformer=transformer, vae=vae).eval()
 
 
 def build_superres(torch, vae, dtype=None):
@@ -717,6 +765,15 @@ def build_superres(torch, vae, dtype=None):
     return MaskGit(
         image_size=SR_IMAGE, cond_image_size=IMAGE, transformer=transformer, vae=vae, cond_vae=vae
     ).eval()
+
+
+def centre_half_mask(b: int, h: int, w: int):
+    """(b, h, w) bool pixel mask, True over the centre half of each side."""
+    import torch
+
+    mask = torch.zeros(b, h, w, dtype=torch.bool, device="cuda")
+    mask[:, h // 4 : h - h // 4, w // 4 : w - w // 4] = True
+    return mask
 
 
 def profile_rows(prof):
@@ -956,6 +1013,35 @@ def phase_parity(torch, ctx):
     sr9, sr_floor9, sr_f64_9 = agreement(lambda: decode_step(half, cand, 9, noise9, superres, cond))
     require(sr0 >= sr_floor0 - 0.01, f"super-res bf16 step 0 token agreement {sr0:.4f} < floor {sr_floor0:.4f} - 0.01")
     require(sr9 >= sr_floor9 - 0.01, f"super-res bf16 step 9 token agreement {sr9:.4f} < floor {sr_floor9:.4f} - 0.01")
+    del noise0, noise9
+
+    # -- the sampling surfaces in f32, batch 4, 18 steps, injected noise:
+    # a negative prompt, an edit, a 320px request, a guidance ramp with
+    # cfg_fold=False (K1's cfg_pair route with the scale in device memory)
+    sb, side = 4, IMAGE * 5 // 4  # 320px: 400 tokens
+    f32 = build_models(torch, dtype=torch.float32)
+    text = torch.randn(sb, TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
+    neg = torch.randn(sb, NEG_TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
+    images = torch.rand(sb, IMAGE, IMAGE, 3, generator=g, device="cuda")
+    surfaces = {
+        "negative prompt": (SEQ, lambda **kw: f32.generate(text_embeds=text, neg_text_embeds=neg, **kw)),
+        "edit": (SEQ, lambda **kw: f32.edit(images, centre_half_mask(sb, IMAGE, IMAGE), text_embeds=text, **kw)),
+        f"{side}px": ((side >> VAE_LAYERS) ** 2, lambda **kw: f32.generate(text_embeds=text, image_size=side, **kw)),
+        "ramp cfg_fold=False": (
+            SEQ, lambda **kw: f32.generate(text_embeds=text, cfg_fold=False, **(kw | dict(cond_scale=(1.0, 5.0)))),
+        ),
+    }
+    surface_agree = {}
+    for name, (seq, run) in surfaces.items():
+        noise = gumbel(STEPS, sb, seq, VOCAB)
+        surface_agree[name] = agreement(
+            lambda: run(timesteps=STEPS, cond_scale=CFG, sampler="fused", injected_gumbel_noise=noise, return_ids=True),
+            floors=False,
+        )[0]
+        del noise
+        require(surface_agree[name] >= 0.99, f"f32 {name} T{STEPS} kernel vs plain token agreement {surface_agree[name]:.4f} < 0.99")
+    del f32
+    surfaces_s = ", ".join(f"{n} {a:.4f}" for n, a in surface_agree.items())
     log(
         f"[parity] injected noise, token agreement with the plain path (kernel path | TPU-rounding "
         f"attention floor | f64 attention): f32 generate b{b} T{STEPS} {f32_full:.4f} (checked >= 0.99); "
@@ -965,7 +1051,8 @@ def phase_parity(torch, ctx):
         f"{COND_TOKENS} conditioning tokens) b{sbs}: f32 generate T{STEPS} {sr_f32_full:.4f} (checked >= 0.99), "
         f"bf16 step 0 {sr0:.4f} | {sr_floor0:.4f} | {sr_f64_0:.4f}, bf16 step 9 {sr9:.4f} | {sr_floor9:.4f} | "
         f"{sr_f64_9:.4f} (checked >= floor - 0.01); sampler=\"xla\" vs \"fused\" bf16 generate b{b} "
-        f"T{STEPS}, same noise: {xla_vs_fused:.4f} (printed: they differ by design)"
+        f"T{STEPS}, same noise: {xla_vs_fused:.4f} (printed: they differ by design); sampling surfaces, f32 "
+        f"b{sb} T{STEPS}: {surfaces_s} (checked >= 0.99)"
     )
 
 
@@ -1093,6 +1180,183 @@ def phase_t5(torch, ctx):
         f"{tuple(embeds.shape)} f32, padding exactly 0, finite; v1.1-base shape ({params / 1e6:.1f}M parameters, "
         f"random init), {ms:.2f} ms per batch (median of 5, first call {times[0] * 1000:.1f} ms) | {ctx['smi']} | "
         f"encoder built {t_build:.1f}s"
+    )
+
+
+def phase_surfaces(torch, ctx):
+    """Every sampling surface of `MaskGit` and `Muse` through its entry
+    point, at the base stage's full width (bf16, 18 steps, CFG 3, batch 8
+    unless stated; the cascade's super-res stage at batch 4): three requests
+    each after a warm-up, timed by the host clock around work that ends in a
+    synchronize (median). The launch counts are set to 0 just before each
+    request and read just after: K1 > 0, K2 > 0, K3 = K4 = 0. Checked: the
+    output's shape, finite values, no mask id in any grid a decode returned,
+    and for the edits every known token equal to the source's. One line a
+    request, then the cost of `vaes_share_weights` that `Muse(cond_via=
+    "ids")` pays now that each stage holds its own VAE clone."""
+    from muse_maskgit_pytorch_tpu_torch import MaskGit, Muse, TokenCritic, vaes_share_weights
+    from muse_maskgit_pytorch_tpu_torch.models.maskgit import _resize_nearest
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+
+    t0 = time.perf_counter()
+    base = ctx.get("maskgit") or build_models(torch)
+    ctx["maskgit"] = base
+    superres = ctx.get("superres") or build_superres(torch, base.vae)
+    ctx["superres"] = superres
+    tr, vae = base.transformer, base.vae
+    critic = TokenCritic(
+        num_tokens=VOCAB, dim=DIM, seq_len=SEQ, depth=2, dim_head=DIM_HEAD, heads=HEADS, text_embed_dim=TEXT_DIM,
+        dtype=torch.bfloat16, generator=torch.Generator().manual_seed(2),
+    )
+    remask = MaskGit(image_size=IMAGE, transformer=tr, vae=vae, no_mask_token_prob=0.1).eval()
+    self_critic = MaskGit(image_size=IMAGE, transformer=tr, vae=vae, self_token_critic=True).eval()
+    token_critic = MaskGit(image_size=IMAGE, transformer=tr, vae=vae, token_critic=critic).eval()
+    muse = Muse(base, superres)
+    t_build = time.perf_counter() - t0
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, cb = SURF_BATCH, SURF_CAS_BATCH
+    text = torch.randn(b, TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
+    neg = torch.randn(b, NEG_TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
+    images = torch.rand(b, IMAGE, IMAGE, 3, generator=g, device="cuda")
+    sr_images = torch.rand(cb, SR_IMAGE, SR_IMAGE, 3, generator=g, device="cuda")
+    edit_mask, sr_edit_mask = centre_half_mask(b, IMAGE, IMAGE), centre_half_mask(cb, SR_IMAGE, SR_IMAGE)
+    per_row = torch.linspace(1.0, 5.0, b, device="cuda")[None]
+    kw = dict(text_embeds=text, timesteps=STEPS, cond_scale=CFG)
+    few = dict(kw, text_embeds=text[:cb])
+    img = (IMAGE, IMAGE, 3)
+    # a landscape 2:3 (256 x 384, 384 tokens) and a 320px square (400)
+    rect, square = (IMAGE, IMAGE * 3 // 2), IMAGE * 5 // 4
+    grid, sr_grid = IMAGE >> VAE_LAYERS, SR_IMAGE >> VAE_LAYERS
+    # name: (images a request, output shape, the request from a seed)
+    requests = {
+        "negative prompt (64 + 16 tokens)": (b, (b, *img), lambda s: base.generate(generator=s, neg_text_embeds=neg, **kw)),
+        "guidance ramp (1, 5), cfg_fold=False": (
+            b, (b, *img), lambda s: base.generate(generator=s, cfg_fold=False, **(kw | dict(cond_scale=(1.0, 5.0)))),
+        ),
+        "per-row scale (1, b)": (b, (b, *img), lambda s: base.generate(generator=s, **(kw | dict(cond_scale=per_row)))),
+        f"image_size {rect}": (b, (b, *rect, 3), lambda s: base.generate(generator=s, image_size=rect, **kw)),
+        f"image_size {square}": (b, (b, square, square, 3), lambda s: base.generate(generator=s, image_size=square, **kw)),
+        "can_remask_prev_masked": (
+            b, (b, *img), lambda s: remask.generate(generator=s, can_remask_prev_masked=True, **kw),
+        ),
+        "SelfCritic": (b, (b, *img), lambda s: self_critic.generate(generator=s, **kw)),
+        "TokenCritic (depth 2)": (b, (b, *img), lambda s: token_critic.generate(generator=s, **kw)),
+        "edit (centre half)": (b, (b, *img), lambda s: base.edit(images, edit_mask, generator=s, **kw)),
+        "generate_reranked 4 x 4, logprob": (
+            cb, (cb, *img), lambda s: base.generate_reranked(generator=s, num_candidates=4, score_method="logprob", **few),
+        ),
+        "generate_reranked 4 x 4, critic": (
+            cb, (cb, *img),
+            lambda s: token_critic.generate_reranked(generator=s, num_candidates=4, score_method="critic", **few),
+        ),
+        "Muse.edit 512px": (
+            cb, (cb, SR_IMAGE, SR_IMAGE, 3),
+            lambda s: muse.edit(sr_images, sr_edit_mask, generator=s, return_pil_images=False, **few),
+        ),
+        f"Muse(texts, rerank 2, {rect}, ids)": (
+            cb, (cb, SR_IMAGE, SR_IMAGE * 3 // 2, 3),
+            lambda s: muse(
+                list(PROMPTS[:cb]), generator=s, rerank_candidates=2, image_size=rect, cond_via="ids",
+                timesteps=STEPS, cond_scale=CFG, return_pil_images=False,
+            ),
+        ),
+    }
+
+    # every grid a decode returns, from any entry point, for the mask-id check
+    decoded = []
+    decode = MaskGit._decode
+
+    def recording(self, **k):
+        ids = decode(self, **k)
+        decoded.append((self, ids))
+        return ids
+
+    def known_equal(grid, model, source, pixel_mask):
+        """The grid's tokens outside the edit equal `source`'s tokens."""
+        _, src, _ = model.vae.encode(source)
+        fh, fw = src.shape[1:]
+        ph, pw = pixel_mask.shape[1] // fh, pixel_mask.shape[2] // fw
+        edited = pixel_mask.reshape(-1, fh, ph, fw, pw).any(dim=4).any(dim=2)
+        return bool((grid[~edited] == src.long()[~edited]).all())
+
+    counted = (fused_topk_gumbel_sample, qknorm_attend, attend, nearest_code)  # K1, K2, K4, K3
+    results, runs = {}, {}
+    MaskGit._decode = recording
+    try:
+        for name, (n_img, shape, run) in requests.items():
+            with torch.inference_mode():
+                run(torch.Generator(device="cuda").manual_seed(100))  # warm-up at the request's shapes
+                times, counts = [], []
+                for seed in range(3):
+                    decoded.clear()
+                    for fn in counted:
+                        fn.launches = 0
+                    gen = torch.Generator(device="cuda").manual_seed(seed)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = run(gen)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t)
+                    counts.append(tuple(fn.launches for fn in counted))
+                    require(tuple(out.shape) == shape, f"{name}: output shape {tuple(out.shape)}, expected {shape}")
+                    require(bool(torch.isfinite(out).all()), f"{name}: non-finite pixels")
+                    require(decoded, f"{name}: no decode ran")
+                    for model, ids in decoded:
+                        require(int(ids.max()) < model.mask_id, f"{name}: a mask id is left in a decoded grid")
+                    if name.startswith("edit"):
+                        require(
+                            known_equal(decoded[0][1].reshape(b, grid, grid), base, images, edit_mask),
+                            f"{name}: known tokens changed",
+                        )
+                    if name.startswith("Muse.edit"):
+                        (_, low), (_, high) = decoded
+                        r = SR_IMAGE // IMAGE
+                        low_src = _resize_nearest(sr_images, IMAGE, IMAGE)
+                        low_mask = sr_edit_mask.reshape(cb, IMAGE, r, IMAGE, r).any(dim=4).any(dim=2)
+                        require(
+                            known_equal(low.reshape(cb, grid, grid), base, low_src, low_mask),
+                            f"{name}: base known tokens changed",
+                        )
+                        require(
+                            known_equal(high.reshape(cb, sr_grid, sr_grid), superres, sr_images, sr_edit_mask),
+                            f"{name}: super-res known tokens changed",
+                        )
+            k1, k2, k4, k3 = counts[0]
+            # the LFQ tokenizer of an edit's source searches no codebook
+            require(k1 > 0 and k2 > 0 and k4 == k3 == 0, f"{name}: K1 +{k1}, K2 +{k2}, K4 +{k4}, K3 +{k3} launches")
+            require(len(set(counts)) == 1, f"{name}: launches differ between requests: {counts}")
+            dt = statistics.median(times)
+            results[name] = dict(ms=dt * 1000, img_s=n_img / dt, k1=k1, k2=k2, k4=k4, k3=k3)
+            runs[name] = dict(zip(("k1", "k2", "k4", "k3"), map(sum, zip(*counts))))  # all three requests
+            log(
+                f"[surfaces] {name}: b{n_img} T{STEPS} cfg{CFG:g} {n_img / dt:.3f} img/s (median of "
+                f"{', '.join(f'{t * 1000:.1f}' for t in times)} ms); K1 +{k1}, K2 +{k2}, K4 +{k4}, K3 +{k3} a "
+                f"request; output {shape}"
+            )
+            del out
+    finally:
+        MaskGit._decode = decode
+
+    # what `Muse(cond_via="ids")` pays on every call: the stages hold two
+    # VAE clones with equal weights, compared on the card, one flag read
+    require(vaes_share_weights(superres.cond_vae, base.vae), "the cascade's VAE clones differ")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        vaes_share_weights(superres.cond_vae, base.vae)
+    share_ms = (time.perf_counter() - t) * 100
+    ctx["vaes_share_weights_ms"] = share_ms
+    ctx["surfaces"] = results
+    for tag in ("k1", "k2", "k4", "k3"):
+        ctx[tag]["launches_per_surface_request"] = {n: r[tag] for n, r in results.items()}
+        ctx["surface_launches"] = ctx.get("surface_launches", {}) | {tag: sum(r[tag] for r in runs.values())}
+    log(
+        f"[surfaces] {len(results)} requests ok: K1 and K2 launched in each, K4 and K3 in none, no mask id left, known tokens "
+        f"kept; vaes_share_weights on the cascade's two VAE clones {share_ms:.3f} ms a call (mean of 10) | "
+        f"{ctx['smi']} | models built {t_build:.1f}s"
     )
 
 
@@ -1275,7 +1539,7 @@ def main(argv=None) -> int:
         ctx["k4_per_request"] + ctx["k4_per_encode"] + ctx["cascade_per_request"]["k4"]
     )
     for tag in ("k1", "k2", "k4", "k3"):
-        ctx[tag]["launches"] += ctx["cascade_launches"][tag]
+        ctx[tag]["launches"] += ctx["cascade_launches"][tag] + ctx["surface_launches"][tag]
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
     rows = [
         ("k1", "fused_topk_gumbel_sample", "sampling_kernel.cu", "sampling_kernel.py:57"),
@@ -1284,8 +1548,8 @@ def main(argv=None) -> int:
         ("k4", "attend", "flash_attention.cu", "attention.py:83"),
     ]
     keys = (
-        "launches", "launches_per_request", "launches_per_cascade_request", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms",
+        "launches", "launches_per_request", "launches_per_cascade_request", "launches_per_surface_request",
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
     )
     kernels = [
         dict(
@@ -1296,7 +1560,15 @@ def main(argv=None) -> int:
         )
         for tag, name, src, tpu in rows
     ]
-    print(json.dumps({"cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"]}), flush=True)
+    print(
+        json.dumps(
+            {
+                "cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"], "surfaces": ctx["surfaces"],
+                "vaes_share_weights_ms": ctx["vaes_share_weights_ms"],
+            }
+        ),
+        flush=True,
+    )
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ctx["smi"], flush=True)
     result = {

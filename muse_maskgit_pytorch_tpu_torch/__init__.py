@@ -4,7 +4,9 @@ The JAX package beside this one is the reference; this package imports
 torch and numpy only. Ported so far: the sampling path from prompts to
 images (`Muse(base, superres)(texts)`: the frozen T5 text encoder, the 256px
 base stage and the 512px super-res stage of `MaskGit.generate`, handed over
-as pixels or as token ids), and the VQ-GAN tokenizer's inference
+as pixels or as token ids, with every sampling surface of the JAX package:
+guidance ramps and per-row scales, negative prompts, any resolution, token
+critics, editing and re-ranking), and the VQ-GAN tokenizer's inference
 (`VQGanVAE.encode` to token ids and `decode_from_ids` back, with the LFQ,
 EMA-VQ and FSQ quantizers). Their four hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`,
 `ops.vq`) are built from `csrc/` on first use. The public modules below take
@@ -18,7 +20,9 @@ from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
     MaskGit,
     MaskGitTransformer,
     Muse,
+    SelfCritic,
     T5Encoder,
+    TokenCritic,
     Transformer,
     VectorQuantizeEMA,
     VQGanVAE,

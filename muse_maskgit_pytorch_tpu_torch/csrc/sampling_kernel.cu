@@ -3,7 +3,9 @@
 // Replaces the TPU kernel `_sample_kernel` in
 // muse_maskgit_pytorch_tpu/ops/sampling_kernel.py (Pallas). Per row of a
 // (rows, V) logits array it computes, in one launch:
-//   1. optionally the CFG combine l = null + (cond - null) * scale (cfg_pair);
+//   1. optionally the CFG combine l = null + (cond - null) * scale (cfg_pair;
+//      the scale is read from device memory, like the seed, so a decode loop
+//      whose guidance changes from step to step never reads it on the host);
 //   2. the top-k threshold of 10 rounds of value bisection that keep
 //      count(l >= lo) >= k (mid = 0.5 * (lo + hi) in f32, `>=` compares),
 //      bit-identical to the Pallas body's;
@@ -191,6 +193,7 @@ __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.a
 template <typename T, bool PAIR, int G>
 struct GlobalRow {
   static constexpr bool kStaged = false;
+  static constexpr bool kPair = PAIR;
   static constexpr int kGroup = G;
   static constexpr int kList = 512;
   const T* cond;
@@ -498,7 +501,7 @@ template <typename T, class Src, bool NOISE>
 __global__ void __launch_bounds__(kThreads, 1)
 sample_kernel(const T* __restrict__ logits, const float* __restrict__ noise,
               const int* __restrict__ seed_ptr, int rows, int V, int k, float temp,
-              float scale, int* __restrict__ idx_out, float* __restrict__ prob_out) {
+              const float* __restrict__ scale_ptr, int* __restrict__ idx_out, float* __restrict__ prob_out) {
   // [chunk ring, staged rows only][lists][E][pad][histogram]
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* after_chunks = smem_raw + (Src::kStaged ? kSlots * kChunkBytes : 0);
@@ -542,7 +545,7 @@ sample_kernel(const T* __restrict__ logits, const float* __restrict__ noise,
     if (tid == 0)
       for (int q = 0; q < kSlots; ++q) src.start_copy(q / src.nc, q % src.nc, q);
   } else {
-    src.scale = scale;
+    src.scale = Src::kPair ? scale_ptr[0] : 1.0f;  // one 4-byte load a block
     src.V = V;
   }
 
@@ -797,7 +800,7 @@ int sm_count() {
 
 template <typename T, class Src, bool NOISE>
 cudaError_t launch(const void* logits, const void* noise, const void* seed, void* idx, void* prob,
-                   int rows, int V, int k, float temp, float scale, cudaStream_t stream) {
+                   int rows, int V, int k, float temp, const void* scale, cudaStream_t stream) {
   auto kern = sample_kernel<T, Src, NOISE>;
   const size_t smem = (Src::kStaged ? (size_t)kSlots * kChunkBytes : 0) + kWarps * Src::kList * sizeof(uint32_t) +
                       (kBins + 4) * sizeof(float) + (kBins + 4) * sizeof(int);
@@ -808,7 +811,7 @@ cudaError_t launch(const void* logits, const void* noise, const void* seed, void
   const int grid = rows < sm_count() ? rows : sm_count();
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(logits), static_cast<const float*>(noise), static_cast<const int*>(seed),
-      rows, V, k, temp, scale, static_cast<int*>(idx), static_cast<float*>(prob));
+      rows, V, k, temp, static_cast<const float*>(scale), static_cast<int*>(idx), static_cast<float*>(prob));
   return cudaGetLastError();
 }
 
@@ -832,10 +835,11 @@ extern "C" {
 
 // logits: (rows, V), or (2 * rows, V) cond rows then null rows when
 // cfg_pair; dtype 0 = f32, 1 = bf16. noise: (rows, V) f32 or null. seed: one
-// int32 in device memory (read by the kernel, so the host never syncs).
+// int32 in device memory (read by the kernel, so the host never syncs);
+// scale: with cfg_pair, one f32 in device memory, else unread (may be null).
 // Outputs idx int32 (rows,), prob f32 (rows,). Returns cudaGetLastError().
 int muse_sample_launch(const void* logits, const void* noise, const void* seed, void* idx,
-                       void* prob, int rows, int V, int k, float temp, float scale, int dtype,
+                       void* prob, int rows, int V, int k, float temp, const void* scale, int dtype,
                        int cfg_pair, void* stream) {
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

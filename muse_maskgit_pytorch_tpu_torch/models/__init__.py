@@ -3,6 +3,8 @@ from muse_maskgit_pytorch_tpu_torch.models.quantizers import FSQ, LFQ, VectorQua
 from muse_maskgit_pytorch_tpu_torch.models.t5 import T5Encoder, t5_encode_text  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.models.transformer import (  # noqa: F401
     MaskGitTransformer,
+    SelfCritic,
+    TokenCritic,
     Transformer,
 )
 from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE  # noqa: F401

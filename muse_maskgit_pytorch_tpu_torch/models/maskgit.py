@@ -3,7 +3,10 @@ cascade (counterpart of `muse_maskgit_pytorch_tpu/models/maskgit.py`).
 
 `generate` is the port's main path: texts or text embeddings (and, in a
 super-res stage, conditioning tokens) -> token grid -> images; `Muse` chains
-a base and a super-res stage from prompts to images.
+a base and a super-res stage from prompts to images. Beside it: guidance
+ramps and per-row scales held on the device, negative prompts, any (h, w)
+resolution, token critics, editing (`edit`, `Muse.edit`) and best-of-K
+re-ranking (`score_samples`, `generate_reranked`, `Muse(rerank_candidates=)`).
 The JAX package runs the decode as a few `lax.scan` segments inside one
 jitted function; here it is a Python loop that never waits on the device.
 Everything the loop branches on is computed on the host once per call: the
@@ -20,24 +23,30 @@ plain PyTorch.
 
 from __future__ import annotations
 
+import copy
 import functools
 import math
+import warnings
 from typing import Callable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from muse_maskgit_pytorch_tpu_torch.models.transformer import MaskGitTransformer
+from muse_maskgit_pytorch_tpu_torch.models.transformer import MaskGitTransformer, SelfCritic, TokenCritic
 from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE
 from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, not_ported, resolve_device
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.images import to_pil_images
 from muse_maskgit_pytorch_tpu_torch.utils.sampling import (
     cosine_schedule,
     first_argmax,
+    guidance_ramp,
     gumbel_sample,
     mask_by_topk_scores,
     mask_counts,
+    schedule_values,
     step_temperatures,
     top_k,
 )
@@ -75,33 +84,70 @@ def _double_ctx_kv(ctx_kv):
     return [(torch.cat([k, k], dim=0), torch.cat([v, v], dim=0)) for k, v in ctx_kv]
 
 
+def _hw(size) -> Tuple[int, int]:
+    """An int or an (h, w) pair -> (h, w)."""
+    return (int(size[0]), int(size[1])) if isinstance(size, (tuple, list)) else (int(size), int(size))
+
+
+def _frozen_copy(vae: Optional[VQGanVAE], memo: dict) -> Optional[VQGanVAE]:
+    """A frozen eval clone of a tokenizer, as JAX's `copy_for_eval` makes:
+    the caller's module stays as it was. One `memo` for all the clones of a
+    model keeps a VAE that was passed twice one object."""
+    if vae is None:
+        return None
+    clone = copy.deepcopy(vae, memo)
+    return clone.eval().requires_grad_(False)
+
+
+@functools.lru_cache(maxsize=64)
+def _schedule_starts_full(noise_schedule) -> bool:
+    """schedule(0) >= 1: step 0 remasks the whole editable region."""
+    return float(noise_schedule(np.zeros(1, np.float32))[0]) >= 1.0
+
+
+def _resize_nearest(images: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(b, H, W, c) -> (b, h, w, c) by `jax.image.resize(..., "nearest")`,
+    which is torch's "nearest-exact" (half-pixel centres)."""
+    out = F.interpolate(images.permute(0, 3, 1, 2), size=(h, w), mode="nearest-exact")
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
 class MaskGit(nn.Module):
     def __init__(
         self,
         image_size: int,
         transformer: MaskGitTransformer,
         noise_schedule: Callable = cosine_schedule,
-        token_critic=None,
+        token_critic: Optional[TokenCritic] = None,
         self_token_critic: bool = False,
         vae: Optional[VQGanVAE] = None,
         cond_vae: Optional[VQGanVAE] = None,
         cond_image_size: Optional[int] = None,
+        cond_drop_prob: float = 0.5,
+        self_cond_prob: float = 0.9,
+        no_mask_token_prob: float = 0.0,
+        critic_loss_weight: float = 1.0,
         device="cuda",
     ):
+        """`cond_drop_prob`, `self_cond_prob` and `critic_loss_weight` belong
+        to training (ROADMAP A9) and are only stored; `no_mask_token_prob`
+        also tells `generate(can_remask_prev_masked=True)` that the model
+        was trained to predict unmasked tokens.
+
+        The tokenizers are stored as frozen eval clones, as the JAX package
+        stores `copy_for_eval()` clones: `vae` and `cond_vae` given as one
+        object stay one object here; a super-res stage conditions on the
+        tokens of `cond_vae` (its own VAE when none is given)."""
         super().__init__()
         device = resolve_device(device)
-        if exists(token_critic) or self_token_critic:
-            raise not_ported("token critics", "A8")
         if exists(cond_vae) and not exists(cond_image_size):
             raise ValueError("cond_image_size must be specified if conditioning")
-        # the tokenizers are frozen; a super-res stage conditions on the
-        # tokens of `cond_vae` (its own VAE when none is given)
-        for v in (vae, cond_vae):
-            if exists(v):
-                v.eval().requires_grad_(False)
-        self.vae = vae
+        if self_token_critic and exists(token_critic):
+            raise ValueError("pass token_critic or self_token_critic, not both")
+        memo: dict = {}
+        self.vae = _frozen_copy(vae, memo)
         self.has_separate_cond_vae = exists(cond_vae)
-        self.cond_vae = cond_vae if exists(cond_vae) else vae
+        self.cond_vae = _frozen_copy(cond_vae, memo) if exists(cond_vae) else self.vae
         if exists(vae) and not (
             vae.codebook_size == self.cond_vae.codebook_size == transformer.num_tokens
         ):
@@ -109,28 +155,59 @@ class MaskGit(nn.Module):
         self.image_size = image_size
         self.cond_image_size = cond_image_size
         self.resize_image_for_cond_image = exists(cond_image_size)
+        self.cond_drop_prob = cond_drop_prob
         self.transformer = transformer
         self.self_cond = transformer.self_cond
         self.mask_id = transformer.mask_id
         self.noise_schedule = noise_schedule
-        self.to(device)  # the transformer and VAEs it was given, too
+        self.token_critic = token_critic
+        if self_token_critic:
+            self.token_critic = SelfCritic(transformer, generator=torch.Generator().manual_seed(0))
+        self.critic_loss_weight = critic_loss_weight
+        self.self_cond_prob = self_cond_prob
+        self.no_mask_token_prob = no_mask_token_prob
+        self.to(device)  # the transformer, critic and VAE clones, too
 
     def _fmap_hw(self, fmap_size, image_size) -> Tuple[int, int]:
         if image_size is not None:
             if fmap_size is not None:
                 raise ValueError("pass image_size or fmap_size, not both")
-            hw = image_size if isinstance(image_size, (tuple, list)) else (image_size,) * 2
-            fmap_size = tuple(int(s) // self.vae.dim_divisor for s in hw)
+            if not exists(self.vae):
+                raise ValueError("image_size needs the VAE's downsampling factor: pass fmap_size")
+            ih, iw = _hw(image_size)
+            down = self.vae.dim_divisor
+            if ih % down or iw % down:
+                raise ValueError(
+                    f"image_size {image_size} must be divisible by the VAE's downsampling factor {down}"
+                )
+            return ih // down, iw // down
         if fmap_size is None:
             if exists(self.vae):
                 fmap_size = self.vae.get_encoded_fmap_size(self.image_size)
             else:
                 fmap_size = self.transformer.seq_hw
-        hw = tuple(fmap_size) if isinstance(fmap_size, (tuple, list)) else (fmap_size,) * 2
-        hw = (int(hw[0]), int(hw[1]))
-        if hw != self.transformer.seq_hw:
-            raise not_ported("variable-resolution and rectangular generation", "A8")
-        return hw
+        return _hw(fmap_size)
+
+    @staticmethod
+    def _guidance(cond_scale, timesteps: int, b: int, cfg_fold: bool, device) -> Optional[torch.Tensor]:
+        """The per-step scales on the device, (T,) or per row (T, b) f32, or
+        None for a constant python number. A `(start, end)` ramp is built as
+        the jitted JAX decode builds it (`utils.sampling.guidance_ramp`)."""
+        if isinstance(cond_scale, (int, float)):
+            return None
+        if isinstance(cond_scale, tuple):
+            return torch.from_numpy(guidance_ramp(float(cond_scale[0]), float(cond_scale[1]), timesteps)).to(device)
+        arr = torch.as_tensor(cond_scale, dtype=torch.float32, device=device)
+        if arr.dim() > 2:
+            raise ValueError("cond_scale must be a scalar, (timesteps,) per step, or (timesteps or 1, batch) per sample")
+        if arr.dim() == 2:
+            # per-sample guidance: the embedding-fold combine broadcasts a (b,) row
+            if not cfg_fold:
+                raise ValueError("per-sample cond_scale requires cfg_fold=True")
+            if arr.shape[-1] != b:
+                raise ValueError(f"per-sample cond_scale has {arr.shape[-1]} columns for a batch of {b}")
+            return arr.expand(timesteps, b).contiguous()
+        return arr.reshape(-1).expand(timesteps).contiguous()
 
     @torch.inference_mode()
     def generate(
@@ -141,18 +218,23 @@ class MaskGit(nn.Module):
         text_embeds: Optional[torch.Tensor] = None,
         text_mask: Optional[torch.Tensor] = None,
         negative_texts=None,
-        neg_text_embeds=None,
+        neg_text_embeds: Optional[torch.Tensor] = None,
         cond_images=None,
         cond_token_ids=None,
         fmap_size: Optional[Union[int, Tuple[int, int]]] = None,
         image_size: Optional[Union[int, Tuple[int, int]]] = None,
         temperature: float = 1.0,
         topk_filter_thres: float = 0.9,
+        can_remask_prev_masked: bool = False,
+        force_not_use_token_critic: bool = False,
         timesteps: int = 18,
-        cond_scale: float = 3.0,
+        cond_scale=3.0,
+        critic_noise_scale: float = 1.0,
         return_ids: bool = False,
+        attn_impl: str = "auto",
         sampler: str = "auto",
         injected_gumbel_noise: Optional[torch.Tensor] = None,
+        progress: bool = False,
         compact: Union[bool, str] = "auto",
         known_token_ids=None,
         known_mask=None,
@@ -182,15 +264,40 @@ class MaskGit(nn.Module):
         always K1. "xla" draws each step's noise from a generator seeded
         with that step's seed.
 
+        `cond_scale`: a python number (constant guidance), a `(start, end)`
+        ramp over the steps, or a tensor (numpy array): a scalar, (T,) per
+        step, or (T or 1, b) per sample (needs `cfg_fold`). Every form but a
+        number lives on the device as (T,) or (T, b) f32 and always runs the
+        doubled CFG batch; the loop never reads it on the host, and K1 reads
+        its step's scale from device memory. All forms agree token for token
+        at one value.
+
+        `negative_texts` / `neg_text_embeds`: a negative prompt takes the
+        CFG null half's place (`forward_with_neg_prompt`).
+
+        `image_size` or `fmap_size`, an int or (h, w): generate off the
+        trained resolution; the positions are resized to the new grid.
+
+        Token critics (`MaskGit(token_critic=...)` or `self_token_critic`)
+        score each step's tokens for the next remask, unless
+        `force_not_use_token_critic`; `critic_noise_scale` scales the
+        uniform noise they add, annealed like the temperature and drawn
+        from the step's own generator (seeded with the step's seed).
+        `can_remask_prev_masked` lets unmasked tokens be remasked (needs
+        `no_mask_token_prob > 0`; compact decode is then off without a
+        critic).
+
+        `known_token_ids` + `known_mask` ((b, fh, fw) or (b, seq), True =
+        keep): editing. Known positions start from the given tokens and are
+        never remasked; each step's budget runs over each row's editable
+        count. Needs a schedule with p(0) = 1; compact decode is off.
+
+        `progress` prints one line per step. `attn_impl` is accepted for
+        the JAX package's call sites and ignored: the port has one attention.
         `compact`, `cfg_fold`, `null_fold`, `temperature` and
         `topk_filter_thres` behave as in the JAX package; `null_fold` is a
-        no-op in a super-res stage."""
-        if negative_texts is not None or neg_text_embeds is not None:
-            raise not_ported("negative prompts", "A8")
-        if known_token_ids is not None or known_mask is not None:
-            raise not_ported("editing (known_token_ids / known_mask)", "A8")
-        if not isinstance(cond_scale, (int, float)):
-            raise not_ported("scheduled, traced or per-sample cond_scale", "A8")
+        no-op in a super-res stage and under negative prompts."""
+        del attn_impl
         if sampler not in ("auto", "fused", "xla"):
             raise ValueError(f"sampler must be 'auto', 'fused' or 'xla', got {sampler!r}")
         if sampler == "auto":
@@ -204,8 +311,15 @@ class MaskGit(nn.Module):
                 raise ValueError("generate needs texts or text_embeds")
             text_embeds = self.transformer.encode_text(texts)
         device = text_embeds.device
+        b = text_embeds.shape[0]
         if text_mask is None:
             text_mask = (text_embeds != 0).any(dim=-1)
+        if negative_texts is not None and neg_text_embeds is None:
+            if len(negative_texts) != b:
+                raise ValueError(f"{len(negative_texts)} negative texts for a batch of {b}")
+            neg_text_embeds = self.transformer.encode_text(negative_texts)
+        if neg_text_embeds is not None:
+            neg_text_embeds = neg_text_embeds.to(device)
 
         cond_ids = cond_token_ids
         if self.resize_image_for_cond_image and cond_ids is None:
@@ -217,8 +331,33 @@ class MaskGit(nn.Module):
         if cond_ids is not None:
             cond_ids = cond_ids.to(device)
 
+        if can_remask_prev_masked and not self.no_mask_token_prob > 0.0:
+            raise ValueError(
+                "can_remask_prev_masked needs a model trained with no_mask_token_prob > 0: without "
+                "training with some non-masked tokens forced to predict, logits for unmasked "
+                "positions are not meaningful"
+            )
+        use_critic = exists(self.token_critic) and not force_not_use_token_critic
+        if known_mask is not None:
+            if known_token_ids is None:
+                raise ValueError("editing needs both known_token_ids and known_mask")
+            # step 0 must refill the whole edit region, or mask ids would be left
+            if not _schedule_starts_full(self.noise_schedule):
+                raise ValueError("editing requires noise_schedule(0) == 1 (full remask at step 0)")
+            compact = False  # per-row editable counts are data-dependent
+            known_mask = torch.as_tensor(known_mask, device=device).reshape(b, seq_len).bool()
+            known_token_ids = torch.as_tensor(known_token_ids, device=device).reshape(b, seq_len).long()
         if compact == "auto":
-            compact = timesteps > 1
+            # exact unless unmasked positions need real confidences
+            # (can_remask without a critic)
+            compact = timesteps > 1 and (use_critic or not can_remask_prev_masked)
+        elif compact and can_remask_prev_masked and not use_critic:
+            warnings.warn(
+                "compact=True is incompatible with can_remask_prev_masked without a token critic "
+                "(compact pins unmasked positions' confidences); forcing compact=False",
+                stacklevel=3,
+            )
+            compact = False
         step_kb: List[Optional[int]] = [None] * timesteps
         if compact and timesteps > 1:
             for s, e, kb in _compact_segments(self.noise_schedule, seq_len, timesteps):
@@ -229,47 +368,123 @@ class MaskGit(nn.Module):
         seeds = torch.randint(
             0, SEED_HIGH, (timesteps,), generator=generator, device=device, dtype=torch.int32
         )
-        counts = mask_counts(self.noise_schedule, seq_len, timesteps)
-        temps = step_temperatures(temperature, timesteps)
         if injected_gumbel_noise is not None:
             injected_gumbel_noise = injected_gumbel_noise.to(device)
+        critic_noise_scale = critic_noise_scale if use_critic else 0.0
+        # the one host read of these paths, before the loop: a generator per step
+        step_seeds = (
+            seeds.tolist()
+            if (sampler == "xla" and injected_gumbel_noise is None) or critic_noise_scale
+            else None
+        )
 
         ids = self._decode(
-            text_embeds, text_mask, cond_ids, seq_len, seeds, counts, temps, step_kb,
-            injected_gumbel_noise, float(cond_scale), topk_filter_thres, cfg_fold, null_fold, sampler,
+            text_embeds=text_embeds,
+            text_mask=text_mask,
+            neg_text_embeds=neg_text_embeds,
+            cond_ids=cond_ids,
+            grid=(fh, fw),
+            seeds=seeds,
+            step_seeds=step_seeds,
+            step_kb=step_kb,
+            noise=injected_gumbel_noise,
+            temperature=temperature,
+            cond_scale=cond_scale if isinstance(cond_scale, (int, float)) else None,
+            scales=self._guidance(cond_scale, timesteps, b, cfg_fold, device),
+            topk_filter_thres=topk_filter_thres,
+            cfg_fold=cfg_fold,
+            null_fold=null_fold,
+            sampler=sampler,
+            can_remask=can_remask_prev_masked,
+            use_critic=use_critic,
+            critic_noise_scale=critic_noise_scale,
+            known_ids=known_token_ids if known_mask is not None else None,
+            known_mask=known_mask,
+            progress=progress,
         ).reshape(-1, fh, fw)
         if return_ids or not exists(self.vae):
             return ids
         return self.vae.decode_from_ids(ids)
 
     def _decode(
-        self, text_embeds, text_mask, cond_ids, seq_len, seeds, counts, temps, step_kb,
-        noise, cond_scale, topk_filter_thres, cfg_fold, null_fold, sampler,
+        self, *, text_embeds, text_mask, neg_text_embeds, cond_ids, grid, seeds, step_seeds, step_kb, noise,
+        temperature, cond_scale, scales, topk_filter_thres, cfg_fold, null_fold, sampler, can_remask,
+        use_critic, critic_noise_scale, known_ids, known_mask, progress,
     ) -> torch.Tensor:
         transformer = self.transformer
         mask_id = self.mask_id
         b = text_embeds.shape[0]
         device = text_embeds.device
         vocab = transformer.dim_out
+        timesteps = len(step_kb)
+        seq_len = grid[0] * grid[1]
         k = max(math.ceil((1 - topk_filter_thres) * vocab), 1)
-        cfg_on = cond_scale != 1
+        # a scale tensor is a per-step value, so CFG always runs doubled then
+        scheduled = scales is not None
+        cfg_on = scheduled or cond_scale != 1
         # CFG combine inside the fused sampler; with "xla" the transformer
         # combines the logits itself
         fuse_cfg = sampler == "fused" and cfg_on and not cfg_fold
-        step_seeds = None
-        if sampler == "xla" and noise is None:
-            step_seeds = seeds.tolist()  # the one host read of this path, before the loop
+        counts = mask_counts(self.noise_schedule, seq_len, timesteps)
+        fractions = schedule_values(self.noise_schedule, timesteps)
+        temps = step_temperatures(temperature, timesteps)
+        # the critic noise's annealing factor steps_left / T, as XLA folds it
+        anneal = step_temperatures(1.0, timesteps)
 
         # the context (text, then conditioning tokens) is the same at every
-        # step: its K/V are projected once
-        ctx_kv = transformer.precompute_context_kv(
-            text_embeds=text_embeds, conditioning_token_ids=cond_ids
-        )
-        if cfg_on:
-            ctx_kv = _double_ctx_kv(ctx_kv)
+        # step: its K/V are projected once. With a negative prompt the two
+        # CFG halves attend different texts, padded to one length, and the
+        # cache holds both
+        neg_text_mask = None
+        if neg_text_embeds is not None:
+            ctx_kv, (text_embeds, text_mask), (neg_text_embeds, neg_text_mask) = (
+                transformer.precompute_context_kv_neg(
+                    text_embeds=text_embeds, neg_text_embeds=neg_text_embeds, text_mask=text_mask,
+                    conditioning_token_ids=cond_ids,
+                )
+            )
+            demask = functools.partial(
+                transformer.forward_with_neg_prompt, neg_text_embeds=neg_text_embeds, neg_text_mask=neg_text_mask
+            )
+        else:
+            demask = transformer.forward_with_cond_scale
+            ctx_kv = transformer.precompute_context_kv(
+                text_embeds=text_embeds, conditioning_token_ids=cond_ids
+            )
+            if cfg_on:
+                ctx_kv = _double_ctx_kv(ctx_kv)
 
-        ids = torch.full((b, seq_len), mask_id, dtype=torch.long, device=device)
-        scores = torch.zeros((b, seq_len), dtype=torch.float32, device=device)
+        if use_critic:
+            critic = self.token_critic
+            # a SelfCritic runs the generator's own trunk: it shares its cache
+            if neg_text_embeds is not None:
+                critic_fn = functools.partial(
+                    critic.forward_with_neg_prompt, neg_text_embeds=neg_text_embeds, neg_text_mask=neg_text_mask
+                )
+                critic_kv = ctx_kv if isinstance(critic, SelfCritic) else critic.precompute_context_kv_neg(
+                    text_embeds=text_embeds, neg_text_embeds=neg_text_embeds, text_mask=text_mask,
+                    neg_text_mask=neg_text_mask, conditioning_token_ids=cond_ids,
+                )[0]
+            else:
+                critic_fn = critic.forward_with_cond_scale
+                if isinstance(critic, SelfCritic):
+                    critic_kv = ctx_kv
+                else:
+                    critic_kv = critic.precompute_context_kv(
+                        text_embeds=text_embeds, conditioning_token_ids=cond_ids
+                    )
+                    if cfg_on:
+                        critic_kv = _double_ctx_kv(critic_kv)
+
+        if known_mask is not None:
+            # editing: known positions hold the source tokens and a score
+            # that no remask reaches; budgets run over the editable count
+            ids = torch.where(known_mask, known_ids, mask_id)
+            scores = torch.where(known_mask, -1e5, 0.0).float()
+            n_editable = (~known_mask).sum(dim=-1)
+        else:
+            ids = torch.full((b, seq_len), mask_id, dtype=torch.long, device=device)
+            scores = torch.zeros((b, seq_len), dtype=torch.float32, device=device)
         self_cond = (
             torch.zeros((b, seq_len, transformer.dim), dtype=transformer.dtype, device=device)
             if self.self_cond
@@ -277,11 +492,23 @@ class MaskGit(nn.Module):
         )
 
         for i, kb in enumerate(step_kb):
+            if progress:
+                print(f"maskgit decode step {i + 1}/{timesteps}", flush=True)
+            step_scale = scales[i] if scheduled else cond_scale
             count = int(counts[i])
             g = noise[i] if noise is not None else None
+            gen = (
+                torch.Generator(device=device).manual_seed(step_seeds[i]) if step_seeds is not None else None
+            )
             if kb is None:
                 # full body: remask the least-confident positions
-                remask = mask_by_topk_scores(scores, count)
+                budgets = count
+                if known_mask is not None:
+                    # min(max(floor(p * n_editable), 1), n_editable) in f32, per row
+                    budgets = torch.minimum(
+                        torch.floor(n_editable.float() * float(fractions[i])).clamp_(min=1).long(), n_editable
+                    )
+                remask = mask_by_topk_scores(scores, budgets)
                 x_in = ids.masked_fill(remask, mask_id)
                 npos, gather_pos = seq_len, None
             else:
@@ -296,19 +523,20 @@ class MaskGit(nn.Module):
                 if g is not None:
                     g = torch.take_along_dim(g, cand[..., None], dim=1)
 
-            logits, embed = transformer.forward_with_cond_scale(
+            logits, embed = demask(
                 x_in,
                 text_embeds=text_embeds,
                 text_mask=text_mask,
                 conditioning_token_ids=cond_ids,
                 self_cond_embed=self_cond,
-                cond_scale=cond_scale,
+                cond_scale=step_scale,
                 return_embed=True,
                 return_raw_double=fuse_cfg,
                 cfg_fold=cfg_fold,
                 null_fold=null_fold,
                 gather_positions=gather_pos,
                 context_kv=ctx_kv,
+                pos_grid=grid,
             )
             if self.self_cond:
                 self_cond = embed.to(self_cond.dtype)
@@ -322,7 +550,8 @@ class MaskGit(nn.Module):
                     seeds[i : i + 1],
                     noise=g.reshape(b * npos, vocab) if g is not None else None,
                     cfg_pair=fuse_cfg,
-                    cond_scale=cond_scale if fuse_cfg else 1.0,
+                    # the kernel reads a scheduled scale from device memory
+                    cond_scale=(scales[i : i + 1] if scheduled else cond_scale) if fuse_cfg else 1.0,
                 )
                 pred = pred.reshape(b, npos).long()
                 prob = prob.reshape(b, npos)
@@ -334,7 +563,6 @@ class MaskGit(nn.Module):
                     safe_temp = torch.full((), max(float(temps[i]), 1e-10), device=device)
                     pred = first_argmax(filtered.float() / safe_temp + g)
                 else:
-                    gen = torch.Generator(device=device).manual_seed(step_seeds[i])
                     pred = gumbel_sample(filtered, float(temps[i]), gen)
                 # the softmax in the logits' own dtype, as the JAX package takes it
                 prob = torch.softmax(logits, dim=-1).gather(-1, pred[..., None])[..., 0].float()
@@ -342,12 +570,220 @@ class MaskGit(nn.Module):
             if kb is None:
                 is_mask = x_in == mask_id
                 ids = torch.where(is_mask, pred, x_in)
-                scores = (1.0 - prob).masked_fill(~is_mask, -1e5)
             else:
                 n_sel = sel.shape[1]
                 ids = ids.scatter(1, sel, pred[:, :n_sel])
+
+            if use_critic:
+                # the critic's fake odds of every token of the full grid
+                scores = critic_fn(
+                    ids,
+                    text_embeds=text_embeds,
+                    text_mask=text_mask,
+                    conditioning_token_ids=cond_ids,
+                    cond_scale=step_scale,
+                    cfg_fold=cfg_fold,
+                    null_fold=null_fold,
+                    context_kv=critic_kv,
+                    pos_grid=grid,
+                )[..., 0].float()
+                if critic_noise_scale:
+                    u = torch.rand((b, seq_len), generator=gen, device=device)
+                    scores = scores + (u - 0.5) * critic_noise_scale * float(anneal[i])
+            elif kb is None:
+                scores = 1.0 - prob
+                if not can_remask:
+                    scores = scores.masked_fill(~is_mask, -1e5)
+            else:
                 scores = torch.full_like(scores, -1e5).scatter_(1, sel, 1.0 - prob[:, :n_sel])
+            if known_mask is not None:
+                # known positions stay out of reach of every scoring path
+                scores = scores.masked_fill(known_mask, -1e5)
         return ids
+
+    # -- best-of-K re-ranked generation ---------------------------------------
+
+    @torch.inference_mode()
+    def score_samples(
+        self,
+        ids: torch.Tensor,
+        *,
+        text_embeds: torch.Tensor,
+        text_mask: Optional[torch.Tensor] = None,
+        method: str = "auto",
+        attn_impl: str = "auto",
+    ) -> torch.Tensor:
+        """Per-sample quality score (b,), higher is better, of token grids
+        (b, fh, fw) (their grid names the positions) or (b, seq).
+
+        "critic": the mean log P(real) = `logsigmoid(-logit)` under the
+        token critic. "logprob": the mean log-likelihood of each token under
+        the generator (one forward without guidance), as the picked logit
+        minus the f32 logsumexp, with no log-softmax materialised. "auto":
+        the critic if there is one. `attn_impl` is ignored (one attention)."""
+        del attn_impl
+        if method == "auto":
+            method = "critic" if exists(self.token_critic) else "logprob"
+        b = ids.shape[0]
+        pos_grid = tuple(ids.shape[1:3]) if ids.dim() == 3 else None
+        x = ids.reshape(b, -1).long()
+        if text_mask is None:
+            text_mask = (text_embeds != 0).any(dim=-1)
+        if method == "critic":
+            if not exists(self.token_critic):
+                raise ValueError("no token critic to score with")
+            crit = self.token_critic(x, text_embeds=text_embeds, text_mask=text_mask, pos_grid=pos_grid)
+            return F.logsigmoid(-crit.reshape(b, -1).float()).mean(dim=-1)
+        if method != "logprob":
+            raise ValueError(f"unknown score method {method!r}")
+        logits = self.transformer(x, text_embeds=text_embeds, text_mask=text_mask, pos_grid=pos_grid)
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        picked = logits.gather(-1, x[..., None])[..., 0].float()
+        return (picked - lse).mean(dim=-1)
+
+    @torch.inference_mode()
+    def rerank_select(self, ids, text_embeds, text_mask, *, b: int, k: int, method: str, decode: bool):
+        """Score all b * k candidates (prompt-major: a prompt's k candidates
+        are neighbours), take each prompt's best (the first on a tie) and,
+        with `decode`, its clamped images: (winners (b, fh, fw), best scores
+        (b,), images or None)."""
+        gh, gw = ids.shape[-2], ids.shape[-1]
+        scores = self.score_samples(ids, text_embeds=text_embeds, text_mask=text_mask, method=method).reshape(b, k)
+        best = first_argmax(scores)
+        winners = ids.reshape(b, k, gh, gw)[torch.arange(b, device=ids.device), best]
+        best_scores = scores.gather(1, best[:, None])[:, 0]
+        images = self.vae.decode_from_ids(winners).clamp(0.0, 1.0) if decode else None
+        return winners, best_scores, images
+
+    @torch.inference_mode()
+    def generate_reranked(
+        self,
+        texts=None,
+        generator: Optional[torch.Generator] = None,
+        *,
+        num_candidates: int = 4,
+        score_method: str = "auto",
+        text_embeds: Optional[torch.Tensor] = None,
+        text_mask: Optional[torch.Tensor] = None,
+        return_ids: bool = False,
+        return_scores: bool = False,
+        **generate_kwargs,
+    ):
+        """Best-of-K sampling: `num_candidates` samples a prompt in one
+        batched decode (prompt-major, as `jnp.repeat` tiles), each scored by
+        `score_samples`, the best kept (`rerank_select`). Images come
+        clamped to [0, 1]; `return_scores` also returns the winners' scores.
+        The re-ranker is model-internal (critic or log-likelihood), as in
+        the JAX package: CLIP's weights are not in the repository."""
+        if num_candidates < 1:
+            raise ValueError("num_candidates must be at least 1")
+        if isinstance(texts, str):
+            texts = [texts]
+        if text_embeds is None:
+            if texts is None:
+                raise ValueError("generate_reranked needs texts or text_embeds")
+            text_embeds = self.transformer.encode_text(texts)
+        if text_mask is None:
+            text_mask = (text_embeds != 0).any(dim=-1)
+        if self.resize_image_for_cond_image:
+            raise ValueError(
+                "generate_reranked targets the base stage (the cascade re-ranks at the base, "
+                "then super-reses the winner)"
+            )
+        for bad in ("known_token_ids", "known_mask", "injected_gumbel_noise"):
+            if generate_kwargs.get(bad) is not None:
+                raise ValueError(
+                    f"{bad} is per-sample and not supported by generate_reranked; "
+                    "call generate() and score_samples() directly"
+                )
+        b, k = text_embeds.shape[0], num_candidates
+        te = text_embeds.repeat_interleave(k, dim=0)
+        tm = text_mask.repeat_interleave(k, dim=0)
+        generate_kwargs = dict(generate_kwargs)
+        if generate_kwargs.get("neg_text_embeds") is not None:
+            generate_kwargs["neg_text_embeds"] = generate_kwargs["neg_text_embeds"].repeat_interleave(k, dim=0)
+        cs = generate_kwargs.get("cond_scale")
+        if cs is not None and not isinstance(cs, (int, float, tuple)):
+            cs = torch.as_tensor(cs, dtype=torch.float32)
+            if cs.dim() == 2:
+                # per-sample guidance follows its prompt onto all k candidates
+                generate_kwargs["cond_scale"] = cs.repeat_interleave(k, dim=1)
+        ids = self.generate(text_embeds=te, text_mask=tm, generator=generator, return_ids=True, **generate_kwargs)
+        method = score_method
+        if method == "auto":
+            method = "critic" if exists(self.token_critic) else "logprob"
+        winners, best_scores, images = self.rerank_select(
+            ids, te, tm, b=b, k=k, method=method, decode=not return_ids and exists(self.vae)
+        )
+        out = winners if (return_ids or not exists(self.vae)) else images
+        if return_scores:
+            return out, best_scores
+        return out
+
+    # -- editing / inpainting --------------------------------------------------
+
+    @torch.inference_mode()
+    def edit(
+        self,
+        images: torch.Tensor,
+        edit_mask,
+        texts=None,
+        generator: Optional[torch.Generator] = None,
+        **generate_kwargs,
+    ) -> torch.Tensor:
+        """Regenerate only the masked region of `images` (b, H, W, 3) in
+        [0, 1], conditioned on the text and on the kept source tokens.
+
+        `edit_mask`, True = regenerate: pixel-level (b, H, W), where a token
+        is edited if any pixel of its patch is, or token-level (b, fh, fw).
+        Any (H, W) that the VAE's factor divides works. A super-res stage
+        without `cond_images` conditions on the source scaled down by its
+        trained ratio (nearest). Takes every `generate` argument."""
+        if not exists(self.vae):
+            raise ValueError("editing needs the vae to tokenize the source image")
+        if images.dim() != 4:
+            raise ValueError(f"edit takes NHWC images, got shape {tuple(images.shape)}")
+        H, W = int(images.shape[1]), int(images.shape[2])
+        down = self.vae.dim_divisor
+        if H % down or W % down:
+            raise ValueError(f"source images {H}x{W} must be divisible by the VAE's downsampling factor {down}")
+        fh, fw = H // down, W // down
+        _, ids, _ = self.vae.encode(images)
+        ids = ids.reshape(ids.shape[0], fh, fw)
+
+        edit_mask = torch.as_tensor(edit_mask, device=images.device)
+        if edit_mask.dtype != torch.bool:
+            edit_mask = edit_mask > 0.5
+        if tuple(edit_mask.shape[1:]) == (H, W):
+            edit_mask = edit_mask.reshape(edit_mask.shape[0], fh, down, fw, down).any(dim=4).any(dim=2)
+        if tuple(edit_mask.shape[1:]) != (fh, fw):
+            raise ValueError(
+                f"edit_mask must be (b, {H}, {W}) pixel-level or (b, {fh}, {fw}) token-level, "
+                f"got {tuple(edit_mask.shape)}"
+            )
+
+        if self.resize_image_for_cond_image and "cond_images" not in generate_kwargs:
+            # the source scaled down by the model's native ratio, which must
+            # be integral, keeps its aspect ratio through the cond stage
+            if self.image_size % self.cond_image_size:
+                raise ValueError(
+                    f"edit()'s auto-resize derives the cond size from the model's image_size/cond_image_size "
+                    f"ratio, which must be integral (got {self.image_size}/{self.cond_image_size}); pass "
+                    "cond_images explicitly for non-multiple pairs"
+                )
+            ratio = self.image_size // self.cond_image_size
+            if H % ratio or W % ratio:
+                raise ValueError(f"source {H}x{W} must be divisible by the cascade's conditioning ratio {ratio}")
+            generate_kwargs["cond_images"] = _resize_nearest(images, H // ratio, W // ratio)
+
+        return self.generate(
+            texts=texts,
+            generator=generator,
+            known_token_ids=ids,
+            known_mask=~edit_mask,
+            fmap_size=(fh, fw),
+            **generate_kwargs,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -416,13 +852,15 @@ class Muse(nn.Module):
         self,
         texts: List[str],
         generator: Optional[torch.Generator] = None,
-        cond_scale: float = 3.0,
+        cond_scale=3.0,
         temperature: float = 1.0,
         timesteps: int = 18,
         superres_timesteps: Optional[int] = None,
         return_lowres: bool = False,
         return_pil_images: bool = True,
+        attn_impl: str = "auto",
         rerank_candidates: int = 1,
+        rerank_score: str = "auto",
         image_size: Optional[Union[int, Tuple[int, int]]] = None,
         cond_via: str = "pixels",
     ):
@@ -439,8 +877,16 @@ class Muse(nn.Module):
         hands over exactly the tokens the base stage chose
         (`encode(decode(ids))` is not the identity).
 
+        `rerank_candidates > 1` draws that many base-stage samples a prompt
+        and sends the best by `rerank_score` (`MaskGit.score_samples`) on to
+        the super-res stage, which then runs once a prompt. `image_size`
+        (int or (h, w)) is the base stage's resolution; the super-res stage
+        scales it by the cascade's ratio. `attn_impl` is ignored: the port
+        has one attention.
+
         `generator`: see `child_generators`; the base stage gets the first
         child, the super-res stage the second."""
+        del attn_impl
         # ValueError, not assert: a wrong-codebook ids hand-off would give
         # garbage images silently
         if cond_via not in ("pixels", "ids"):
@@ -452,17 +898,22 @@ class Muse(nn.Module):
                 "(the super-res cond codebook must be the base stage's); "
                 "this cascade's differ: use cond_via='pixels'"
             )
-        if rerank_candidates > 1:
-            raise not_ported("re-ranked base-stage candidates (rerank_candidates > 1)", "A8")
-        if image_size is not None:
-            raise not_ported("variable-resolution cascades (image_size)", "A8")
         g_base, g_sr = child_generators(generator, base.transformer.token_emb.weight.device)
+        sr_size = None
+        if image_size is not None:
+            image_size = _hw(image_size)
+            ratio = superres.image_size // base.image_size
+            sr_size = (image_size[0] * ratio, image_size[1] * ratio)
 
         via_ids = cond_via == "ids"
-        base_out = base.generate(
-            texts=texts, generator=g_base, cond_scale=cond_scale, temperature=temperature,
-            timesteps=timesteps, return_ids=via_ids,
-        )
+        kw = dict(cond_scale=cond_scale, temperature=temperature, timesteps=timesteps, image_size=image_size)
+        if rerank_candidates > 1:
+            base_out = base.generate_reranked(
+                texts=texts, generator=g_base, num_candidates=rerank_candidates, score_method=rerank_score,
+                return_ids=via_ids, **kw,
+            )
+        else:
+            base_out = base.generate(texts=texts, generator=g_base, return_ids=via_ids, **kw)
         if via_ids:
             lowres_image = None
             sr_cond = dict(cond_token_ids=base_out)
@@ -473,7 +924,7 @@ class Muse(nn.Module):
 
         superres_image = superres.generate(
             texts=texts, generator=g_sr, cond_scale=cond_scale, temperature=temperature,
-            timesteps=default(superres_timesteps, timesteps), **sr_cond,
+            timesteps=default(superres_timesteps, timesteps), image_size=sr_size, **sr_cond,
         ).clamp(0.0, 1.0)
 
         if via_ids and return_lowres:
@@ -487,3 +938,82 @@ class Muse(nn.Module):
         if not return_lowres:
             return superres_image
         return superres_image, lowres_image
+
+    @torch.inference_mode()
+    def edit(
+        self,
+        images: torch.Tensor,
+        edit_mask,
+        texts: Optional[List[str]] = None,
+        generator: Optional[torch.Generator] = None,
+        cond_scale=3.0,
+        temperature: float = 1.0,
+        timesteps: int = 18,
+        superres_timesteps: Optional[int] = None,
+        return_pil_images: bool = True,
+        attn_impl: str = "auto",
+        text_embeds: Optional[torch.Tensor] = None,
+        text_mask: Optional[torch.Tensor] = None,
+        neg_text_embeds: Optional[torch.Tensor] = None,
+    ):
+        """Cascade editing: edit the region at the base resolution, then the
+        same region of the original images with the edited low-res result,
+        clamped, as the super-res stage's conditioning pixels (as the JAX
+        package does, even when the stages share a VAE).
+
+        `images` (b, H, W, 3) at the super-res resolution, (H, W) divisible
+        by the cascade's ratio and both VAEs' factors; `edit_mask` (b, H, W),
+        True = regenerate: the base stage's pixel is edited if any pixel it
+        covers is. One T5 pass serves both stages when they share an
+        encoder; `neg_text_embeds` needs that. `attn_impl` is ignored."""
+        del attn_impl
+        sr, base = self.superres_maskgit, self.base_maskgit
+        g_base, g_sr = child_generators(generator, base.transformer.token_emb.weight.device)
+        H, W = int(images.shape[1]), int(images.shape[2])
+        ratio = sr.image_size // base.image_size
+        if H % ratio or W % ratio:
+            raise ValueError(f"source {H}x{W} must be divisible by the cascade ratio {ratio}")
+        bh, bw = H // ratio, W // ratio
+        edit_mask = torch.as_tensor(edit_mask, device=images.device)
+        if edit_mask.dtype != torch.bool:
+            edit_mask = edit_mask > 0.5
+        if edit_mask.dim() != 3 or tuple(edit_mask.shape[1:]) != (H, W):
+            raise ValueError(
+                f"edit_mask must match the source images' resolution ({H}, {W}), got {tuple(edit_mask.shape)}"
+            )
+        lowres_src = _resize_nearest(images, bh, bw)
+        lowres_mask = edit_mask.reshape(edit_mask.shape[0], bh, ratio, bw, ratio).any(dim=4).any(dim=2)
+
+        # one T5 pass for both stages when they read the same encoder
+        shared_encoder = (
+            base.transformer.t5_name == sr.transformer.t5_name
+            and base.transformer.text_embed_dim == sr.transformer.text_embed_dim
+        )
+        sr_text_embeds, sr_text_mask = text_embeds, text_mask
+        if text_embeds is None:
+            if texts is None:
+                raise ValueError("edit needs texts or text_embeds")
+            text_embeds = base.transformer.encode_text(texts)
+            sr_text_embeds = text_embeds if shared_encoder else sr.transformer.encode_text(texts)
+        if text_mask is None:
+            text_mask = (text_embeds != 0).any(dim=-1)
+        if sr_text_mask is None:
+            sr_text_mask = (sr_text_embeds != 0).any(dim=-1)
+        if neg_text_embeds is not None and not shared_encoder:
+            raise ValueError(
+                "neg_text_embeds requires both cascade stages to use the same text encoder; "
+                "encode per stage and call MaskGit.edit directly otherwise"
+            )
+
+        kw = dict(cond_scale=cond_scale, temperature=temperature, neg_text_embeds=neg_text_embeds)
+        lowres_edited = base.edit(
+            lowres_src, lowres_mask, generator=g_base, text_embeds=text_embeds, text_mask=text_mask,
+            timesteps=timesteps, **kw,
+        ).clamp(0.0, 1.0)
+        superres_image = sr.edit(
+            images, edit_mask, generator=g_sr, text_embeds=sr_text_embeds, text_mask=sr_text_mask,
+            cond_images=lowres_edited, timesteps=default(superres_timesteps, timesteps), **kw,
+        ).clamp(0.0, 1.0)
+        if return_pil_images:
+            return to_pil_images(superres_image)
+        return superres_image

@@ -8,10 +8,14 @@ dtype, logits stay in the compute dtype. Every attention goes through K2
 (`ops.attention.qknorm_attend`); classifier-free guidance runs as one
 doubled-batch forward with the `cfg_fold` (combine before the bias-free
 vocab head) and `null_fold` (the null half's cross-attention is the constant
-`Attention.null_out`) optimisations. Texts are encoded by the frozen T5 of
+`Attention.null_out`) optimisations; the guidance scale is a python number,
+a 0-d tensor or a per-row (b,) tensor, and `forward_with_neg_prompt` puts a
+negative text in the null half's place. Texts are encoded by the frozen T5 of
 `models.t5` (`encode_text`); a super-res stage's conditioning token ids join
 the cross-attention context after the text and stay attendable in the CFG
-null half, where `null_fold` then folds nothing.
+null half, where `null_fold` then folds nothing. Off the trained grid the
+learned positions are resized bilinearly (`Transformer._positions`).
+`TokenCritic` and `SelfCritic` score how real each token of a grid looks.
 
 Parameter names mirror the JAX module tree, so `utils.from_jax` maps
 weights by path.
@@ -20,7 +24,7 @@ weights by path.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,9 +33,24 @@ from torch import nn
 from muse_maskgit_pytorch_tpu_torch.models._layers import Embedding, Linear
 from muse_maskgit_pytorch_tpu_torch.models.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 from muse_maskgit_pytorch_tpu_torch.ops.attention import qknorm_attend
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, not_ported, resolve_device
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 
 KV = Tuple[torch.Tensor, torch.Tensor]
+Scale = Union[float, torch.Tensor]
+
+
+def _pad_text_to(t: torch.Tensor, mask: torch.Tensor, length: int):
+    """Right-pad (b, n, d) embeddings and their (b, n) mask to text length
+    `length`; the padding is masked out."""
+    pad = length - t.shape[1]
+    if pad == 0:
+        return t, mask
+    return F.pad(t, (0, 0, 0, pad)), F.pad(mask, (0, pad), value=False)
+
+
+def _text_mask(text_embeds: torch.Tensor, text_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The given mask, or the one the embeddings carry (padding is zero)."""
+    return (text_embeds != 0).any(dim=-1) if text_mask is None else text_mask
 
 
 class LayerNorm(nn.Module):
@@ -260,11 +279,53 @@ class Transformer(nn.Module):
         self.self_cond_to_init_embed = FeedForward(dim, dtype=dtype, generator=generator)
         self.to(device)
 
-    def _positions(self, n: int) -> torch.Tensor:
-        """(n, dim) learned positional embeddings at the trained grid."""
-        if n != self.seq_len:
-            raise not_ported("positions off the trained grid (variable resolution)", "A8")
-        return self.pos_emb.weight
+    def _positions(self, n: int, grid: Optional[tuple] = None) -> torch.Tensor:
+        """(n, dim) positional embeddings for a sequence of n tokens.
+
+        At the trained length this is the learned table. For another square
+        grid (a model trained at f x f generating g x g), or an explicit
+        `grid=(gh, gw)`, which may be rectangular, the trained f x f table is
+        resized bilinearly to the new grid, as `jax.image.resize(...,
+        "bilinear")` does: in f32, antialiased when it shrinks. A flat n that
+        is no square keeps the prefix of the table (n <= seq_len)."""
+        table = self.pos_emb.weight
+        f = math.isqrt(self.seq_len)
+        if grid is not None:
+            gh, gw = int(grid[0]), int(grid[1])
+            if gh * gw != n:
+                raise ValueError(f"pos grid {grid} does not tile length {n}")
+            if n == self.seq_len and f * f != self.seq_len:
+                # a natively non-square table has one valid grid: its own
+                if self.seq_hw is None or (gh, gw) != self.seq_hw:
+                    raise ValueError(
+                        f"pos grid {grid} does not match the trained grid {self.seq_hw} of this "
+                        "non-square model (set seq_hw at construction to name the trained orientation)"
+                    )
+                return table
+            if n == self.seq_len and (gh, gw) == (f, f):
+                return table
+            if f * f != self.seq_len:
+                raise ValueError(
+                    f"explicit pos_grid transfer needs a square trained table, got seq_len {self.seq_len}"
+                )
+            return self._resized_positions(f, gh, gw)
+        if n == self.seq_len:
+            return table
+        g = math.isqrt(n)
+        if f * f == self.seq_len and g * g == n:
+            return self._resized_positions(f, g, g)
+        if n > self.seq_len:
+            raise ValueError(
+                f"sequence length {n} exceeds the trained {self.seq_len} and is not a square grid "
+                "(only square grids support resolution transfer)"
+            )
+        return table[:n]
+
+    def _resized_positions(self, f: int, gh: int, gw: int) -> torch.Tensor:
+        table = self.pos_emb.weight
+        sq = table.reshape(f, f, self.dim).float().permute(2, 0, 1)[None]
+        out = F.interpolate(sq, size=(gh, gw), mode="bilinear", align_corners=False, antialias=True)
+        return out[0].permute(1, 2, 0).reshape(gh * gw, self.dim).to(table.dtype)
 
     def encode_text(self, texts) -> torch.Tensor:
         """Texts -> (b, n, text_embed_dim) T5 embeddings, padding zeroed, on
@@ -294,22 +355,62 @@ class Transformer(nn.Module):
             self._context(text_embeds, conditioning_token_ids)
         )
 
-    def _cfg_combine(self, out2: torch.Tensor, b: int, cond_scale: float, fold: bool):
+    def precompute_context_kv_neg(
+        self,
+        *,
+        text_embeds: torch.Tensor,
+        neg_text_embeds: torch.Tensor,
+        text_mask: Optional[torch.Tensor] = None,
+        neg_text_mask: Optional[torch.Tensor] = None,
+        conditioning_token_ids: Optional[torch.Tensor] = None,
+    ):
+        """Per-layer cross-attention K/V for `forward_with_neg_prompt`'s
+        doubled batch: the positive rows, then the negative rows, both texts
+        padded to one length. Returns `(context_kv, (text_embeds, text_mask),
+        (neg_text_embeds, neg_text_mask))` with the padded tensors, which the
+        forward must be given so the masks match the cache."""
+        text_mask = _text_mask(text_embeds, text_mask)
+        neg_text_mask = _text_mask(neg_text_embeds, neg_text_mask)
+        length = max(text_embeds.shape[1], neg_text_embeds.shape[1])
+        text_embeds, text_mask = _pad_text_to(text_embeds, text_mask, length)
+        neg_text_embeds, neg_text_mask = _pad_text_to(neg_text_embeds, neg_text_mask, length)
+        cond2 = (
+            torch.cat([conditioning_token_ids, conditioning_token_ids], dim=0)
+            if exists(conditioning_token_ids)
+            else None
+        )
+        ctx_kv = self.precompute_context_kv(
+            text_embeds=torch.cat([text_embeds, neg_text_embeds], dim=0), conditioning_token_ids=cond2
+        )
+        return ctx_kv, (text_embeds, text_mask), (neg_text_embeds, neg_text_mask)
+
+    def _cfg_combine(self, out2: torch.Tensor, b: int, cond_scale: Scale, fold: bool):
         """`null + (cond - null) * s` over a doubled batch: on the pre-head
-        embeddings then one head matmul on b rows (`fold`), or on logits."""
+        embeddings then one head matmul on b rows (`fold`), or on logits.
+
+        `cond_scale` is a python number, a 0-d tensor or a per-row (b,)
+        tensor. A tensor is an f32 value, as JAX's traced scale is: on logits
+        in a lower precision it makes the combine's product and sum f32."""
+        s = cond_scale
+        if isinstance(s, torch.Tensor):
+            s = s.float()
+            if s.dim() == 1:
+                s = s[:, None, None]
         cond, null = out2[:b], out2[b:]
         if fold:
             e = null.float()
-            e = e + (cond.float() - e) * cond_scale
+            e = e + (cond.float() - e) * s
             return self.to_logits(e.to(self.dtype))
-        return null + (cond - null) * cond_scale
+        if isinstance(s, torch.Tensor):
+            return null.float() + (cond - null).float() * s
+        return null + (cond - null) * s
 
     def forward_with_cond_scale(
         self,
         x: torch.Tensor,
         *,
         text_embeds: torch.Tensor,
-        cond_scale: float = 3.0,
+        cond_scale: Scale = 3.0,
         return_embed: bool = False,
         text_mask: Optional[torch.Tensor] = None,
         conditioning_token_ids: Optional[torch.Tensor] = None,
@@ -317,43 +418,107 @@ class Transformer(nn.Module):
         return_raw_double: bool = False,
         gather_positions: Optional[torch.Tensor] = None,
         context_kv: Optional[List[KV]] = None,
+        pos_grid: Optional[tuple] = None,
         cfg_fold: bool = True,
+        return_embed_only: bool = False,
         null_fold: bool = True,
     ):
         """CFG as ONE doubled-batch forward (cond rows then null rows, the
         null half with its TEXT mask zeroed; conditioning image tokens stay
         attendable there). Semantics of every flag as in the JAX module;
         `null_fold` is a no-op when conditioning tokens are given, because
-        the null half's cross-attention is then no constant."""
-        if not isinstance(cond_scale, (int, float)):
-            raise not_ported("tensor-valued or scheduled cond_scale", "A8")
-        if cond_scale == 1:
-            return self(
+        the null half's cross-attention is then no constant.
+
+        `cond_scale`: a python number (1 runs a single pass), a 0-d tensor
+        or a per-row (b,) tensor (the per-row form needs `cfg_fold`); a
+        tensor always runs the doubled batch and is never read on the host.
+        `return_embed_only` returns the cond half's embeddings and runs no
+        vocab head."""
+        if not isinstance(cond_scale, torch.Tensor) and cond_scale == 1:
+            out = self(
                 x, text_embeds=text_embeds, text_mask=text_mask, self_cond_embed=self_cond_embed,
-                conditioning_token_ids=conditioning_token_ids,
-                context_kv=context_kv, return_embed=return_embed, gather_positions=gather_positions,
+                conditioning_token_ids=conditioning_token_ids, context_kv=context_kv, pos_grid=pos_grid,
+                return_embed=return_embed, gather_positions=None if return_embed_only else gather_positions,
+                skip_head=return_embed_only,
             )
+            return out[1] if return_embed_only else out
 
         b = x.shape[0]
-        if text_mask is None:
-            text_mask = (text_embeds != 0).any(dim=-1)
-
-        def dup(t):
-            return None if t is None else torch.cat([t, t], dim=0)
-
-        fold = cfg_fold and not return_raw_double
-        out2, embed2 = self(
-            dup(x),
-            text_embeds=dup(text_embeds),
+        text_mask = _text_mask(text_embeds, text_mask)
+        return self._doubled(
+            x, b, cond_scale, text_embeds=_dup(text_embeds),
             text_mask=torch.cat([text_mask, torch.zeros_like(text_mask)], dim=0),
-            conditioning_token_ids=dup(conditioning_token_ids),
-            self_cond_embed=dup(self_cond_embed),
-            return_embed=True,
-            gather_positions=dup(gather_positions),
-            context_kv=context_kv,
-            skip_head=fold,
+            conditioning_token_ids=conditioning_token_ids, self_cond_embed=self_cond_embed,
+            return_embed=return_embed, return_raw_double=return_raw_double, gather_positions=gather_positions,
+            context_kv=context_kv, pos_grid=pos_grid, cfg_fold=cfg_fold, return_embed_only=return_embed_only,
             null_rows=b if (null_fold and not exists(conditioning_token_ids)) else 0,
         )
+
+    def forward_with_neg_prompt(
+        self,
+        x: torch.Tensor,
+        *,
+        text_embeds: torch.Tensor,
+        neg_text_embeds: torch.Tensor,
+        cond_scale: Scale = 3.0,
+        return_embed: bool = False,
+        text_mask: Optional[torch.Tensor] = None,
+        neg_text_mask: Optional[torch.Tensor] = None,
+        conditioning_token_ids: Optional[torch.Tensor] = None,
+        self_cond_embed: Optional[torch.Tensor] = None,
+        return_raw_double: bool = False,
+        gather_positions: Optional[torch.Tensor] = None,
+        context_kv: Optional[List[KV]] = None,
+        pos_grid: Optional[tuple] = None,
+        cfg_fold: bool = True,
+        return_embed_only: bool = False,
+        null_fold: bool = True,
+    ):
+        """Negative prompting: `neg + (pos - neg) * cond_scale`, the
+        negative text in the null half's place (both texts padded to one
+        length). `context_kv` is `precompute_context_kv_neg`'s cache, which
+        holds both halves. `null_fold` is accepted for symmetry with
+        `forward_with_cond_scale` and does nothing: the negative half
+        attends a real context."""
+        del null_fold
+        b = x.shape[0]
+        text_mask = _text_mask(text_embeds, text_mask)
+        neg_text_mask = _text_mask(neg_text_embeds, neg_text_mask)
+        length = max(text_embeds.shape[1], neg_text_embeds.shape[1])
+        text_embeds, text_mask = _pad_text_to(text_embeds, text_mask, length)
+        neg_text_embeds, neg_text_mask = _pad_text_to(neg_text_embeds, neg_text_mask, length)
+        return self._doubled(
+            x, b, cond_scale, text_embeds=torch.cat([text_embeds, neg_text_embeds], dim=0),
+            text_mask=torch.cat([text_mask, neg_text_mask], dim=0),
+            conditioning_token_ids=conditioning_token_ids, self_cond_embed=self_cond_embed,
+            return_embed=return_embed, return_raw_double=return_raw_double, gather_positions=gather_positions,
+            context_kv=context_kv, pos_grid=pos_grid, cfg_fold=cfg_fold, return_embed_only=return_embed_only,
+            null_rows=0,
+        )
+
+    def _doubled(
+        self, x, b, cond_scale, *, text_embeds, text_mask, conditioning_token_ids, self_cond_embed,
+        return_embed, return_raw_double, gather_positions, context_kv, pos_grid, cfg_fold,
+        return_embed_only, null_rows,
+    ):
+        """The doubled-batch forward of both CFG wrappers (`text_embeds` and
+        `text_mask` already hold both halves), then the combine."""
+        fold = (cfg_fold or return_embed_only) and not return_raw_double
+        out2, embed2 = self(
+            _dup(x),
+            text_embeds=text_embeds,
+            text_mask=text_mask,
+            conditioning_token_ids=_dup(conditioning_token_ids),
+            self_cond_embed=_dup(self_cond_embed),
+            return_embed=True,
+            gather_positions=_dup(gather_positions),
+            context_kv=context_kv,
+            pos_grid=pos_grid,
+            skip_head=fold,
+            null_rows=null_rows,
+        )
+        if return_embed_only:
+            return embed2[:b]
         if return_raw_double:
             return out2, embed2[:b]
         scaled = self._cfg_combine(out2, b, cond_scale, fold)
@@ -373,6 +538,7 @@ class Transformer(nn.Module):
         conditioning_token_ids: Optional[torch.Tensor] = None,
         gather_positions: Optional[torch.Tensor] = None,
         context_kv: Optional[List[KV]] = None,
+        pos_grid: Optional[tuple] = None,
         skip_head: bool = False,
         null_rows: int = 0,
     ):
@@ -380,7 +546,8 @@ class Transformer(nn.Module):
 
         `gather_positions` (b, k) restricts the vocab head to those
         positions; `skip_head` returns (gathered pre-head embeddings, full
-        embeddings); `null_rows` see `TransformerBlocks.forward`.
+        embeddings); `null_rows` see `TransformerBlocks.forward`; `pos_grid`
+        (h, w) names the token grid that x flattens (see `_positions`).
         `conditioning_token_ids` (b, ...) join the context after the text,
         always attendable; with `context_kv` given they only extend the mask
         (the cache already holds their K/V)."""
@@ -396,15 +563,12 @@ class Transformer(nn.Module):
         context = (
             self._context(text_embeds, conditioning_token_ids) if context_kv is None else None
         )
-        if text_mask is None:
-            context_mask = (text_embeds != 0).any(dim=-1)
-        else:
-            context_mask = text_mask
+        context_mask = _text_mask(text_embeds, text_mask)
         if exists(conditioning_token_ids):
             n_cond = conditioning_token_ids.reshape(b, -1).shape[-1]
             context_mask = F.pad(context_mask, (0, n_cond), value=True)
 
-        h = (self.token_emb(x) + self._positions(n)).to(self.dtype)
+        h = (self.token_emb(x) + self._positions(n, grid=pos_grid)).to(self.dtype)
         if self.self_cond:
             if not exists(self_cond_embed):
                 self_cond_embed = torch.zeros_like(h)
@@ -426,6 +590,10 @@ class Transformer(nn.Module):
         return logits
 
 
+def _dup(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else torch.cat([t, t], dim=0)
+
+
 class MaskGitTransformer(Transformer):
     """Transformer with a [mask] token id (= num_tokens)."""
 
@@ -433,3 +601,57 @@ class MaskGitTransformer(Transformer):
         if "add_mask_id" in kwargs:
             raise TypeError("MaskGitTransformer always adds the mask id")
         super().__init__(add_mask_id=True, **kwargs)
+
+
+class TokenCritic(Transformer):
+    """A transformer of its own that scores each token of a grid: one logit
+    a token, the odds that it is fake (`dim_out=1`)."""
+
+    def __init__(self, **kwargs):
+        if "dim_out" in kwargs:
+            raise TypeError("TokenCritic always has dim_out 1")
+        super().__init__(dim_out=1, **kwargs)
+
+
+class SelfCritic(nn.Module):
+    """A linear critic head (f32, with a bias) over the generator's own
+    embeddings (`net` is the generator's transformer, shared).
+
+    It reads the cond half's embeddings only, so its CFG wrappers run one
+    single-batch forward without the vocab head: the guidance scale never
+    reaches its score."""
+
+    def __init__(self, net: Transformer, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.net = net
+        self.to_pred = Linear(net.dim, 1, bias=True, generator=generator)
+
+    @staticmethod
+    def _cond_half_ctx_kv(ctx_kv: Optional[List[KV]], b: int) -> Optional[List[KV]]:
+        """A (possibly CFG-doubled) per-layer K/V cache cut to the cond rows."""
+        if ctx_kv is None:
+            return None
+        return [(k[:b], v[:b]) for k, v in ctx_kv]
+
+    def forward_with_cond_scale(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        for drop in ("return_embed", "return_embed_only", "return_raw_double", "cond_scale", "cfg_fold", "null_fold"):
+            kwargs.pop(drop, None)
+        kwargs["context_kv"] = self._cond_half_ctx_kv(kwargs.get("context_kv"), x.shape[0])
+        _, embeds = self.net(x, skip_head=True, **kwargs)
+        return self.to_pred(embeds)
+
+    def forward_with_neg_prompt(
+        self, x, *, text_embeds, neg_text_embeds, text_mask=None, neg_text_mask=None, **kwargs
+    ) -> torch.Tensor:
+        # the positive half only, its text padded to the length the doubled
+        # positive + negative cache was built over
+        del neg_text_mask
+        text_mask = _text_mask(text_embeds, text_mask)
+        length = max(text_embeds.shape[1], neg_text_embeds.shape[1])
+        text_embeds, text_mask = _pad_text_to(text_embeds, text_mask, length)
+        return self.forward_with_cond_scale(x, text_embeds=text_embeds, text_mask=text_mask, **kwargs)
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        kwargs.pop("return_embed", None)
+        _, embeds = self.net(x, skip_head=True, **kwargs)
+        return self.to_pred(embeds)

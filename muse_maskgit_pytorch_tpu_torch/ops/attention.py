@@ -182,6 +182,13 @@ def qknorm_attend(
             raise ValueError("qknorm_attend: all inputs must be on one device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share a dtype")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, null_k, null_v, q_scale, k_scale)):
+        # the kernel writes its output through a raw pointer: it would carry
+        # no graph, and a backward would silently stop here
+        raise RuntimeError(
+            "qknorm_attend has no backward on CUDA tensors yet (ROADMAP A9): "
+            "call it under torch.no_grad() or torch.inference_mode()"
+        )
     bias = key_mask_bias(mask, b, m, q.device)
     q, k, v = _heads_contiguous(q), _heads_contiguous(k), _heads_contiguous(v)
     nk = null_k.to(q.dtype).contiguous()

@@ -31,7 +31,7 @@ the same arguments) for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -141,14 +141,18 @@ def fused_topk_gumbel_sample_plain(
     seed: torch.Tensor,
     noise: Optional[torch.Tensor] = None,
     cfg_pair: bool = False,
-    cond_scale: float = 1.0,
+    cond_scale: Union[float, torch.Tensor] = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the same f32 operations in the
-    same order (so the threshold is bit-identical), with the same noise."""
+    same order (so the threshold is bit-identical), with the same noise.
+    `cond_scale` is a host float or a one-element f32 tensor, as for the
+    kernel."""
     l = logits.float()
     if cfg_pair:
         rows = l.shape[0] // 2
         cond, null = l[:rows], l[rows:]
+        if isinstance(cond_scale, torch.Tensor):
+            cond_scale = cond_scale.reshape(1, 1).float()
         l = null + (cond - null) * cond_scale
     rows, V = l.shape
     thresh = topk_threshold_plain(l, k)
@@ -195,7 +199,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.muse_sample_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, f, f, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, f, p, i, i, p]
         fn.restype = ctypes.c_int
         lib.muse_sample_error_string.argtypes = [ctypes.c_int]
         lib.muse_sample_error_string.restype = ctypes.c_char_p
@@ -237,7 +241,7 @@ def sample_part_clocks(logits: torch.Tensor, k: int, temperature: float, seed: t
         V,
         int(k),
         float(temperature),
-        1.0,
+        None,
         1 if logits.dtype == torch.bfloat16 else 0,
         0,
         torch.cuda.current_stream(logits.device).cuda_stream,
@@ -255,7 +259,7 @@ def fused_topk_gumbel_sample(
     seed: torch.Tensor,
     noise: Optional[torch.Tensor] = None,
     cfg_pair: bool = False,
-    cond_scale: float = 1.0,
+    cond_scale: Union[float, torch.Tensor] = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample one id per row.
 
@@ -263,6 +267,9 @@ def fused_topk_gumbel_sample(
     rows then null rows, combined as `null + (cond - null) * cond_scale`).
     temperature: host float. seed: int32 tensor of one element on the
     logits' device (the kernel reads it there, so the host never waits).
+    cond_scale: a host float, or a one-element f32 tensor on the logits'
+    device that the kernel reads there, as it reads the seed (a host float
+    is written to such a tensor first); only `cfg_pair` reads it.
     noise: optional (rows, V) gumbel noise that replaces the Philox stream.
     Returns (idx int32 (rows,), prob f32 (rows,))."""
     if logits.device.type == "cpu":
@@ -290,6 +297,14 @@ def fused_topk_gumbel_sample(
             raise ValueError(f"noise {tuple(noise.shape)} does not cover ({rows}, {V})")
         noise = noise[:rows].to(torch.float32).contiguous()
     seed = seed.reshape(-1)[:1].contiguous()
+    scale = None
+    if cfg_pair:
+        if isinstance(cond_scale, torch.Tensor):
+            if cond_scale.device != logits.device or cond_scale.dtype != torch.float32 or cond_scale.numel() != 1:
+                raise ValueError("cond_scale must be a float or a one-element f32 tensor on the logits' device")
+            scale = cond_scale.reshape(1).contiguous()
+        else:
+            scale = torch.full((1,), float(cond_scale), dtype=torch.float32, device=logits.device)
     idx = torch.empty(rows, dtype=torch.int32, device=logits.device)
     prob = torch.empty(rows, dtype=torch.float32, device=logits.device)
     lib = _lib()
@@ -303,7 +318,7 @@ def fused_topk_gumbel_sample(
         V,
         int(k),
         float(temperature),
-        float(cond_scale),
+        scale.data_ptr() if scale is not None else None,
         1 if logits.dtype == torch.bfloat16 else 0,
         1 if cfg_pair else 0,
         torch.cuda.current_stream(logits.device).cuda_stream,

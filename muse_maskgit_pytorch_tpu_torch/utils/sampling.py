@@ -55,10 +55,31 @@ def step_times(timesteps: int, jitted: bool = True) -> np.ndarray:
     return np.concatenate([t, np.ones(1, np.float32)])
 
 
+def schedule_values(noise_schedule, timesteps: int, jitted: bool = True) -> np.ndarray:
+    """float32 mask fraction p(t_i) of each step, the value the jitted JAX
+    scan computes (`mask_counts` and the edit budgets are derived from it)."""
+    return noise_schedule(step_times(timesteps, jitted)).astype(np.float32)
+
+
 def mask_counts(noise_schedule, seq_len: int, timesteps: int, jitted: bool = True) -> np.ndarray:
     """Per-step number of masked positions, max(floor(p(t_i) * seq), 1)."""
-    p = noise_schedule(step_times(timesteps, jitted)).astype(np.float32)
+    p = schedule_values(noise_schedule, timesteps, jitted)
     return np.maximum(np.floor(p * np.float32(seq_len)), 1).astype(np.int64)
+
+
+def guidance_ramp(start: float, end: float, timesteps: int) -> np.ndarray:
+    """float32 per-step guidance scales of a `(start, end)` schedule, as the
+    jitted JAX decode builds them with `jnp.linspace(start, end, T)`: XLA
+    rewrites the division by T - 1 into a multiply by r = 1 / (T - 1) and
+    folds the constant `end * r`, so step i is `start * (1 - i * r) +
+    i * (end * r)` and the last step is `end`. `torch.linspace` and numpy's
+    differ from it in the last bit."""
+    if timesteps == 1:
+        return np.array([start], np.float32)
+    i = np.arange(timesteps - 1, dtype=np.float32)
+    r = np.float32(1.0) / np.float32(timesteps - 1)
+    ramp = np.float32(start) * (np.float32(1.0) - i * r) + i * (np.float32(end) * r)
+    return np.concatenate([ramp, np.array([end], np.float32)])
 
 
 def step_temperatures(temperature: float, timesteps: int) -> np.ndarray:

@@ -297,10 +297,12 @@ def test_muse_rejects_what_it_cannot_run(shared, separate, tiny_t5):
         muse(PROMPTS, timesteps=2, cond_via="tokens")
     with pytest.raises(ValueError, match="share one VAE"):
         Muse(pbase, psr_own, device="cpu")(PROMPTS, timesteps=2, cond_via="ids", return_pil_images=False)
-    with pytest.raises(NotImplementedError, match="A8"):
-        muse(PROMPTS, timesteps=2, rerank_candidates=4)
-    with pytest.raises(NotImplementedError, match="A8"):
-        muse(PROMPTS, timesteps=2, image_size=32)
+    # a base-stage size the VAE's factor does not divide, and an edit
+    # source the cascade's ratio does not divide
+    with pytest.raises(ValueError, match="divisible by the VAE"):
+        muse(PROMPTS, timesteps=2, image_size=18, rerank_candidates=2)
+    with pytest.raises(ValueError, match="cascade ratio"):
+        muse.edit(torch.rand(B, 31, 31, 3), torch.zeros(B, 31, 31, dtype=torch.bool), PROMPTS)
 
 
 def test_superres_needs_its_conditioning(shared):

@@ -127,6 +127,85 @@ def test_sampler_philox_stream_matches_plain(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sampler_reads_its_cfg_scale_from_device_memory(dev, dtype):
+    # cfg_pair with the scale of a guidance ramp's step as a one-element f32
+    # tensor on the card: ids exact, and the same as with that host float
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows, V = 133, 65536
+    k = -(-V // 10)
+    logits = (torch.randn(2 * rows, V, generator=g, device=dev) * 3).to(dtype)
+    noise = _gumbel((rows, V), g, dev)
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    ramp_step = 1.2352941  # not a bf16 value
+    scale = torch.tensor([ramp_step], device=dev)
+    kw = dict(noise=noise, cfg_pair=True)
+    idx, prob = sampling_kernel.fused_topk_gumbel_sample(logits, k, 0.8, seed, cond_scale=scale, **kw)
+    pidx, pprob = sampling_kernel.fused_topk_gumbel_sample_plain(logits, k, 0.8, seed, cond_scale=scale, **kw)
+    assert torch.equal(idx, pidx)
+    torch.testing.assert_close(prob, pprob, rtol=1e-5, atol=0)
+    hidx, hprob = sampling_kernel.fused_topk_gumbel_sample(logits, k, 0.8, seed, cond_scale=ramp_step, **kw)
+    assert torch.equal(hidx, idx) and torch.equal(hprob, prob)
+    # replayed from a CUDA graph, the kernel reads the scale written since
+    graph = torch.cuda.CUDAGraph()
+    sampling_kernel.fused_topk_gumbel_sample(logits, k, 0.8, seed, cond_scale=scale, **kw)  # warm-up
+    with torch.cuda.graph(graph):
+        gidx, _ = sampling_kernel.fused_topk_gumbel_sample(logits, k, 0.8, seed, cond_scale=scale, **kw)
+    scale.fill_(4.5)
+    graph.replay()
+    widx, _ = sampling_kernel.fused_topk_gumbel_sample_plain(logits, k, 0.8, seed, cond_scale=4.5, **kw)
+    assert torch.equal(gidx, widx) and not torch.equal(widx, idx)
+    for bad in (torch.tensor([2.0]), torch.tensor([2.0], device=dev, dtype=torch.float64), torch.ones(2, device=dev)):
+        with pytest.raises(ValueError, match="cond_scale"):
+            sampling_kernel.fused_topk_gumbel_sample(logits, k, 0.8, seed, cond_scale=bad, **kw)
+
+
+# the sampling surfaces' K2 shapes: 400 queries (a 320px base stage, 3 x 128
+# + 16), 384 (a 256 x 384 rectangle), and the negative-prompt cross mask,
+# where both CFG halves attend real text padded to one length
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ["self_400", "self_384", "negative_cross"])
+def test_qknorm_sampling_surface_shapes(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    b, h, d = 4, 8, 64
+    n, m = {"self_400": (400, 400), "self_384": (384, 384), "negative_cross": (400, 64)}[shape]
+    q = torch.randn(b, n, h, d, generator=g, device=dev).to(dtype)
+    kv = torch.randn(b, m, 2 * h * d, generator=g, device=dev).to(dtype)
+    k, v = (t.reshape(b, m, h, d) for t in kv.chunk(2, dim=-1))
+    nk, nv = (torch.randn(h, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    qs, ks = (1 + 0.1 * torch.randn(d, generator=g, device=dev) for _ in range(2))
+    mask = None
+    if shape == "negative_cross":
+        # positive rows: texts of up to 64 tokens; negative rows: 16, padded
+        lengths = torch.tensor([64, 37, 16, 9], device=dev)[:, None]
+        mask = torch.arange(m, device=dev)[None] < lengths
+    args = (q, k, v, nk, nv, qs, ks)
+    out = attention.qknorm_attend(*args, mask=mask)
+    ref = attention.qknorm_attend_plain(*args, mask=mask)
+    tol = 1e-4 if dtype == torch.float32 else K2_BF16_FROM_F32
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    if dtype == torch.bfloat16:
+        rounded = attention.qknorm_attend_plain(*args, mask=mask, round_to=torch.bfloat16)
+        torch.testing.assert_close(out.float(), rounded.float(), rtol=0, atol=BF16_VS_ROUNDED)
+
+
+def test_qknorm_refuses_inputs_that_need_a_gradient(dev):
+    # K2 has no backward yet: its output would carry no graph
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, 70, 2, 64, generator=g, device=dev) for _ in range(3))
+    nk, nv = (torch.randn(2, 64, generator=g, device=dev) for _ in range(2))
+    qs = torch.ones(64, device=dev, requires_grad=True)
+    ks = torch.ones(64, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.qknorm_attend(q, k, v, nk, nv, qs, ks)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.qknorm_attend(q.requires_grad_(), k, v, nk, nv, ks, ks)
+    with torch.no_grad():
+        out = attention.qknorm_attend(q, k, v, nk, nv, qs, ks)
+    torch.testing.assert_close(out, attention.qknorm_attend_plain(q, k, v, nk, nv, qs, ks).detach(), rtol=0, atol=1e-4)
+    assert attention.qknorm_attend(q.detach(), k, v, nk, nv, ks, ks).shape == q.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("m", [70, 200])
 def test_attention_matches_plain(dev, dtype, m):
     g = torch.Generator(device=dev).manual_seed(m)
