@@ -29,7 +29,13 @@ read just after):
     `can_remask_prev_masked`, a SelfCritic and a TokenCritic decode,
     `MaskGit.edit`, `generate_reranked` by log-likelihood and by critic,
     `Muse.edit` at 512px and `Muse(texts)` re-ranked at 256x384 -> 512x768
-    -- K1 and K2 at the shapes these give them.
+    -- K1 and K2 at the shapes these give them;
+  * `serving`: the base model saved in the JAX package's checkpoint format
+    and loaded into a fresh model (tensor- and image-equal), then served:
+    `GeneratePipeline` at b16, T18, CFG 3 with T5 in front (warmup, timed
+    calls, per-row guidance and negative prompts, an edit), a cascade
+    pipeline at b8, and `GenerateServer` answering a burst of concurrent
+    HTTP requests -- K1 and K2 on every batch.
 
 Each phase prints one line (`surfaces` one a request); any failed check
 raises and the exit code is non-zero. The last line is
@@ -38,13 +44,14 @@ raises and the exit code is non-zero. The last line is
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
 selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
-t5, surfaces, cascade, profile) while iterating; a subset prints its phases' lines
-and no result lines.
+t5, surfaces, serving, cascade, profile) while iterating; a subset prints its
+phases' lines and no result lines.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import json
 import math
@@ -58,7 +65,8 @@ from pathlib import Path
 # has run in a process, every later launch costs the host more, and the
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
-    "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "cascade", "profile",
+    "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "cascade",
+    "profile",
 )
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "vq_search", "flash_attention")
 
@@ -72,6 +80,8 @@ NEAR_TIE = 1e-5  # f64 score gap within which two f32 searches may differ (unit 
 CAS_BATCH, SR_SEQ, SR_IMAGE, COND_TOKENS = 16, 1024, 512, 256
 # the sampling surfaces: base-stage and cascade batches, a negative text's length
 SURF_BATCH, SURF_CAS_BATCH, NEG_TEXT_LEN = 8, 4, 16
+# serving: the pipeline's batch, the cascade pipeline's, the server's burst
+SERVE_BATCH, SERVE_CAS_BATCH, BURST_REQUESTS, BURST_CLIENTS = 16, 8, 48, 16
 # 57-63 bytes each: with the end token, a T5 length of 64, so 64 + 256 cross-attention keys
 PROMPTS = (
     "a watercolor painting of a lighthouse on a cliff at sunrise",
@@ -736,12 +746,12 @@ def phase_k4(torch, ctx):
     )
 
 
-def build_models(torch, dtype=None, with_vae=True):
-    """The main path's MaskGit, random weights from seed 0 (bf16 compute
+def build_models(torch, dtype=None, with_vae=True, seed=0):
+    """The main path's MaskGit, random weights from `seed` (bf16 compute
     unless `dtype` says otherwise)."""
     from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE
 
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator().manual_seed(seed)
     vae = VQGanVAE(dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, generator=gen) if with_vae else None
     transformer = MaskGitTransformer(
         num_tokens=VOCAB, dim=DIM, seq_len=SEQ, depth=DEPTH, dim_head=DIM_HEAD, heads=HEADS,
@@ -774,6 +784,16 @@ def centre_half_mask(b: int, h: int, w: int):
     mask = torch.zeros(b, h, w, dtype=torch.bool, device="cuda")
     mask[:, h // 4 : h - h // 4, w // 4 : w - w // 4] = True
     return mask
+
+
+def known_tokens_kept(grid, vae, source, pixel_mask) -> bool:
+    """The token grid (b, fh, fw) holds `source`'s tokens (encoded by `vae`)
+    wherever the pixel mask (b, H, W) edits none of a token's pixels."""
+    _, src, _ = vae.encode(source)
+    fh, fw = src.shape[1:]
+    ph, pw = pixel_mask.shape[1] // fh, pixel_mask.shape[2] // fw
+    edited = pixel_mask.reshape(-1, fh, ph, fw, pw).any(dim=4).any(dim=2)
+    return bool((grid[~edited] == src.long()[~edited]).all())
 
 
 def profile_rows(prof):
@@ -1274,14 +1294,6 @@ def phase_surfaces(torch, ctx):
         decoded.append((self, ids))
         return ids
 
-    def known_equal(grid, model, source, pixel_mask):
-        """The grid's tokens outside the edit equal `source`'s tokens."""
-        _, src, _ = model.vae.encode(source)
-        fh, fw = src.shape[1:]
-        ph, pw = pixel_mask.shape[1] // fh, pixel_mask.shape[2] // fw
-        edited = pixel_mask.reshape(-1, fh, ph, fw, pw).any(dim=4).any(dim=2)
-        return bool((grid[~edited] == src.long()[~edited]).all())
-
     counted = (fused_topk_gumbel_sample, qknorm_attend, attend, nearest_code)  # K1, K2, K4, K3
     results, runs = {}, {}
     MaskGit._decode = recording
@@ -1308,7 +1320,7 @@ def phase_surfaces(torch, ctx):
                         require(int(ids.max()) < model.mask_id, f"{name}: a mask id is left in a decoded grid")
                     if name.startswith("edit"):
                         require(
-                            known_equal(decoded[0][1].reshape(b, grid, grid), base, images, edit_mask),
+                            known_tokens_kept(decoded[0][1].reshape(b, grid, grid), base.vae, images, edit_mask),
                             f"{name}: known tokens changed",
                         )
                     if name.startswith("Muse.edit"):
@@ -1317,11 +1329,11 @@ def phase_surfaces(torch, ctx):
                         low_src = _resize_nearest(sr_images, IMAGE, IMAGE)
                         low_mask = sr_edit_mask.reshape(cb, IMAGE, r, IMAGE, r).any(dim=4).any(dim=2)
                         require(
-                            known_equal(low.reshape(cb, grid, grid), base, low_src, low_mask),
+                            known_tokens_kept(low.reshape(cb, grid, grid), base.vae, low_src, low_mask),
                             f"{name}: base known tokens changed",
                         )
                         require(
-                            known_equal(high.reshape(cb, sr_grid, sr_grid), superres, sr_images, sr_edit_mask),
+                            known_tokens_kept(high.reshape(cb, sr_grid, sr_grid), superres.vae, sr_images, sr_edit_mask),
                             f"{name}: super-res known tokens changed",
                         )
             k1, k2, k4, k3 = counts[0]
@@ -1357,6 +1369,334 @@ def phase_surfaces(torch, ctx):
         f"[surfaces] {len(results)} requests ok: K1 and K2 launched in each, K4 and K3 in none, no mask id left, known tokens "
         f"kept; vaes_share_weights on the cascade's two VAE clones {share_ms:.3f} ms a call (mean of 10) | "
         f"{ctx['smi']} | models built {t_build:.1f}s"
+    )
+
+
+def phase_serving(torch, ctx):
+    """The serving path at the base stage's full width (random weights from
+    seed 0, TF32 off), through the entry points a deployment calls:
+
+    (a) checkpoint: `save_module` of the base MaskGit (its VAE clone
+        included) in the JAX package's msgpack format, with a manifest;
+        `verify_manifest(require=True)`; `load_module` into a MaskGit built
+        from seed 1. Every state-dict tensor must be equal, and one b16 T18
+        `generate` from one seed must give equal ids and equal uint8 images
+        from both models (cuDNN deterministic for that comparison).
+    (b) `GeneratePipeline` b16, T18, CFG 3, T5 v1.1-base shape in front:
+        warmup("all"), then 3 timed calls of 32 prompts (two batches each;
+        T5 and the uint8 fetch timed by CUDA events around them), K1 +18
+        and K2 +288 a batch, K3 = K4 = 0; one call with per-prompt scales
+        and negative prompts; an edit of 4 images, the centre half masked,
+        whose decoded grid keeps the sources' tokens outside the mask.
+    (c) a cascade pipeline, b8: `cond_via` resolves to "ids"; one timed call
+        of 8 prompts -> (8, 512, 512, 3) uint8.
+    (d) `GenerateServer` on 127.0.0.1 (port 0, max_wait_ms 50, warmed on
+        "all"): 48 one-prompt POST /generate from 16 client threads, every
+        third with a `cond_scale`, every fourth with a `negative_prompt`;
+        then one POST /edit of 2 images, GET /healthz and GET /stats. Every
+        reply 200, every PNG (256, 256, 3) by the port's own decoder,
+        coalesced batches, `backend_compiles` flat through the traffic.
+    """
+    import tempfile
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from muse_maskgit_pytorch_tpu_torch import MaskGit, Muse
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+    from muse_maskgit_pytorch_tpu_torch.serving import GeneratePipeline, _quantize_u8
+    from muse_maskgit_pytorch_tpu_torch.serving_http import GenerateServer
+    from muse_maskgit_pytorch_tpu_torch.utils import checkpoint
+    from muse_maskgit_pytorch_tpu_torch.utils.png import decode_png, encode_png
+
+    base = ctx.get("maskgit") or build_models(torch)
+    ctx["maskgit"] = base
+    superres = ctx.get("superres") or build_superres(torch, base.vae)
+    ctx["superres"] = superres
+    counted = (fused_topk_gumbel_sample, qknorm_attend, attend, nearest_code)  # K1, K2, K4, K3
+    steps_k2 = STEPS * DEPTH * 2
+    per_batch = (STEPS, steps_k2, 0, 0)
+    launches = dict.fromkeys(("k1", "k2", "k4", "k3"), 0)
+
+    def zero():
+        for fn in counted:
+            fn.launches = 0
+
+    def read(batches):
+        got = tuple(fn.launches for fn in counted)
+        for tag, n in zip(launches, got):
+            launches[tag] += n
+        return got, tuple(n * batches for n in per_batch)
+
+    def is_u8(out, shape):
+        return isinstance(out, np.ndarray) and out.dtype == np.uint8 and out.shape == shape
+
+    # -- (a) the checkpoint round trip
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = Path(tmp) / "maskgit.msgpack"
+        t = time.perf_counter()
+        checkpoint.save_module(base, path)
+        t_save = time.perf_counter() - t
+        t = time.perf_counter()
+        checkpoint.write_manifest(tmp, {path.name: checkpoint.manifest_entry(path, base)})
+        require(checkpoint.verify_manifest(path, require=True), "the manifest did not verify the checkpoint")
+        t_manifest = time.perf_counter() - t
+        fresh = build_models(torch, seed=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        unused = checkpoint.load_module(fresh, path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t
+        file_bytes = path.stat().st_size
+    require(unused == [], f"the checkpoint holds leaves the port did not take: {unused[:5]}")
+    mine, theirs = base.state_dict(), fresh.state_dict()
+    require(mine.keys() == theirs.keys(), "the loaded model's state dict has other keys")
+    differ = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+    require(not differ, f"{len(differ)} tensors differ after the round trip, e.g. {differ[:3]}")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    text = torch.randn(SERVE_BATCH, TEXT_LEN, TEXT_DIM, generator=g, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = []
+        for model in (base, fresh):
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            ids = model.generate(text_embeds=text, generator=gen, timesteps=STEPS, cond_scale=CFG, return_ids=True)
+            with torch.inference_mode():
+                outs.append((ids, _quantize_u8(model.vae.decode_from_ids(ids))))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    require(torch.equal(outs[0][0], outs[1][0]), "the loaded model sampled other tokens from one seed")
+    require(torch.equal(outs[0][1], outs[1][1]), "the loaded model decoded other uint8 images from one seed")
+    del fresh, mine, theirs, outs
+    ckpt_s = (
+        f"checkpoint: {file_bytes} bytes, save {t_save:.2f} s, manifest + verify {t_manifest:.2f} s, load "
+        f"{t_load:.2f} s (read, sha256, decode, copy to the card); every tensor equal, b{SERVE_BATCH} T{STEPS} ids "
+        f"and uint8 images equal"
+    )
+
+    # -- (b) the pipeline
+    pipe = GeneratePipeline(
+        base, batch_size=SERVE_BATCH, timesteps=STEPS, cond_scale=CFG, text_len=TEXT_LEN, return_pil=False
+    )
+    t_warm = pipe.warmup("all")
+    warmup_s = dict(pipe.stats["warmup_seconds"])  # the server's warmup below writes them again
+    warm_s = ", ".join(f"{k} {v:.2f}" for k, v in warmup_s.items())
+    spans = {"t5": [], "fetch": []}
+
+    def evented(name, fn):
+        """fn, with CUDA events recorded around each call."""
+
+        def run(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+
+        return run
+
+    # the floor of a pipeline batch: the model's own b16 request from text
+    # embeddings to uint8 images on the host, without T5 or the pipeline
+    embeds, tmask = pipe._encode_prompts(list(PROMPTS[:SERVE_BATCH]))
+    bare = []
+    for seed in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = base.generate(
+            text_embeds=embeds, text_mask=tmask, generator=torch.Generator(device="cuda").manual_seed(seed),
+            timesteps=STEPS, cond_scale=CFG,
+        )
+        _quantize_u8(img).cpu()
+        bare.append((time.perf_counter() - t) * 1000)
+    bare_ms = statistics.median(bare)
+    pipe._encode_prompts = evented("t5", pipe._encode_prompts)
+    pipe._to_host = evented("fetch", pipe._to_host)
+    prompts = [PROMPTS[i % len(PROMPTS)] for i in range(2 * SERVE_BATCH)]  # two batches a call
+    calls = []
+    for _ in range(3):
+        for v in spans.values():
+            v.clear()
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe(prompts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got, want = read(2)
+        require(got == want, f"pipeline call of two batches launched K1, K2, K4, K3 {got}, expected {want}")
+        require(is_u8(out, (len(prompts), IMAGE, IMAGE, 3)), f"pipeline output {type(out)} {getattr(out, 'shape', '')}")
+        part = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+        calls.append(dict(ms=dt * 1000, t5_ms=part["t5"], fetch_ms=part["fetch"]))
+    call_ms = statistics.median(c["ms"] for c in calls)
+    pipe_img_s = len(prompts) / call_ms * 1000
+    t5_share = statistics.median(c["t5_ms"] / c["ms"] for c in calls)
+    fetch_share = statistics.median(c["fetch_ms"] / c["ms"] for c in calls)
+
+    # per-prompt scales and negative prompts in one batch
+    scales = [2.0 if i % 2 else 5.0 for i in range(SERVE_BATCH)]
+    negs = ["blurry, low quality" if i % 3 == 0 else None for i in range(SERVE_BATCH)]
+    zero()
+    t = time.perf_counter()
+    mixed = pipe(prompts[:SERVE_BATCH], cond_scale=scales, negative_prompts=negs)
+    per_row_ms = (time.perf_counter() - t) * 1000
+    got, want = read(1)
+    require(got == want, f"the per-row call launched K1, K2, K4, K3 {got}, expected {want}")
+    require(is_u8(mixed, (SERVE_BATCH, IMAGE, IMAGE, 3)), "per-row call output")
+
+    # an edit of 4 images: the grid a decode returns keeps the sources' tokens
+    src = (torch.rand(4, IMAGE, IMAGE, 3, generator=torch.Generator().manual_seed(9)) * 255).to(torch.uint8)
+    mask = centre_half_mask(4, IMAGE, IMAGE)
+    decoded, decode = [], MaskGit._decode
+
+    def recording(self, **k):
+        decoded.append(decode(self, **k))
+        return decoded[-1]
+
+    MaskGit._decode = recording
+    try:
+        zero()
+        t = time.perf_counter()
+        edited = pipe.edit(src.numpy(), mask.cpu().numpy(), list(PROMPTS[:4]))
+        edit_ms = (time.perf_counter() - t) * 1000
+    finally:
+        MaskGit._decode = decode
+    got, want = read(1)
+    require(got == want, f"the pipeline's edit launched K1, K2, K4, K3 {got}, expected {want}")
+    require(is_u8(edited, (4, IMAGE, IMAGE, 3)), "edit output")
+    grid = IMAGE >> VAE_LAYERS
+    with torch.inference_mode():
+        kept = known_tokens_kept(
+            decoded[0].reshape(SERVE_BATCH, grid, grid)[:4], base.vae, src.to("cuda").float() / 255.0, mask
+        )
+    require(kept, "the pipeline's edit changed tokens outside the mask")
+
+    # -- (c) the cascade pipeline
+    cascade = GeneratePipeline(
+        Muse(base, superres), batch_size=SERVE_CAS_BATCH, timesteps=STEPS, cond_scale=CFG, text_len=TEXT_LEN,
+        return_pil=False,
+    )
+    require(cascade.cond_via == "ids", f"the cascade pipeline resolved cond_via to {cascade.cond_via!r}")
+    cascade.warmup("generate")
+    zero()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cas_out = cascade(list(PROMPTS[:SERVE_CAS_BATCH]))
+    cas_ms = (time.perf_counter() - t) * 1000
+    got = tuple(fn.launches for fn in counted)
+    require(got == (2 * STEPS, 2 * steps_k2, 0, 0), f"the cascade batch launched K1, K2, K4, K3 {got}")
+    require(is_u8(cas_out, (SERVE_CAS_BATCH, SR_IMAGE, SR_IMAGE, 3)), "cascade pipeline output")
+    del cascade, cas_out
+
+    # -- (d) the HTTP server
+    server = GenerateServer(pipe, host="127.0.0.1", port=0, max_wait_ms=50.0, warmup="all")
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+
+    def http(path, payload=None):
+        req = urllib.request.Request(
+            url + path, data=None if payload is None else json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"}, method="GET" if payload is None else "POST",
+        )
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, body = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            status, body = e.code, json.loads(e.read())
+        return status, body, time.perf_counter() - t
+
+    def generate_request(i):
+        payload = {"prompts": [PROMPTS[i % len(PROMPTS)]]}
+        if i % 3 == 0:
+            payload["cond_scale"] = 2.0 if i % 2 else 5.0
+        if i % 4 == 0:
+            payload["negative_prompt"] = "blurry, low quality"
+        return http("/generate", payload)
+
+    try:
+        _, before, _ = http("/stats")
+        zero()
+        t = time.perf_counter()
+        with ThreadPoolExecutor(BURST_CLIENTS) as pool:
+            replies = list(pool.map(generate_request, range(BURST_REQUESTS)))
+        burst_s = time.perf_counter() - t
+        burst_launches = tuple(fn.launches for fn in counted)
+        _, after, _ = http("/stats")
+        pngs = [r[1]["images"] for r in replies if r[0] == 200]
+        edit_payload = {
+            "prompts": list(PROMPTS[:2]),
+            "images": [base64.b64encode(encode_png(im)).decode() for im in src.numpy()[:2]],
+            "masks": [base64.b64encode(encode_png(m)).decode() for m in mask[:2].cpu().numpy().astype(np.uint8) * 255],
+        }
+        edit_status, edit_body, edit_s = http("/edit", edit_payload)
+        health_status, health, _ = http("/healthz")
+        stats_status, final, _ = http("/stats")
+    finally:
+        server.stop()
+    statuses = [r[0] for r in replies]
+    require(statuses.count(200) == BURST_REQUESTS, f"burst replies {sorted(set(statuses))}, errors {[r[1] for r in replies if r[0] != 200][:2]}")
+    require(all(len(p) == 1 for p in pngs), "a reply without exactly one image")
+    for b64 in [p[0] for p in pngs] + (edit_body.get("images") or []):
+        require(decode_png(base64.b64decode(b64)).shape == (IMAGE, IMAGE, 3), "a reply's PNG is not an RGB image of the model's size")
+    require(edit_status == 200 and len(edit_body["images"]) == 2, f"/edit replied {edit_status}: {edit_body}")
+    require(health_status == 200 and health["ok"] and set(health["warm_surfaces"]) == set(pipe.WARMUP_SURFACES), f"/healthz {health}")
+    require(stats_status == 200, "/stats")
+    batches = after["batches"] - before["batches"]
+    coalesced = after["coalesced_batches"] - before["coalesced_batches"]
+    require(coalesced > 0, "the server coalesced no requests")
+    require(
+        after["backend_compiles"] == before["backend_compiles"] == final["backend_compiles"],
+        f"kernel builds or loads during the traffic: {before['backend_compiles']} -> {final['backend_compiles']}",
+    )
+    want = tuple(n * batches for n in per_batch)
+    require(burst_launches == want, f"the burst's {batches} batches launched K1, K2, K4, K3 {burst_launches}, expected {want}")
+    for tag, n in zip(launches, burst_launches):
+        launches[tag] += n
+    latency = sorted(r[2] * 1000 for r in replies)
+    p50, p95 = statistics.median(latency), statistics.quantiles(latency, n=20)[18]
+    fill = (after["images"] - before["images"]) / batches
+    burst_img_s = BURST_REQUESTS / burst_s
+    # the pipeline's own seconds a batch during the burst (T5 excluded)
+    burst_batch_ms = (after["pipeline"]["generate_seconds"] - before["pipeline"]["generate_seconds"]) / batches * 1000
+
+    ctx["serving"] = dict(
+        checkpoint=dict(bytes=file_bytes, save_s=t_save, manifest_s=t_manifest, load_s=t_load),
+        pipeline=dict(
+            batch=SERVE_BATCH, img_s=pipe_img_s, call_ms=[c["ms"] for c in calls], t5_share=t5_share,
+            fetch_share=fetch_share, warmup_s=warmup_s, per_row_call_ms=per_row_ms, bare_generate_ms=bare_ms,
+            edit_ms=edit_ms,
+        ),
+        cascade=dict(batch=SERVE_CAS_BATCH, ms=cas_ms, img_s=SERVE_CAS_BATCH / cas_ms * 1000),
+        server=dict(
+            requests=BURST_REQUESTS, clients=BURST_CLIENTS, img_s=burst_img_s, p50_ms=p50, p95_ms=p95,
+            batches=batches, coalesced_batches=coalesced, avg_batch_fill=fill, edit_ms=edit_s * 1000,
+            batch_ms=burst_batch_ms,
+        ),
+    )
+    ctx["serving_launches"] = launches
+    for tag, n in zip(("k1", "k2", "k4", "k3"), per_batch):
+        ctx[tag]["launches_per_serving_batch"] = n
+    call_s = ", ".join(f"{c['ms']:.1f}" for c in calls)
+    log(
+        f"[serving] {ckpt_s} | pipeline b{SERVE_BATCH} T{STEPS} cfg{CFG:g} text_len {TEXT_LEN}: warmup all "
+        f"{t_warm:.2f} s ({warm_s}); {len(prompts)} prompts {pipe_img_s:.3f} img/s (median of {call_s} ms a call), T5 {t5_share:.1%} and uint8 fetch "
+        f"{fetch_share:.1%} of a call (CUDA events), the model's own b{SERVE_BATCH} request from embeddings to "
+        f"uint8 on the host {bare_ms:.1f} ms (median of 3); K1 +{per_batch[0]}, K2 +{per_batch[1]}, K4 +0, K3 +0 a batch; "
+        f"per-row scales and negatives b{SERVE_BATCH} {per_row_ms:.1f} ms; edit 4 images {edit_ms:.1f} ms, known "
+        f"tokens kept | cascade pipeline b{SERVE_CAS_BATCH} cond_via=ids: {cas_ms:.1f} ms, "
+        f"{SERVE_CAS_BATCH / cas_ms * 1000:.3f} img/s, {(SERVE_CAS_BATCH, SR_IMAGE, SR_IMAGE, 3)} uint8 | server max_wait 50 ms: "
+        f"{BURST_REQUESTS} requests from {BURST_CLIENTS} clients, all 200, {burst_img_s:.3f} img/s over the burst "
+        f"({burst_s:.2f} s), latency p50 {p50:.1f} ms p95 {p95:.1f} ms, {batches} batches ({coalesced} coalesced), "
+        f"average fill {fill:.2f}, {burst_batch_ms:.1f} ms of pipeline time a batch, backend_compiles flat at {final['backend_compiles']}; /edit of 2 images "
+        f"{edit_s * 1000:.1f} ms; PNGs {IMAGE} x {IMAGE} RGB by the port's decoder | {ctx['smi']}"
     )
 
 
@@ -1539,7 +1879,7 @@ def main(argv=None) -> int:
         ctx["k4_per_request"] + ctx["k4_per_encode"] + ctx["cascade_per_request"]["k4"]
     )
     for tag in ("k1", "k2", "k4", "k3"):
-        ctx[tag]["launches"] += ctx["cascade_launches"][tag] + ctx["surface_launches"][tag]
+        ctx[tag]["launches"] += ctx["cascade_launches"][tag] + ctx["surface_launches"][tag] + ctx["serving_launches"][tag]
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
     rows = [
         ("k1", "fused_topk_gumbel_sample", "sampling_kernel.cu", "sampling_kernel.py:57"),
@@ -1549,7 +1889,7 @@ def main(argv=None) -> int:
     ]
     keys = (
         "launches", "launches_per_request", "launches_per_cascade_request", "launches_per_surface_request",
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "launches_per_serving_batch", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
     )
     kernels = [
         dict(
@@ -1564,7 +1904,7 @@ def main(argv=None) -> int:
         json.dumps(
             {
                 "cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"], "surfaces": ctx["surfaces"],
-                "vaes_share_weights_ms": ctx["vaes_share_weights_ms"],
+                "vaes_share_weights_ms": ctx["vaes_share_weights_ms"], "serving": ctx["serving"],
             }
         ),
         flush=True,

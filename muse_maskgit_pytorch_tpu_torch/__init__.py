@@ -8,7 +8,10 @@ as pixels or as token ids, with every sampling surface of the JAX package:
 guidance ramps and per-row scales, negative prompts, any resolution, token
 critics, editing and re-ranking), and the VQ-GAN tokenizer's inference
 (`VQGanVAE.encode` to token ids and `decode_from_ids` back, with the LFQ,
-EMA-VQ and FSQ quantizers). Their four hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`,
+EMA-VQ and FSQ quantizers); serving (`GeneratePipeline`, `GenerateServer`)
+and module checkpoints in the JAX package's file format, read and written
+without JAX (`MaskGit.load` / `save`, `utils.checkpoint`). Their four
+hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`,
 `ops.vq`) are built from `csrc/` on first use. The public modules below take
 `device=` and are built on the GPU ("cuda") unless the caller asks for the
 CPU. See ROADMAP.md for what is still to come.
@@ -30,3 +33,5 @@ from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
     vaes_share_weights,
 )
 from muse_maskgit_pytorch_tpu_torch.utils.from_jax import load_jax_state  # noqa: F401
+from muse_maskgit_pytorch_tpu_torch.serving import GeneratePipeline  # noqa: F401
+from muse_maskgit_pytorch_tpu_torch.serving_http import GenerateServer  # noqa: F401

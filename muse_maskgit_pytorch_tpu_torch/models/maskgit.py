@@ -168,6 +168,33 @@ class MaskGit(nn.Module):
         self.no_mask_token_prob = no_mask_token_prob
         self.to(device)  # the transformer, critic and VAE clones, too
 
+    @property
+    def jax_unshared_children(self) -> Tuple[str, ...]:
+        """For `utils.from_jax.to_jax_state`: given both `vae` and
+        `cond_vae`, the JAX `MaskGit` holds an eval clone of each, where the
+        port keeps one object when they were one."""
+        return ("vae",) if self.has_separate_cond_vae else ()
+
+    # -- persistence: the JAX package's msgpack file (`utils.checkpoint`) ----
+
+    def save(self, path) -> None:
+        """Write the whole model, its VAE clones included, as a file the
+        JAX package's `MaskGit.load` reads."""
+        from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import save_module
+
+        save_module(self, path)
+
+    def load(self, path) -> List[str]:
+        """Load a file of either package's `MaskGit.save` in place; returns
+        the leaves that the port has no place for. The file's VAE weights
+        land in the model's own frozen clones (the VAE the model was built
+        from is left as it was); two stages loaded from files that hold one
+        VAE's weights hold equal clones, which `vaes_share_weights` (and so
+        `cond_via="auto"`) recognises by value."""
+        from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import load_module
+
+        return load_module(self, path)
+
     def _fmap_hw(self, fmap_size, image_size) -> Tuple[int, int]:
         if image_size is not None:
             if fmap_size is not None:

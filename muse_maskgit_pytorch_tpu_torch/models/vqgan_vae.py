@@ -14,7 +14,7 @@ The discriminator, the VGG tower and the GAN losses are not ported yet
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -216,6 +216,22 @@ class VQGanVAE(nn.Module):
     @property
     def encoded_dim(self) -> int:
         return self.enc_dec.encoded_dim
+
+    # -- persistence: the JAX package's msgpack file (`utils.checkpoint`) ----
+
+    def save(self, path) -> None:
+        """Write a file the JAX package's `VQGanVAE.load` reads (the VGG
+        tower is never saved, as in the JAX package)."""
+        from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import save_module
+
+        save_module(self, path, exclude=("_vgg",))
+
+    def load(self, path) -> List[str]:
+        """Load a file of either package's `VQGanVAE.save`; returns the
+        leaves that the port has no place for (a discriminator's)."""
+        from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import load_module
+
+        return load_module(self, path, exclude=("_vgg",))
 
     def get_encoded_fmap_size(self, image_size: int) -> int:
         return self.enc_dec.get_encoded_fmap_size(image_size)

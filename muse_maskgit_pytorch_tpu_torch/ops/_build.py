@@ -28,6 +28,22 @@ _BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc builds and library loads in this process (`compile_events`)
+_events_lock = threading.Lock()
+_events = 0
+
+
+def _count_event() -> None:
+    global _events
+    with _events_lock:
+        _events += 1
+
+
+def compile_events() -> int:
+    """How many kernel libraries this process has built with nvcc or
+    loaded: what stands in for an XLA compile when a server takes traffic
+    (`serving.backend_compile_count`). A warmed server's count stays flat."""
+    return _events
 
 
 def _nvcc() -> str:
@@ -60,6 +76,7 @@ def build(name: str, extra_flags: Sequence[str] = ()) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
+    _count_event()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -77,6 +94,7 @@ def load(name: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build(name, extra_flags)))
             _libs[name] = lib
+            _count_event()
         return lib
 
 

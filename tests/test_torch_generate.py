@@ -7,6 +7,7 @@ in both packages). The token grids must be identical; the decoded images
 agree to 1e-4 (f32).
 """
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -189,11 +190,29 @@ def test_port_imports_no_jax():
     )
     assert "muse_maskgit_pytorch_tpu_torch.models.t5" in modules
     assert "muse_maskgit_pytorch_tpu_torch.utils.images" in modules
+    for serving in ("serving", "serving_http", "utils.checkpoint", "utils.msgpack_codec", "utils.png"):
+        assert f"muse_maskgit_pytorch_tpu_torch.{serving}" in modules
+    banned = ("jax", "flax", "msgpack", "PIL", "muse_maskgit_pytorch_tpu")
     code = (
         f"import sys, importlib, muse_maskgit_pytorch_tpu_torch; [importlib.import_module(m) for m in {modules!r}]; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'muse_maskgit_pytorch_tpu')]; "
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {banned!r}]; "
         "assert not bad, bad"
     )
     subprocess.run(
         [sys.executable, "-c", code], check=True, timeout=120, cwd=ROOT
     )
+    # nor inside a function: every import statement of the port and of
+    # chip_smoke.py, but Pillow's where images become PIL images on request
+    lazy_pil = {"utils/images.py", "serving.py"}
+    for path in [*(ROOT / "muse_maskgit_pytorch_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                rel = path.relative_to(ROOT / "muse_maskgit_pytorch_tpu_torch").as_posix() if path.name != "chip_smoke.py" else ""
+                assert top not in banned or (top == "PIL" and rel in lazy_pil), f"{path.name} imports {name}"
