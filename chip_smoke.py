@@ -65,8 +65,8 @@ from pathlib import Path
 # has run in a process, every later launch costs the host more, and the
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
-    "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "cascade",
-    "profile",
+    "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
+    "cascade", "profile",
 )
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "vq_search", "flash_attention")
 
@@ -82,6 +82,11 @@ CAS_BATCH, SR_SEQ, SR_IMAGE, COND_TOKENS = 16, 1024, 512, 256
 SURF_BATCH, SURF_CAS_BATCH, NEG_TEXT_LEN = 8, 4, 16
 # serving: the pipeline's batch, the cascade pipeline's, the server's burst
 SERVE_BATCH, SERVE_CAS_BATCH, BURST_REQUESTS, BURST_CLIENTS = 16, 8, 48, 16
+# training (`bench_sweep.py`'s exp_train_mfu): batch, timed steps after the
+# warm-up, the learning rate and its warmup; the memorisation and resume
+# checks' depth and rate
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM, TRAIN_LR, TRAIN_WARMUP = 64, 10, 2, 1e-4, 2
+SMALL_DEPTH, SMALL_LR = 2, 1e-3
 # 57-63 bytes each: with the end token, a T5 length of 64, so 64 + 256 cross-attention keys
 PROMPTS = (
     "a watercolor painting of a lighthouse on a cliff at sunrise",
@@ -554,16 +559,14 @@ def phase_k2(torch, ctx):
         name: dict(shape=list(shapes[name][:3]), max_abs_err=errs[(name, torch.bfloat16)], **t)
         for name, t in (sr_times | surf_times).items()
     }
-    # K2 has no backward yet: inputs that need a gradient are refused (no
-    # output without a graph), under no_grad they run
+    # inputs that need a gradient go through the autograd Function (K2
+    # forward, backward through the plain version); under no_grad K2 runs
+    # alone and keeps no graph (`[train]` checks the gradients)
     (q, *rest), _ = inputs(2, 70, 70, torch.bfloat16)
-    try:
-        qknorm_attend(q.detach().requires_grad_(), *rest)
-        raise AssertionError("K2 took an input that needs a gradient")
-    except RuntimeError as e:
-        require("no backward" in str(e), f"K2 refused a gradient input with {e}")
+    out = qknorm_attend(q.detach().requires_grad_(), *rest)
+    require(type(out.grad_fn).__name__ == "_QKNormAttentionBackward", f"K2 with a gradient: {out.grad_fn}")
     with torch.no_grad():
-        qknorm_attend(q.detach().requires_grad_(), *rest)
+        require(qknorm_attend(q.detach().requires_grad_(), *rest).grad_fn is None, "K2 under no_grad kept a graph")
     # the wrapper turns the bool key mask into an f32 bias on every call
     # (inside each masked time above): its own device time at the super-res shape
     sr_key_mask = sr_mask(2 * CAS_BATCH, TEXT_LEN)
@@ -593,7 +596,7 @@ def phase_k2(torch, ctx):
         f"negative half's keys {NEG_TEXT_LEN}..63 off, {line(surf_times['surf_neg_cross'])}; super-res self "
         f"(8,1536,8,64) {line(surf_times['surf_sr_self_1536'])} (the SDPA beside a masked shape runs without the "
         f"mask; each masked time holds the wrapper's mask -> bias conversion, {bias_ms:.4f} ms at (32, 320)); "
-        f"inputs that need a gradient raise (no backward yet)"
+        f"inputs that need a gradient take the autograd route (its gradients: [train])"
     )
 
 
@@ -746,16 +749,16 @@ def phase_k4(torch, ctx):
     )
 
 
-def build_models(torch, dtype=None, with_vae=True, seed=0):
+def build_models(torch, dtype=None, with_vae=True, seed=0, self_cond=False, depth=DEPTH):
     """The main path's MaskGit, random weights from `seed` (bf16 compute
-    unless `dtype` says otherwise)."""
+    unless `dtype` says otherwise; training turns `self_cond` on)."""
     from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE
 
     gen = torch.Generator().manual_seed(seed)
     vae = VQGanVAE(dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, generator=gen) if with_vae else None
     transformer = MaskGitTransformer(
-        num_tokens=VOCAB, dim=DIM, seq_len=SEQ, depth=DEPTH, dim_head=DIM_HEAD, heads=HEADS,
-        text_embed_dim=TEXT_DIM, dtype=dtype or torch.bfloat16, generator=gen,
+        num_tokens=VOCAB, dim=DIM, seq_len=SEQ, depth=depth, dim_head=DIM_HEAD, heads=HEADS,
+        text_embed_dim=TEXT_DIM, dtype=dtype or torch.bfloat16, generator=gen, self_cond=self_cond,
     )
     return MaskGit(image_size=IMAGE, transformer=transformer, vae=vae).eval()
 
@@ -910,6 +913,56 @@ def phase_profile(torch, ctx):
         f"[profile] generate b{BATCH} T{STEPS} cfg{CFG:g}: device {device_ms:.1f} ms in a request of "
         f"{host_ms:.1f} ms ({device_ms / host_ms:.1%} busy); K2 {k2_ms:.2f} ms x{k2_n}, K1 {k1_ms:.2f} ms "
         f"x{k1_n}; top kernels: {top} | {ctx['smi']}"
+    )
+    if "trainer" in ctx:
+        profile_train_step(torch, ctx)
+
+
+def profile_train_step(torch, ctx):
+    """One bf16 train step of `[train]`'s trainer under torch.profiler:
+    device time in all, by kernel, and under the autograd node of K2's
+    backward (its recompute through the plain version)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, batch = ctx["trainer"], ctx["train_batch"]
+    trainer.train_step_arrays(*batch)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_step_arrays(*batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1000
+    averages = prof.key_averages()
+    # the kernels' rows only: with CPU events on, an op's row holds its kernels' time too
+    rows = sorted(
+        ((getattr(e, "self_device_time_total", 0) / 1000, e.count, e.key) for e in averages
+         if str(getattr(e, "device_type", "")).endswith("CUDA") and getattr(e, "self_device_time_total", 0) > 0),
+        reverse=True,
+    )
+    if not rows:
+        log(f"[profile] train step: the profiler saw no device time: not measured | {ctx['smi']}")
+        return
+    device_ms = sum(r[0] for r in rows)
+    k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
+    bwd = [e for e in averages if "_QKNormAttentionBackward" in e.key]
+    bwd_us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) for e in bwd)
+    bwd_s = f"{bwd_us / 1000:.1f} ms ({bwd_us / 1000 / device_ms:.1%})" if bwd_us else "not measured"
+    # the kernels launched under K2's backward nodes, by name
+    under: dict = {}
+    stack = [e for e in prof.events() if "evaluate_function" in e.name and "_QKNormAttentionBackward" in e.name]
+    while stack:
+        e = stack.pop()
+        for k in e.kernels:
+            under[k.name] = under.get(k.name, 0.0) + k.duration / 1000
+        stack.extend(e.cpu_children)
+    under_s = "; ".join(f"{ms:.2f} ms {name[:60]}" for name, ms in sorted(under.items(), key=lambda kv: -kv[1])[:8])
+    top = "; ".join(f"{ms:.2f} ms x{n} {name[:70]}" for ms, n, name in rows[:12])
+    ctx["train"]["profile"] = dict(device_ms=device_ms, host_ms=host_ms, k2_fwd_ms=k2_ms, attn_bwd_ms=bwd_us / 1000)
+    log(
+        f"[profile] train step b{TRAIN_BATCH}: device {device_ms:.1f} ms in a step of {host_ms:.1f} ms "
+        f"({device_ms / host_ms:.1%} busy); K2 forward {k2_ms:.2f} ms x{k2_n}; K2's backward (plain recompute, "
+        f"autograd node) {bwd_s}, by kernel: {under_s or 'not measured'}; top kernels of the step: {top} | "
+        f"{ctx['smi']}"
     )
 
 
@@ -1700,6 +1753,355 @@ def phase_serving(torch, ctx):
     )
 
 
+def phase_train(torch, ctx):
+    """MaskGit training at `bench_sweep.py`'s exp_train_mfu width: the ids
+    path, batch 64, seq 256, text 64 x 768, dim 512, depth 8, 8 x 64 heads,
+    vocab 65536, bf16, self-conditioning on, EMA on, one micro-batch a step.
+
+    (a) K2 under the gradient at the train shapes, self (64, 256, 8, 64) x
+        256 keys and cross x 64 text keys with a CFG-dropped row, f32 and
+        bf16: the K2 route's forward output against `qknorm_attend_plain`
+        (1e-4 f32, K2_BF16_FROM_F32 bf16; bf16 also against the TPU-rounding
+        form within BF16_VS_ROUNDED; the dropped row gives null_v), and its
+        gradients of every input against autograd through the plain version.
+        Both sides of that gradient comparison run the same backward (the
+        vjp of the plain version), so it checks the route, not a kernel.
+        Forward + backward ms per call (CUDA events) beside SDPA's on the
+        normalised inputs (the attention core only).
+    (b) one f32 `MaskGit.forward` + backward with the kernels and under
+        `plain_path()`, on the same draws: losses to 1e-4 relative, each
+        gradient leaf to 1e-3 of its largest |g|.
+    (c) `MaskGitTrainer` in bf16 (lr 1e-4, warmup 2, EMA on; the model
+        holds the VAE clone for (e) and never runs it): 2 warm-up steps, 10
+        timed steps, launches per step (K2 16, or 32 with the
+        self-conditioning pass; K1 = K3 = K4 = 0), ms/step, img/s, MFU
+        (`maskgit_train_flops` / step / 989e12), peak memory; then a
+        memorisation check at depth 2, lr 1e-3, one batch for 8 steps.
+    (d) resume on the card at depth 2: 2 steps, save, a new trainer with
+        `auto_resume`, 2 steps, against 4 straight steps; then the EMA model
+        through `save_module` -> `load_module` into a fresh MaskGit gives
+        equal logits.
+    (e) `save_sample_results` of 4 prompts (T18, CFG 3) to a PNG, and
+        `train_from_shards` for 2 steps from 2 shards with captions written
+        on the spot.
+    """
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from muse_maskgit_pytorch_tpu_torch.models.maskgit import TrainDraws
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import (
+        BF16_VS_ROUNDED,
+        K2_BF16_FROM_F32,
+        attend,
+        qknorm_attend,
+        qknorm_attend_plain,
+    )
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+    from muse_maskgit_pytorch_tpu_torch.training import MaskGitTrainer, write_shard
+    from muse_maskgit_pytorch_tpu_torch.utils import checkpoint
+    from muse_maskgit_pytorch_tpu_torch.utils.metrics import H100_BF16_PEAK_FLOPS, maskgit_train_flops
+    from muse_maskgit_pytorch_tpu_torch.utils.png import decode_png
+
+    dev = "cuda"
+    t_phase = time.perf_counter()
+    counted = dict(k1=fused_topk_gumbel_sample, k2=qknorm_attend, k3=nearest_code, k4=attend)
+    g = torch.Generator(device=dev).manual_seed(8)
+    hd = HEADS * DIM_HEAD
+
+    # -- (a) K2 under the gradient at the train shapes
+    def grad_inputs(b, n, m, dtype, dropped):
+        q = torch.randn(b, n, hd, generator=g, device=dev).to(dtype).reshape(b, n, HEADS, DIM_HEAD)
+        kv = torch.randn(b, m, 2 * hd, generator=g, device=dev).to(dtype)
+        k, v = (t.reshape(b, m, HEADS, DIM_HEAD) for t in kv.chunk(2, dim=-1))  # views of one to_kv output
+        nk, nv = (torch.randn(HEADS, DIM_HEAD, generator=g, device=dev).to(dtype) for _ in range(2))
+        qs, ks = (1 + 0.1 * torch.randn(DIM_HEAD, generator=g, device=dev) for _ in range(2))
+        mask = None
+        if dropped:
+            mask = torch.ones(b, m, dtype=torch.bool, device=dev)
+            mask[0] = False  # a CFG-dropped row: the null position only
+        cot = torch.randn(b, n, HEADS, DIM_HEAD, generator=g, device=dev).to(dtype)
+        return [q, k, v, nk, nv, qs, ks], mask, cot
+
+    def fwd_bwd(fn, args, mask, cot, **kw):
+        leaves = [t.detach().requires_grad_() for t in args]
+        out = fn(*leaves, mask=mask, **kw)
+        return out, torch.autograd.grad(out, leaves, cot)
+
+    def rel_err(got, want):
+        return max((a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30) for a, b in zip(got, want))
+
+    grad_shapes = {"self": (TRAIN_BATCH, SEQ, SEQ, False), "cross": (TRAIN_BATCH, SEQ, TEXT_LEN, True)}
+    grad_errs, grad_times = {}, {}
+    for name, (b, n, m, dropped) in grad_shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args, mask, cot = grad_inputs(b, n, m, dtype, dropped)
+            before = qknorm_attend.launches
+            out, got = fwd_bwd(qknorm_attend, args, mask, cot)
+            require(qknorm_attend.launches == before + 1, "K2's gradient route did not launch K2 once")
+            ref, want = fwd_bwd(qknorm_attend_plain, args, mask, cot)
+            torch.cuda.synchronize()
+            # K2's forward at the train shapes, with the limits of `[k2]`
+            tol = 1e-4 if dtype == torch.float32 else K2_BF16_FROM_F32
+            out_err = (out.float() - ref.float()).abs().max().item()
+            require(math.isfinite(out_err) and out_err <= tol, f"K2 forward {name} {dtype}: max abs err {out_err:.3g} > {tol:g}")
+            if dropped:
+                null_err = (out[0].float() - args[4].float()[None, None]).abs().max().item()
+                require(null_err <= tol, f"K2 forward {name} {dtype}: the dropped row is {null_err:.3g} from null_v")
+            # the same backward on both sides: this checks the route only
+            err = rel_err(got, want)
+            require(math.isfinite(err) and err <= 1e-4, f"K2 gradient {name} {dtype}: {err:.3g} of max |g| > 1e-4")
+            errs = {"fwd vs plain": out_err, "grads vs plain": err}
+            if dtype == torch.bfloat16:
+                rounded_out, rounded = fwd_bwd(qknorm_attend_plain, args, mask, cot, round_to=torch.bfloat16)
+                rout = (out.float() - rounded_out.float()).abs().max().item()
+                require(rout <= BF16_VS_ROUNDED, f"K2 forward {name} bf16 vs the TPU-rounding plain: {rout:.3g}")
+                rerr = rel_err(got, rounded)
+                require(rerr <= BF16_VS_ROUNDED, f"K2 gradient {name} bf16 vs the TPU-rounding plain: {rerr:.3g}")
+                errs.update({"fwd vs rounded": rout, "grads vs rounded": rerr})
+            grad_errs[(name, dtype)] = errs
+            keys_on = float(mask.sum()) if mask is not None else b * m
+            flop = 12.0 * HEADS * n * keys_on * DIM_HEAD  # QK^T and PV forward; dV, dP, dQ, dK backward
+            moved = nbytes(*args, mask, cot) + 2 * nbytes(args[0]) + nbytes(*args[1:3])  # + out, dq, dk, dv
+            bound_ms, bound_by = bound(flop, moved, PEAK_BF16_TC if dtype == torch.bfloat16 else PEAK_F32)
+            leaves = [t.detach().requires_grad_() for t in args]
+            # SDPA forward + backward on the normalised inputs with the null
+            # key and value in front: the attention core only
+            qn, kn, nkn = (t.float() / t.float().norm(dim=-1, keepdim=True) for t in (args[0], args[1], args[3]))
+            qn = (qn * args[5] * 8.0).to(dtype).transpose(1, 2).detach().requires_grad_()
+            kn = torch.cat([nkn.expand(b, 1, HEADS, DIM_HEAD), kn * args[6]], 1).to(dtype).transpose(1, 2)
+            vn = torch.cat([args[4].expand(b, 1, HEADS, DIM_HEAD), args[2]], 1).transpose(1, 2)
+            kn, vn = kn.detach().requires_grad_(), vn.detach().requires_grad_()
+            sdpa_cot = cot.transpose(1, 2)
+
+            def sdpa_step():
+                o = torch.nn.functional.scaled_dot_product_attention(qn, kn, vn, scale=1.0)
+                torch.autograd.grad(o, (qn, kn, vn), sdpa_cot)
+
+            grad_times[(name, dtype)] = dict(
+                ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend(*leaves, mask=mask), leaves, cot), iters=20),
+                fwd_ms=graph_ms(lambda: qknorm_attend(*args, mask=mask)),
+                plain_ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend_plain(*leaves, mask=mask), leaves, cot), iters=10),
+                library_ms=cuda_ms(sdpa_step, iters=20),
+                bound_ms=bound_ms, bound_by=bound_by,
+            )
+            del args, leaves, qn, kn, vn, out, ref, got, want
+    bf = torch.bfloat16
+
+    def tline(name, dtype):
+        t, e = grad_times[(name, dtype)], grad_errs[(name, dtype)]
+        errs = ", ".join(f"{k} {v:.2g}" for k, v in e.items())
+        return (
+            f"{str(dtype)[6:]} {t['ms']:.4f} ms fwd+bwd (eager) vs plain {t['plain_ms']:.4f}, SDPA fwd+bwd "
+            f"{t['library_ms']:.4f} (core only), bound {t['bound_ms']:.4f} ({t['bound_by']}); K2 forward alone "
+            f"{t['fwd_ms']:.4f} ms (graph replay); {errs}"
+        )
+
+    log(
+        f"[train] K2 under the gradient ok (route: K2 forward, backward = vjp of the plain version; forward errors "
+        f"max abs, gradient errors relative to each input's max |g|; the gradients run the same backward on both "
+        f"sides, so they check the route, not a kernel): self (64,256,8,64)x256 {tline('self', torch.float32)}; "
+        f"{tline('self', bf)} | cross (64,256|64) with a dropped row (null_v) {tline('cross', torch.float32)}; "
+        f"{tline('cross', bf)} | {ctx['smi']}"
+    )
+
+    # -- (b) one f32 step on both routes, the same draws
+    gcpu = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, VOCAB, (TRAIN_BATCH, SEQ), generator=g, device=dev)
+    te = torch.randn(TRAIN_BATCH, TEXT_LEN, TEXT_DIM, generator=g, device=dev)
+    tm = torch.arange(TEXT_LEN, device=dev)[None] < torch.randint(8, TEXT_LEN + 1, (TRAIN_BATCH, 1), generator=g, device=dev)
+    te = te * tm[..., None]
+    model32 = build_models(torch, dtype=torch.float32, with_vae=False, self_cond=True)
+    while True:  # draws that take the self-conditioning pass and drop some rows' text
+        draws = TrainDraws.draw(TRAIN_BATCH, SEQ, VOCAB, critic=False, generator=gcpu, device=dev)
+        if float(draws.self_cond_u) < model32.self_cond_prob:
+            break
+    trainable = [p for p in model32.parameters() if p.requires_grad]
+
+    def loss_and_grads():
+        for p in trainable:
+            p.grad = None
+        loss = model32(ids, text_embeds=te, text_mask=tm, draws=draws)
+        loss.backward()
+        return loss.item(), [p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p) for p in trainable]
+
+    before = qknorm_attend.launches
+    loss_k, grads_k = loss_and_grads()
+    k2_f32 = qknorm_attend.launches - before
+    with plain_path():
+        loss_p, grads_p = loss_and_grads()
+    leaf_err = max(
+        (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(grads_k, grads_p)
+    )
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    require(k2_f32 == 2 * 2 * DEPTH, f"the f32 step launched K2 {k2_f32} times, expected {4 * DEPTH}")
+    require(loss_rel <= 1e-4, f"f32 step: kernel loss {loss_k} vs plain {loss_p}")
+    require(leaf_err <= 1e-3, f"f32 step: a gradient leaf differs by {leaf_err:.3g} of its max")
+    kept = int((draws.keep_u >= model32.cond_drop_prob).sum())
+    log(
+        f"[train] f32 step, kernels vs plain on the same draws ({kept}/{TRAIN_BATCH} rows keep their text, "
+        f"self-conditioning on, K2 +{k2_f32}): loss {loss_k:.6f} vs {loss_p:.6f} ({loss_rel:.2g} relative), "
+        f"gradients within {leaf_err:.2g} of each leaf's max over {len(trainable)} leaves"
+    )
+    del model32, trainable, grads_k, grads_p, draws
+
+    # -- (c) the bf16 trainer at full width
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=scratch))
+    batch = (ids[None], te[None], tm[None])
+    t0 = time.perf_counter()
+    model = build_models(torch, self_cond=True)
+    trainer = MaskGitTrainer(
+        model, num_train_steps=10**6, batch_size=TRAIN_BATCH, lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+        results_folder=str(tmp / "bf16"), save_model_every=10**9, sample_texts=list(PROMPTS[:4]),
+        sample_kwargs=dict(timesteps=STEPS, cond_scale=CFG),
+    )
+    t_build = time.perf_counter() - t0
+    logs = [trainer.train_step_arrays(*batch) for _ in range(TRAIN_WARM)]
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    per_step = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        before = {k: fn.launches for k, fn in counted.items()}
+        logs.append(trainer.train_step_arrays(*batch))
+        per_step.append({k: fn.launches - before[k] for k, fn in counted.items()})
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    train_launches = {k: fn.launches for k, fn in counted.items()}
+    losses = [l["loss"] for l in logs]
+    norms = [l["grad_norm"] for l in logs]
+    require(all(math.isfinite(x) for x in losses + norms), f"non-finite losses {losses} or grad norms {norms}")
+    k2_steps = [s["k2"] for s in per_step]
+    require(all(n in (2 * DEPTH, 4 * DEPTH) for n in k2_steps), f"K2 launches per step {k2_steps}")
+    for k in ("k1", "k3", "k4"):
+        require(all(s[k] == 0 for s in per_step), f"{k.upper()} launched in a train step: {per_step}")
+    require(logs[0]["lr"] == 0.0, f"the first step's lr is {logs[0]['lr']}, not 0 under the warmup")
+    flops = maskgit_train_flops(
+        batch=TRAIN_BATCH, seq_len=SEQ, text_len=TEXT_LEN, dim=DIM, depth=DEPTH, vocab=VOCAB, self_cond=True
+    )
+    mfu = flops / step_s / H100_BF16_PEAK_FLOPS
+    lrs = ", ".join(f"{x.get('lr', TRAIN_LR):.2e}" for x in logs[:4])
+    log(
+        f"[train] MaskGitTrainer bf16 b{TRAIN_BATCH} seq {SEQ} text {TEXT_LEN}x{TEXT_DIM} dim {DIM} depth {DEPTH} "
+        f"vocab {VOCAB}, self-cond, EMA: {step_s * 1000:.2f} ms/step over {TRAIN_STEPS} steps after {TRAIN_WARM}, "
+        f"{TRAIN_BATCH / step_s:.2f} img/s, MFU {mfu:.2%} ({flops / 1e12:.3f} TFLOP a step at self-cond 0.9), peak "
+        f"{peak_gib:.2f} GiB | launches per step K2 {k2_steps}, K1 = K3 = K4 = 0 | loss "
+        f"{', '.join(f'{x:.4f}' for x in losses)} | grad norm {', '.join(f'{x:.3f}' for x in norms)} | lr "
+        f"{lrs}, ... | {ctx['smi']} | built {t_build:.1f}s"
+    )
+
+    # memorisation: one fixed batch at depth 2, lr 1e-3
+    small = MaskGitTrainer(
+        build_models(torch, with_vae=False, seed=2, self_cond=True, depth=SMALL_DEPTH), num_train_steps=10**6,
+        batch_size=TRAIN_BATCH, lr=SMALL_LR, results_folder=str(tmp / "memo"), save_model_every=10**9,
+    )
+    mem = [small.train_step_arrays(*batch)["loss"] for _ in range(8)]
+    require(statistics.mean(mem[-3:]) < statistics.mean(mem[:3]), f"memorisation: losses did not fall {mem}")
+    del small
+
+    # -- (d) resume on the card
+    batches = [
+        (torch.randint(0, VOCAB, (1, TRAIN_BATCH, SEQ), generator=g, device=dev), te[None], tm[None]) for _ in range(4)
+    ]
+
+    def resume_trainer(folder, **kw):
+        return MaskGitTrainer(
+            build_models(torch, with_vae=False, seed=3, self_cond=True, depth=SMALL_DEPTH), num_train_steps=10**6,
+            batch_size=TRAIN_BATCH, lr=SMALL_LR, warmup_steps=1, results_folder=str(tmp / folder),
+            save_model_every=10**9, **kw,
+        )
+
+    straight = resume_trainer("straight")
+    want = [straight.train_step_arrays(*b)["loss"] for b in batches]
+    first = resume_trainer("resumed")
+    got = [first.train_step_arrays(*b)["loss"] for b in batches[:2]]
+    t0 = time.perf_counter()
+    first.save()
+    t_save = time.perf_counter() - t0
+    del first
+    t0 = time.perf_counter()
+    second = resume_trainer("resumed", auto_resume=True)
+    t_load = time.perf_counter() - t0
+    require(second.steps == 2, f"auto_resume found step {second.steps}")
+    got += [second.train_step_arrays(*b)["loss"] for b in batches[2:]]
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    diffs = [(a - b).abs() for a, b in zip(second.params + second.ema, straight.params + straight.ema)]
+    max_diff = max(d.max().item() for d in diffs)
+    share = sum(int((d <= 1e-6).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    # equal up to the order of the f32 atomic sums in the backward of the
+    # embeddings; Adam's first steps move a weight by about lr whatever its
+    # gradient, so a gradient at rounding level may move one entry that far
+    require(loss_diff <= 1e-5, f"resume: losses {got} vs straight {want}")
+    require(max_diff <= 2 * SMALL_LR * 4 and share >= 0.999, f"resume: params/EMA max diff {max_diff}, share {share}")
+    ema_model = second.maskgit_module(use_ema=True)
+    path = tmp / "ema.msgpack"
+    checkpoint.save_module(ema_model, path)
+    fresh = build_models(torch, with_vae=False, seed=4, self_cond=True, depth=SMALL_DEPTH)
+    require(checkpoint.load_module(fresh, path) == [], "the EMA checkpoint has leaves the model does not take")
+    with torch.no_grad():
+        x = batches[0][0][0]
+        same = torch.equal(ema_model.transformer(x, text_embeds=te, text_mask=tm), fresh.transformer(x, text_embeds=te, text_mask=tm))
+    require(same, "the EMA model loaded from its checkpoint gives other logits")
+    ckpt_mb = sum(f.stat().st_size for f in (tmp / "resumed" / "checkpoints").rglob("*") if f.is_file()) / 1e6
+    log(
+        f"[train] resume at depth {SMALL_DEPTH} (b{TRAIN_BATCH}, lr {SMALL_LR:g}): 2 + save + auto_resume + 2 steps vs "
+        f"4 straight: losses within {loss_diff:.2g} relative, params and EMA max diff {max_diff:.3g}, "
+        f"{share:.6f} of entries within 1e-6; train state {ckpt_mb:.1f} MB, save {t_save:.2f}s, resume {t_load:.2f}s | "
+        f"EMA model -> save_module -> load_module: equal logits | memorisation at depth {SMALL_DEPTH}, lr {SMALL_LR:g}, "
+        f"one batch: loss {', '.join(f'{x:.3f}' for x in mem)}"
+    )
+    del straight, second, ema_model, fresh
+
+    # -- (e) samples and shards on the bf16 trainer
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.save_sample_results()
+    t_sample = time.perf_counter() - t0
+    sample_k = {k: fn.launches for k, fn in counted.items()}
+    require((sample_k["k1"], sample_k["k2"]) == (STEPS, STEPS * DEPTH * 2), f"a render launched {sample_k}")
+    png = decode_png((tmp / "bf16" / f"maskgit.{trainer.steps}.png").read_bytes())
+    require(png.shape == (IMAGE + 4, 4 * (IMAGE + 2) + 2, 3), f"sample grid {png.shape}")
+    rs = np.random.RandomState(0)
+    shards = []
+    for i in range(2):
+        p = tmp / f"shard{i}.bin"
+        write_shard(p, rs.randint(0, VOCAB, (80, SEQ)).astype(np.int32), captions=[PROMPTS[(i + j) % 16] for j in range(80)], grid=(16, 16))
+        shards.append(p)
+    start = trainer.steps
+    trainer.num_train_steps = start + 2
+    shard_losses = []
+    t0 = time.perf_counter()
+    trainer.train_from_shards(shards, use_captions=True, log_fn=lambda l: shard_losses.append(l["loss"]))
+    t_shards = time.perf_counter() - t0
+    require(trainer.steps == start + 2 and all(math.isfinite(x) for x in shard_losses), f"shard steps {shard_losses}")
+    log(
+        f"[train] save_sample_results: 4 prompts T{STEPS} CFG {CFG:g} -> {png.shape} PNG in {t_sample:.2f}s (K1 "
+        f"+{sample_k['k1']}, K2 +{sample_k['k2']}) | train_from_shards: 2 steps from 2 shards of 80 x {SEQ} ids "
+        f"(grid 16x16, captions through T5) in {t_shards:.2f}s, loss {', '.join(f'{x:.4f}' for x in shard_losses)} | "
+        f"phase {time.perf_counter() - t_phase:.1f}s"
+    )
+    shutil.rmtree(tmp, ignore_errors=True)
+    for k, fn in counted.items():
+        ctx[k]["launches_per_train_step"] = [s[k] for s in per_step]
+    ctx["train_launches"] = train_launches
+    ctx["train"] = dict(
+        ms_per_step=step_s * 1000, img_s=TRAIN_BATCH / step_s, mfu=mfu, flops_per_step=flops, peak_gib=peak_gib,
+        losses=losses, grad_norms=norms, k2_launches_per_step=k2_steps,
+        k2_grad={f"{n}_{str(d)[6:]}": dict(grad_times[(n, d)], errs=grad_errs[(n, d)]) for n, d in grad_times},
+        f32_step=dict(loss_rel=loss_rel, leaf_err=leaf_err), resume=dict(loss_rel=loss_diff, max_diff=max_diff),
+        memorisation=mem, shard_losses=shard_losses,
+    )
+    ctx["trainer"], ctx["train_batch"] = trainer, batch
+
+
 def phase_cascade(torch, ctx):
     """texts -> 512px at batch 16: (a) the chain `bench.py` times, the base
     stage's token grid handed to the super-res stage, from text embeddings;
@@ -1879,7 +2281,10 @@ def main(argv=None) -> int:
         ctx["k4_per_request"] + ctx["k4_per_encode"] + ctx["cascade_per_request"]["k4"]
     )
     for tag in ("k1", "k2", "k4", "k3"):
-        ctx[tag]["launches"] += ctx["cascade_launches"][tag] + ctx["surface_launches"][tag] + ctx["serving_launches"][tag]
+        ctx[tag]["launches"] += (
+            ctx["cascade_launches"][tag] + ctx["surface_launches"][tag] + ctx["serving_launches"][tag]
+            + ctx["train_launches"][tag]
+        )
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
     rows = [
         ("k1", "fused_topk_gumbel_sample", "sampling_kernel.cu", "sampling_kernel.py:57"),
@@ -1889,7 +2294,8 @@ def main(argv=None) -> int:
     ]
     keys = (
         "launches", "launches_per_request", "launches_per_cascade_request", "launches_per_surface_request",
-        "launches_per_serving_batch", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "launches_per_serving_batch", "launches_per_train_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms",
     )
     kernels = [
         dict(
@@ -1905,6 +2311,7 @@ def main(argv=None) -> int:
             {
                 "cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"], "surfaces": ctx["surfaces"],
                 "vaes_share_weights_ms": ctx["vaes_share_weights_ms"], "serving": ctx["serving"],
+                "train": ctx["train"],
             }
         ),
         flush=True,

@@ -10,9 +10,12 @@ critics, editing and re-ranking), and the VQ-GAN tokenizer's inference
 (`VQGanVAE.encode` to token ids and `decode_from_ids` back, with the LFQ,
 EMA-VQ and FSQ quantizers); serving (`GeneratePipeline`, `GenerateServer`)
 and module checkpoints in the JAX package's file format, read and written
-without JAX (`MaskGit.load` / `save`, `utils.checkpoint`). Their four
-hand-written CUDA kernels (`ops.sampling_kernel`, `ops.attention`,
-`ops.vq`) are built from `csrc/` on first use. The public modules below take
+without JAX (`MaskGit.load` / `save`, `utils.checkpoint`); and training
+(`MaskGit.forward`, the masked-token loss, with K2's gradient, and
+`MaskGitTrainer`: Adam / AdamW, schedule, EMA, accumulation, train-state
+checkpoints with exact resume, token shards). Their four hand-written CUDA
+kernels (`ops.sampling_kernel`, `ops.attention`, `ops.vq`) are built from
+`csrc/` on first use. The public modules below take
 `device=` and are built on the GPU ("cuda") unless the caller asks for the
 CPU. See ROADMAP.md for what is still to come.
 """
@@ -26,6 +29,7 @@ from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
     SelfCritic,
     T5Encoder,
     TokenCritic,
+    TrainDraws,
     Transformer,
     VectorQuantizeEMA,
     VQGanVAE,
@@ -35,3 +39,12 @@ from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.utils.from_jax import load_jax_state  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.serving import GeneratePipeline  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.serving_http import GenerateServer  # noqa: F401
+from muse_maskgit_pytorch_tpu_torch.training import (  # noqa: F401
+    MaskGitTrainer,
+    PreemptionGuard,
+    ShardLoader,
+    ema_init,
+    ema_update,
+    lr_schedule,
+    write_shard,
+)

@@ -1,4 +1,4 @@
-from muse_maskgit_pytorch_tpu_torch.models.maskgit import MaskGit, Muse, vaes_share_weights  # noqa: F401
+from muse_maskgit_pytorch_tpu_torch.models.maskgit import MaskGit, Muse, TrainDraws, vaes_share_weights  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.models.quantizers import FSQ, LFQ, VectorQuantizeEMA  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.models.t5 import T5Encoder, t5_encode_text  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.models.transformer import (  # noqa: F401

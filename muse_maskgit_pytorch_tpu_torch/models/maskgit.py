@@ -19,11 +19,18 @@ Each step attends with K2 through the transformer and samples with K1
 (`ops.sampling_kernel.fused_topk_gumbel_sample`, the JAX package's
 `sampler="fused"`) or, with `sampler="xla"`, by the exact `top_k` filter in
 plain PyTorch.
+
+`MaskGit.forward` is the training objective (the JAX `MaskGit.__call__`):
+the masked-token cross entropy, plus a token critic's binary cross entropy.
+Its random draws are one explicit `TrainDraws` value, made from a
+`torch.Generator` or given, so that a test can hand both packages the same
+draws.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import math
 import warnings
@@ -40,8 +47,11 @@ from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.images import to_pil_images
 from muse_maskgit_pytorch_tpu_torch.utils.sampling import (
+    batch_random_mask,
     cosine_schedule,
     first_argmax,
+    get_mask_subset_prob,
+    gumbel_noise,
     guidance_ramp,
     gumbel_sample,
     mask_by_topk_scores,
@@ -112,6 +122,58 @@ def _resize_nearest(images: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+@dataclasses.dataclass
+class TrainDraws:
+    """Every random draw of one `MaskGit.forward` training call: what the
+    JAX package draws from `jax.random.split(rng, 8)`, in its order.
+
+    rand_time (b,), mask_scores (b, n), nomask_scores (b, n), keep_u (b, 1),
+    self_cond_u (), sample_temperature (), gumbel (b, n, vocab) in the
+    logits' dtype (with a critic only), critic_keep_u (b, 1); all U[0, 1)
+    but the gumbel noise. `self_cond_u` is read on the host (it decides
+    whether the self-conditioning forward runs): keep it on the CPU."""
+
+    rand_time: torch.Tensor
+    mask_scores: torch.Tensor
+    nomask_scores: torch.Tensor
+    keep_u: torch.Tensor
+    self_cond_u: torch.Tensor
+    sample_temperature: torch.Tensor
+    gumbel: Optional[torch.Tensor] = None
+    critic_keep_u: Optional[torch.Tensor] = None
+
+    @classmethod
+    def draw(
+        cls, batch: int, seq_len: int, vocab: int, *, critic: bool, generator: Optional[torch.Generator] = None,
+        device="cpu", dtype=torch.float32,
+    ) -> "TrainDraws":
+        """Draw from the CPU `generator` (the default one when None): the
+        small uniforms on the host, copied to `device`; the critic's
+        (b, n, vocab) noise on `device`, from a generator seeded by a draw
+        of `generator`, so one CPU generator's state fixes every draw."""
+        if generator is not None and generator.device.type != "cpu":
+            raise ValueError("TrainDraws.draw takes a CPU generator")
+
+        on_card = torch.device(device).type == "cuda"
+
+        def u(*shape):
+            t = torch.rand(shape, generator=generator)
+            # from pinned memory, so the copy does not wait for the card
+            return t.pin_memory().to(device, non_blocking=True) if on_card else t.to(device)
+
+        draws = cls(
+            rand_time=u(batch), mask_scores=u(batch, seq_len), nomask_scores=u(batch, seq_len),
+            keep_u=u(batch, 1), self_cond_u=torch.rand((), generator=generator),
+            sample_temperature=torch.rand((), generator=generator),
+        )
+        if critic:
+            seed = int(torch.randint(0, 2**62, (), generator=generator))
+            gen = torch.Generator(device).manual_seed(seed)
+            draws.gumbel = gumbel_noise((batch, seq_len, vocab), gen, device, dtype)
+            draws.critic_keep_u = u(batch, 1)
+        return draws
+
+
 class MaskGit(nn.Module):
     def __init__(
         self,
@@ -129,10 +191,10 @@ class MaskGit(nn.Module):
         critic_loss_weight: float = 1.0,
         device="cuda",
     ):
-        """`cond_drop_prob`, `self_cond_prob` and `critic_loss_weight` belong
-        to training (ROADMAP A9) and are only stored; `no_mask_token_prob`
-        also tells `generate(can_remask_prev_masked=True)` that the model
-        was trained to predict unmasked tokens.
+        """`cond_drop_prob`, `self_cond_prob`, `no_mask_token_prob` and
+        `critic_loss_weight` shape the training objective (`forward`);
+        `no_mask_token_prob` also tells `generate(can_remask_prev_masked=True)`
+        that the model was trained to predict unmasked tokens.
 
         The tokenizers are stored as frozen eval clones, as the JAX package
         stores `copy_for_eval()` clones: `vae` and `cond_vae` given as one
@@ -194,6 +256,144 @@ class MaskGit(nn.Module):
         from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import load_module
 
         return load_module(self, path)
+
+    # -- training objective (the JAX package's `MaskGit.__call__`) -----------
+
+    def forward(
+        self,
+        images_or_ids: torch.Tensor,
+        ignore_index: int = -1,
+        cond_images: Optional[torch.Tensor] = None,
+        cond_token_ids: Optional[torch.Tensor] = None,
+        texts: Optional[List[str]] = None,
+        text_embeds: Optional[torch.Tensor] = None,
+        text_mask: Optional[torch.Tensor] = None,
+        cond_drop_prob: Optional[float] = None,
+        train_only_generator: bool = False,
+        sample_temperature: Optional[float] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[TrainDraws] = None,
+    ) -> torch.Tensor:
+        """The training loss (0-d f32): the cross entropy of the masked
+        tokens, plus `critic_loss_weight` times the critic's binary cross
+        entropy when the model has a critic and `train_only_generator` is
+        off.
+
+        `images_or_ids`: float images (b, h, w, c) in [0, 1], tokenised by
+        the frozen VAE (sizes divisible by its factor), or ids (b, n) or
+        (b, fh, fw); a grid trains under the positions resized to it, a
+        flat sequence off the native length must be a square. A super-res
+        stage conditions on `cond_images`, on `cond_token_ids`, or on the
+        images resized to `cond_image_size`. Text comes as `texts` (the
+        frozen T5) or `text_embeds` (+ `text_mask`).
+
+        The draws are `draws`, or drawn by `TrainDraws.draw` from the CPU
+        `generator`: the time of each row and its cosine mask count
+        `max(round(n * cos(t * pi / 2)), 1)`, the masked positions, the
+        `no_mask_token_prob` subset kept unmasked (still labelled), the CFG
+        dropout of the text, the self-conditioning coin (the embedding of a
+        forward without dropout and without a gradient, with probability
+        `self_cond_prob`), and for the critic the sampling temperature, the
+        Gumbel noise and its own dropout."""
+        if images_or_ids.dim() not in (2, 3, 4):
+            raise ValueError(f"images or ids of rank 2, 3 or 4, got shape {tuple(images_or_ids.shape)}")
+        if text_embeds is not None and text_embeds.dim() != 3:
+            raise ValueError(f"text_embeds must be (b, n, d), got {tuple(text_embeds.shape)}")
+        device = self.transformer.token_emb.weight.device
+        images = None
+        if images_or_ids.is_floating_point():
+            if not exists(self.vae):
+                raise ValueError("vqgan vae must be passed in to train from raw images")
+            down = self.vae.dim_divisor
+            if images_or_ids.shape[1] % down or images_or_ids.shape[2] % down:
+                raise ValueError(
+                    f"training images must be divisible by the VAE's downsampling factor {down}, "
+                    f"got {tuple(images_or_ids.shape[1:3])}"
+                )
+            images = images_or_ids.to(device)
+            with torch.no_grad():
+                _, ids, _ = self.vae.encode(images)
+        else:
+            if self.resize_image_for_cond_image and not (exists(cond_images) or exists(cond_token_ids)):
+                raise ValueError("with auto-resize conditioning, pass raw images (or explicit cond images/ids)")
+            ids = images_or_ids.to(device)
+
+        if self.resize_image_for_cond_image and not exists(cond_images) and not exists(cond_token_ids):
+            cond_images = _resize_nearest(images, self.cond_image_size, self.cond_image_size)
+
+        pos_grid = tuple(ids.shape[1:3]) if ids.dim() == 3 else None
+        if ids.dim() == 2 and ids.shape[1] != self.transformer.seq_len and math.isqrt(ids.shape[1]) ** 2 != ids.shape[1]:
+            raise ValueError(
+                f"flat pre-tokenized ids of length {ids.shape[1]} (non-native, non-square) cannot infer their "
+                "token grid: pass 3-D (b, fh, fw) ids so positions resize to the right aspect ratio"
+            )
+        ids = ids.reshape(ids.shape[0], -1).long()
+        batch, seq_len = ids.shape
+        cond_drop_prob = default(cond_drop_prob, self.cond_drop_prob)
+
+        if exists(cond_images) and exists(cond_token_ids):
+            raise ValueError("pass cond_images or cond_token_ids, not both")
+        if exists(cond_images):
+            if not (cond_images.shape[1] == cond_images.shape[2] == self.cond_image_size):
+                raise ValueError(f"cond_images must be {self.cond_image_size}px square, got {tuple(cond_images.shape)}")
+            with torch.no_grad():
+                _, cond_token_ids, _ = self.cond_vae.encode(cond_images.to(device))
+        if exists(cond_token_ids):
+            cond_token_ids = cond_token_ids.to(device).long()
+
+        critic = exists(self.token_critic) and not train_only_generator
+        if draws is None:
+            draws = TrainDraws.draw(
+                batch, seq_len, self.transformer.num_tokens, critic=critic, generator=generator,
+                device=device, dtype=self.transformer.dtype,
+            )
+
+        # the mask: a cosine count of positions per row, at random positions
+        mask_probs = self.noise_schedule(draws.rand_time.to(device))
+        num_token_masked = torch.round(seq_len * mask_probs).clamp(min=1).long()
+        mask = batch_random_mask(draws.mask_scores.to(device), num_token_masked)
+        labels = torch.where(mask, ids, torch.full_like(ids, ignore_index))
+        if self.no_mask_token_prob > 0.0:
+            mask = mask & ~get_mask_subset_prob(mask, self.no_mask_token_prob, draws.nomask_scores.to(device))
+        x = torch.where(mask, torch.full_like(ids, self.mask_id), ids)
+
+        if exists(texts):
+            text_embeds = self.transformer.encode_text(texts)
+        if not exists(text_embeds):
+            raise ValueError("pass texts or text_embeds")
+        text_embeds = text_embeds.to(device).detach()
+        text_mask = (text_embeds != 0).any(dim=-1) if text_mask is None else text_mask.to(device)
+
+        self_cond_embed = None
+        if self.transformer.self_cond:
+            if float(draws.self_cond_u) < self.self_cond_prob:
+                with torch.no_grad():
+                    _, self_cond_embed = self.transformer(
+                        x, text_embeds=text_embeds, text_mask=text_mask, conditioning_token_ids=cond_token_ids,
+                        pos_grid=pos_grid, skip_head=True,
+                    )
+            else:
+                self_cond_embed = torch.zeros(batch, seq_len, self.transformer.dim, dtype=self.transformer.dtype, device=device)
+
+        ce_loss, logits = self.transformer(
+            x, text_embeds=text_embeds, text_mask=text_mask, self_cond_embed=self_cond_embed,
+            conditioning_token_ids=cond_token_ids, labels=labels, cond_drop_prob=cond_drop_prob,
+            ignore_index=ignore_index, return_logits=True, keep_u=draws.keep_u, pos_grid=pos_grid,
+        )
+        if not critic:
+            return ce_loss
+
+        temp = default(sample_temperature, draws.sample_temperature)
+        with torch.no_grad():
+            sampled_ids = gumbel_sample(logits.detach(), temp, noise=draws.gumbel)
+        critic_input = torch.where(mask, sampled_ids, x)
+        critic_labels = (ids != critic_input).float()
+        bce_loss = self.token_critic(
+            critic_input, text_embeds=text_embeds, text_mask=text_mask, conditioning_token_ids=cond_token_ids,
+            labels=critic_labels, cond_drop_prob=cond_drop_prob, keep_u=draws.critic_keep_u, pos_grid=pos_grid,
+        )
+        return ce_loss + self.critic_loss_weight * bce_loss
 
     def _fmap_hw(self, fmap_size, image_size) -> Tuple[int, int]:
         if image_size is not None:

@@ -1,4 +1,4 @@
-"""MaskGit transformer backbone, inference side (counterpart of
+"""MaskGit transformer backbone (counterpart of
 `muse_maskgit_pytorch_tpu/models/transformer.py`).
 
 Same structure and dtype flow as the JAX modules: parameters in f32,
@@ -16,6 +16,10 @@ the cross-attention context after the text and stay attendable in the CFG
 null half, where `null_fold` then folds nothing. Off the trained grid the
 learned positions are resized bilinearly (`Transformer._positions`).
 `TokenCritic` and `SelfCritic` score how real each token of a grid looks.
+Given `labels`, `forward` returns the training loss: the masked-token cross
+entropy (`cross_entropy_ignore_index`), or a critic's binary cross entropy
+(`sigmoid_bce`), with classifier-free-guidance dropout of the text from
+given uniforms (`keep_u`).
 
 Parameter names mirror the JAX module tree, so `utils.from_jax` maps
 weights by path.
@@ -534,7 +538,12 @@ class Transformer(nn.Module):
         text_embeds: Optional[torch.Tensor] = None,
         text_mask: Optional[torch.Tensor] = None,
         return_embed: bool = False,
+        return_logits: bool = False,
+        labels: Optional[torch.Tensor] = None,
+        ignore_index: int = 0,
         self_cond_embed: Optional[torch.Tensor] = None,
+        cond_drop_prob: float = 0.0,
+        keep_u: Optional[torch.Tensor] = None,
         conditioning_token_ids: Optional[torch.Tensor] = None,
         gather_positions: Optional[torch.Tensor] = None,
         context_kv: Optional[List[KV]] = None,
@@ -550,11 +559,20 @@ class Transformer(nn.Module):
         (h, w) names the token grid that x flattens (see `_positions`).
         `conditioning_token_ids` (b, ...) join the context after the text,
         always attendable; with `context_kv` given they only extend the mask
-        (the cache already holds their K/V)."""
+        (the cache already holds their K/V).
+
+        Training: with `labels` (b, n) the loss is returned (with the logits
+        after it under `return_logits`): the mean cross entropy over the
+        labels that are not `ignore_index`, or for a `dim_out == 1` critic
+        the binary cross entropy against float labels. `cond_drop_prob` > 0
+        drops a row's text (not its conditioning tokens) where its uniform
+        `keep_u` (b, 1) is below it."""
         if null_rows and exists(conditioning_token_ids):
             # conditioning tokens stay attendable in the CFG null half, so
             # its cross-attention is no constant
             raise ValueError("null_rows needs a context without conditioning_token_ids")
+        if exists(labels) and (gather_positions is not None or skip_head):
+            raise ValueError("gather_positions and skip_head are sampling-path features: no labels with them")
         if exists(texts) == exists(text_embeds):
             raise ValueError("pass exactly one of texts and text_embeds")
         if exists(texts):
@@ -564,6 +582,12 @@ class Transformer(nn.Module):
             self._context(text_embeds, conditioning_token_ids) if context_kv is None else None
         )
         context_mask = _text_mask(text_embeds, text_mask)
+        if cond_drop_prob > 0:
+            # classifier-free guidance dropout: a row keeps its text where
+            # its uniform is at least the drop probability
+            if keep_u is None:
+                raise ValueError("cond_drop_prob > 0 needs the uniforms keep_u")
+            context_mask = context_mask & (keep_u.reshape(b, 1) >= cond_drop_prob)
         if exists(conditioning_token_ids):
             n_cond = conditioning_token_ids.reshape(b, -1).shape[-1]
             context_mask = F.pad(context_mask, (0, n_cond), value=True)
@@ -587,7 +611,32 @@ class Transformer(nn.Module):
         logits = self.to_logits(head_in)
         if return_embed:
             return logits, embed
-        return logits
+        if not exists(labels):
+            return logits
+        if self.dim_out == 1:
+            loss = sigmoid_bce(logits[..., 0], labels)
+        else:
+            loss = cross_entropy_ignore_index(logits, labels, ignore_index)
+        return (loss, logits) if return_logits else loss
+
+
+def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
+    """Mean cross entropy over the positions whose label is not
+    `ignore_index` (0 when there are none), as `picked logit - logsumexp`
+    in f32 over logits of any dtype: no (b, n, vocab) log-softmax is
+    written, only the picked logit is gathered."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    picked = logits.gather(-1, safe[..., None].long())[..., 0]
+    ll = picked.float() - lse
+    return -(ll * valid).sum() / valid.sum().clamp(min=1)
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross entropy with logits, through log-sigmoid in f32."""
+    logits = logits.float()
+    return -(labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits)).mean()
 
 
 def _dup(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -651,7 +700,12 @@ class SelfCritic(nn.Module):
         text_embeds, text_mask = _pad_text_to(text_embeds, text_mask, length)
         return self.forward_with_cond_scale(x, text_embeds=text_embeds, text_mask=text_mask, **kwargs)
 
-    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None, **kwargs) -> torch.Tensor:
+        """Fake-odds logits (b, n, 1); with float `labels` (b, n), their
+        binary cross entropy."""
         kwargs.pop("return_embed", None)
         _, embeds = self.net(x, skip_head=True, **kwargs)
-        return self.to_pred(embeds)
+        logits = self.to_pred(embeds)
+        if not exists(labels):
+            return logits
+        return sigmoid_bce(logits[..., 0], labels)

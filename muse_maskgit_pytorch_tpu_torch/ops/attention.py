@@ -9,7 +9,9 @@ bounds it on the H100 and how its design answers that):
     `qknorm_attend_plain` is the same function in plain PyTorch (the math of
     the JAX package's `_qknorm_xla`). Unlike the JAX package there is no
     crossover to a library attention below some kv length: every attention
-    of the models goes through this function. Forward only.
+    of the models goes through this function. Its gradient, as JAX's
+    `_qknorm_bwd` takes it, recomputes through the plain version
+    (`_QKNormAttention`).
   * `_flash_kernel` by `csrc/flash_attention.cu`, behind
     `attend(impl="flash")`; `attend_plain` is its plain version
     (`xla_attention` in f32). No model path calls it, as in JAX; its
@@ -89,9 +91,14 @@ def qknorm_attend_plain(
     `_qknorm_kernel` rounds: q^ and k^ after the f32 norm and scale, and
     P = exp(s - row max) before P v, the softmax sum and the null term
     staying unrounded. Only the checks use it."""
-    b, m = k.shape[:2]
+    bias = key_mask_bias(mask, k.shape[0], k.shape[1], q.device)
+    return _qknorm_plain(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, round_to)
+
+
+def _qknorm_plain(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, round_to=None):
+    """`qknorm_attend_plain` with the key mask given as its additive (b, m)
+    f32 bias (or None)."""
     acc = torch.promote_types(q.dtype, torch.float32)
-    bias = key_mask_bias(mask, b, m, q.device)
 
     def norm(t):
         t = t.to(acc)
@@ -148,48 +155,10 @@ def _heads_contiguous(t: torch.Tensor) -> torch.Tensor:
     return _aligned(t)
 
 
-def qknorm_attend(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    null_k: torch.Tensor,
-    null_v: torch.Tensor,
-    q_scale: torch.Tensor,
-    k_scale: torch.Tensor,
-    mask: Optional[torch.Tensor] = None,
-    scale: float = 8.0,
-) -> torch.Tensor:
-    """Fused qk-l2norm attention with a learned null KV pair.
-
-    q: (b, n, h, d), k/v: (b, m, h, d) raw projections (strided views are
-    read in place); null_k/null_v: (h, d); q_scale/k_scale: (d,);
-    mask: bool (b, m) over the real kv positions (the null position is
-    always attendable). Returns (b, n, h, d) in q's dtype."""
-    if q.device.type == "cpu":
-        return qknorm_attend_plain(q, k, v, null_k, null_v, q_scale, k_scale, mask, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"qknorm_attend: unsupported device {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"qknorm_attend takes f32 or bf16, got {q.dtype}")
+def _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale: float) -> torch.Tensor:
+    """Launch K2 on CUDA tensors (checked by `qknorm_attend`)."""
     b, n, h, d = q.shape
     m = k.shape[1]
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}, got {d}")
-    if k.shape != (b, m, h, d) or v.shape != (b, m, h, d):
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    for t in (k, v, null_k, null_v, q_scale, k_scale):
-        if t.device != q.device:
-            raise ValueError("qknorm_attend: all inputs must be on one device")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share a dtype")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, null_k, null_v, q_scale, k_scale)):
-        # the kernel writes its output through a raw pointer: it would carry
-        # no graph, and a backward would silently stop here
-        raise RuntimeError(
-            "qknorm_attend has no backward on CUDA tensors yet (ROADMAP A9): "
-            "call it under torch.no_grad() or torch.inference_mode()"
-        )
-    bias = key_mask_bias(mask, b, m, q.device)
     q, k, v = _heads_contiguous(q), _heads_contiguous(k), _heads_contiguous(v)
     nk = null_k.to(q.dtype).contiguous()
     nv = null_v.to(q.dtype).contiguous()
@@ -210,6 +179,78 @@ def qknorm_attend(
     _build.check(lib.muse_qknorm_attn_error_string, err, "qknorm_attend")
     qknorm_attend.launches += 1
     return out
+
+
+class _QKNormAttention(torch.autograd.Function):
+    """K2 forward (the plain version for CPU tensors); the backward
+    recomputes through the plain version and takes its vjp, as JAX's
+    `_qknorm_bwd` takes the vjp of `_qknorm_xla`. The key bias gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, null_k, null_v, q_scale, k_scale, bias, scale):
+        ctx.save_for_backward(q, k, v, null_k, null_v, q_scale, k_scale, bias)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return _qknorm_plain(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale)
+        return _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in inputs]
+            out = _qknorm_plain(*inputs, bias, ctx.scale)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None)
+
+
+def qknorm_attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    null_k: torch.Tensor,
+    null_v: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: float = 8.0,
+) -> torch.Tensor:
+    """Fused qk-l2norm attention with a learned null KV pair.
+
+    q: (b, n, h, d), k/v: (b, m, h, d) raw projections (strided views are
+    read in place); null_k/null_v: (h, d); q_scale/k_scale: (d,);
+    mask: bool (b, m) over the real kv positions (the null position is
+    always attendable). Returns (b, n, h, d) in q's dtype.
+
+    Where gradients are on and an input needs one, the call goes through
+    `_QKNormAttention` (K2 forward, backward through the plain version);
+    else K2 runs alone and nothing is saved."""
+    inputs = (q, k, v, null_k, null_v, q_scale, k_scale)
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    if q.device.type == "cpu":
+        if wants_grad:
+            return _QKNormAttention.apply(*inputs, key_mask_bias(mask, b, m, q.device), float(scale))
+        return qknorm_attend_plain(*inputs, mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"qknorm_attend: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"qknorm_attend takes f32 or bf16, got {q.dtype}")
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}, got {d}")
+    if k.shape != (b, m, h, d) or v.shape != (b, m, h, d):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    for t in inputs[1:]:
+        if t.device != q.device:
+            raise ValueError("qknorm_attend: all inputs must be on one device")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share a dtype")
+    bias = key_mask_bias(mask, b, m, q.device)
+    if wants_grad:
+        return _QKNormAttention.apply(*inputs, bias, float(scale))
+    return _qknorm_launch(*inputs, bias, scale)
 
 
 qknorm_attend.launches = 0

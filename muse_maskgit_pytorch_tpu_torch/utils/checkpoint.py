@@ -11,7 +11,12 @@ Neither needs JAX, flax or the `msgpack` package. The checksum manifest
 each leaf's shape and dtype) has the JAX package's format, so a manifest
 written by either package verifies in the other.
 
-Not ported: the Orbax train-state tier (ROADMAP A9).
+The train-state tier (`save_train_state`, `load_train_state`, the JAX
+package's Orbax tier) keeps a trainer's whole state (parameters, optimizer
+moments, EMA, step, generator state) in torch's own format, one directory a
+step, `step_XXXXXXXX/state.pt`: it is written under a temporary name and
+renamed when complete, so a listed step is always a whole one. Only module
+checkpoints cross between the packages.
 """
 
 from __future__ import annotations
@@ -19,9 +24,14 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
+import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import torch
 from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.utils import msgpack_codec
@@ -188,3 +198,118 @@ def verify_manifest(path, manifest_path=None, *, require: bool = False) -> bool:
     if entry is None and require:
         raise ValueError(f"no manifest entry for {path.name} beside it or in {manifest_path}")
     return _check(path, path.read_bytes(), entry) if entry is not None else False
+
+
+# ---------------------------------------------------------------------------
+# Train-state checkpoints (torch's format, one directory a step)
+# ---------------------------------------------------------------------------
+
+STATE_NAME = "state.pt"
+# a finalized step: an exact `step_<digits>` name (a save in flight or one
+# that a killed process left behind has a `.tmp-...` suffix)
+_STEP_RE = re.compile(r"^step_(\d+)$")
+# one writer thread for the whole process, so async saves serialize against
+# each other and `wait_for_saves` has one place to drain
+_saver_lock = threading.Lock()
+_saver: Optional[ThreadPoolExecutor] = None
+_in_flight: Optional[Future] = None
+
+
+def _to_host(tree: Any) -> Any:
+    """A copy of `tree` whose tensors are detached host copies: the live
+    tensors may change (in-place updates) while a thread writes this one."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _write_step(path: Path, tree: Any) -> None:
+    suffix = f"{os.getpid()}-{threading.get_ident()}"
+    tmp = path.with_name(f"{path.name}.tmp-{suffix}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    torch.save(tree, tmp / STATE_NAME)
+    old = path.with_name(f"{path.name}.old-{suffix}")
+    if path.exists():  # an earlier save of the same step: renamed away, then removed
+        os.replace(path, old)
+    os.replace(tmp, path)
+    shutil.rmtree(old, ignore_errors=True)
+
+
+def wait_for_saves() -> None:
+    """Block until the async save in flight (if any) is on disk; raises
+    what it raised. Call before reading a just-written checkpoint and at the
+    end of training (the trainer does both)."""
+    global _in_flight
+    with _saver_lock:
+        fut, _in_flight = _in_flight, None
+    if fut is not None:
+        fut.result()
+
+
+def finalized_steps(ckpt_dir) -> List[int]:
+    """Sorted steps of the complete checkpoints in `ckpt_dir`."""
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return []
+    return sorted(int(m.group(1)) for p in ckpt_dir.iterdir() if (m := _STEP_RE.match(p.name)) and p.is_dir())
+
+
+def latest_step(ckpt_dir) -> Optional[int]:
+    steps = finalized_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def prune_checkpoints(ckpt_dir, keep: int, current_step: Optional[int] = None) -> None:
+    """Delete all but the newest `keep` finalized checkpoints (and
+    `current_step`, which may still be in flight). Counting finalized ones
+    only, a save in flight never displaces a complete checkpoint."""
+    if keep < 1:
+        raise ValueError(f"keep must be >= 1, got {keep}")
+    ckpt_dir = Path(ckpt_dir)
+    steps = finalized_steps(ckpt_dir)
+    retained = set(steps[-keep:])
+    if current_step is not None:
+        retained.add(current_step)
+    for s in steps:
+        if s not in retained:
+            shutil.rmtree(ckpt_dir / f"step_{s:08d}", ignore_errors=True)
+
+
+def save_train_state(ckpt_dir, step: int, tree: Dict, async_save: bool = False, keep: Optional[int] = None) -> None:
+    """Write `tree` (nested dicts of tensors and numbers) as step `step` of
+    `ckpt_dir`. `keep=N` keeps the newest N finalized checkpoints and this
+    one. With `async_save` the save in flight (if any) is drained first,
+    then the older checkpoints are pruned (this one is not finalized yet, so
+    N finalized ones stay besides it), the tensors are copied to the host
+    and written on a thread; `wait_for_saves()` drains it."""
+    global _saver, _in_flight
+    ckpt_dir = Path(ckpt_dir).absolute()
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    path = ckpt_dir / f"step_{step:08d}"
+    if not async_save:
+        _write_step(path, tree)
+    else:
+        wait_for_saves()
+    if keep is not None:
+        prune_checkpoints(ckpt_dir, keep, current_step=step)
+    if async_save:
+        host = _to_host(tree)
+        with _saver_lock:
+            if _saver is None:
+                _saver = ThreadPoolExecutor(max_workers=1, thread_name_prefix="train-state-save")
+            _in_flight = _saver.submit(_write_step, path, host)
+
+
+def load_train_state(ckpt_dir, step: Optional[int] = None) -> Tuple[Dict, int]:
+    """(tree, step) of step `step` of `ckpt_dir` (the latest finalized one
+    when None), its tensors on the CPU."""
+    ckpt_dir = Path(ckpt_dir).absolute()
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    path = ckpt_dir / f"step_{step:08d}" / STATE_NAME
+    return torch.load(path, map_location="cpu", weights_only=True), step

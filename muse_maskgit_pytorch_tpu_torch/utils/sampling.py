@@ -13,6 +13,10 @@ its jitted scan. Two details matter there:
     `torch.linspace` in the last bit for many T;
   * `floor(cos(t * pi / 2) * seq)` flips to the next integer where the f32
     product lands next to one, so the schedule must see those same bits.
+
+The training masks (`batch_random_mask`, `get_mask_subset_prob`) take the
+uniform scores the JAX package draws from a key, so that both packages can
+be given the same draws.
 """
 
 from __future__ import annotations
@@ -102,7 +106,8 @@ def log(t: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
 def gumbel_noise(
     shape, generator: Optional[torch.Generator] = None, device=None, dtype=torch.float32
 ) -> torch.Tensor:
-    """-log(-log(u)), u ~ U[0, 1) drawn from `generator` on `device`."""
+    """-log(-log(u)), u ~ U[0, 1) drawn in `dtype` from `generator` on
+    `device` (as the JAX package draws u in the dtype it is given)."""
     u = torch.rand(tuple(shape), generator=generator, device=device, dtype=dtype)
     return -log(-log(u))
 
@@ -122,15 +127,69 @@ def gumbel_sample(
     logits: torch.Tensor,
     temperature=1.0,
     generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """First-index argmax of `logits / max(temperature, 1e-10) + gumbel`
-    over the last axis (int64 ids). The noise is drawn in f32 from
-    `generator` on the logits' device and the sum is taken in f32, whatever
-    the logits' dtype (the JAX package draws its noise in the logits' dtype;
-    the two random streams cannot agree anyway)."""
-    temperature = max(float(temperature), 1e-10)
-    g = gumbel_noise(logits.shape, generator, logits.device)
-    return first_argmax(logits.float() / temperature + g)
+    over the last axis (int64 ids), in the logits' dtype as the JAX package
+    takes it (bf16 logits: the noise, the division and the sum are bf16).
+    The noise is drawn from `generator` on the logits' device, or given as
+    `noise` (the logits' shape). The temperature (a number or a 0-d tensor)
+    divides as a tensor: CUDA would turn a division by a python scalar into
+    a multiply by its reciprocal."""
+    dt = logits.dtype
+    if isinstance(temperature, torch.Tensor) and temperature.device == logits.device:
+        temp = temperature.to(dt)
+    else:  # a number, or a host tensor: filled on the device, no copy
+        temp = torch.full((), float(temperature), dtype=dt, device=logits.device)
+    temp = temp.clamp(min=1e-10)
+    if noise is None:
+        noise = gumbel_noise(logits.shape, generator, logits.device, dt)
+    return first_argmax(logits / temp + noise.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# training masks (the JAX package draws from keys; here the uniform scores
+# are given, so a test can hand both sides the same draws)
+# ---------------------------------------------------------------------------
+
+
+def uniform(shape, generator: Optional[torch.Generator] = None, device=None, dtype=torch.float32) -> torch.Tensor:
+    """U[0, 1) of `shape` from `generator`."""
+    return torch.rand(tuple(shape), generator=generator, device=device, dtype=dtype)
+
+
+def prob_mask_like(shape, prob: float, u: Optional[torch.Tensor] = None, generator=None, device=None) -> torch.Tensor:
+    """Bernoulli(prob) bool mask, `u < prob` for the uniforms `u` (drawn
+    from `generator` when not given); prob 0 and 1 need no draw."""
+    if prob == 1:
+        return torch.ones(tuple(shape), dtype=torch.bool, device=device)
+    if prob == 0:
+        return torch.zeros(tuple(shape), dtype=torch.bool, device=device)
+    u = uniform(shape, generator, device) if u is None else u
+    return u < prob
+
+
+def _ranks(scores: torch.Tensor) -> torch.Tensor:
+    """Ascending rank of each score in its row (a double stable argsort, as
+    `jnp.argsort` is stable)."""
+    return torch.argsort(torch.argsort(scores, dim=-1, stable=True), dim=-1, stable=True)
+
+
+def get_mask_subset_prob(mask: torch.Tensor, prob: float, scores: torch.Tensor, min_mask: int = 0) -> torch.Tensor:
+    """Random subset of the bool `mask` (b, n) with per-row expected fraction
+    `prob`: rank the uniform `scores` (b, n) with the non-mask positions
+    forced to the bottom and keep the ranks below `mask.sum(-1) * prob`
+    (f32, as JAX's traced product is), after discounting the padding."""
+    num_to_mask = (mask.sum(dim=-1, keepdim=True) * prob).float().clamp(min=min_mask)
+    logits = torch.where(mask, scores, torch.full_like(scores, -1.0))
+    randperm = _ranks(logits).float() - (~mask).sum(dim=-1, keepdim=True)
+    return (randperm < num_to_mask) & mask
+
+
+def batch_random_mask(scores: torch.Tensor, num_masked: torch.Tensor) -> torch.Tensor:
+    """Bool (b, n) mask with exactly `num_masked[b]` True entries per row,
+    at the positions of the lowest uniform `scores` (b, n)."""
+    return _ranks(scores) < num_masked.reshape(-1, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -188,21 +188,36 @@ def test_qknorm_sampling_surface_shapes(dev, dtype, shape):
         torch.testing.assert_close(out.float(), rounded.float(), rtol=0, atol=BF16_VS_ROUNDED)
 
 
-def test_qknorm_refuses_inputs_that_need_a_gradient(dev):
-    # K2 has no backward yet: its output would carry no graph
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_qknorm_gradients_match_plain(dev, dtype):
+    # inputs that need a gradient: K2 runs the forward (one launch), the
+    # backward recomputes through the plain version, so every gradient is
+    # autograd's through `qknorm_attend_plain`
     g = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = (torch.randn(2, 70, 2, 64, generator=g, device=dev) for _ in range(3))
-    nk, nv = (torch.randn(2, 64, generator=g, device=dev) for _ in range(2))
-    qs = torch.ones(64, device=dev, requires_grad=True)
-    ks = torch.ones(64, device=dev)
-    with pytest.raises(RuntimeError, match="no backward"):
-        attention.qknorm_attend(q, k, v, nk, nv, qs, ks)
-    with pytest.raises(RuntimeError, match="no backward"):
-        attention.qknorm_attend(q.requires_grad_(), k, v, nk, nv, ks, ks)
+    q, k, v = (torch.randn(3, 70, 2, 64, generator=g, device=dev).to(dtype) for _ in range(3))
+    nk, nv = (torch.randn(2, 64, generator=g, device=dev).to(dtype) for _ in range(2))
+    qs, ks = (1 + 0.1 * torch.randn(64, generator=g, device=dev) for _ in range(2))
+    mask = torch.rand(3, 70, generator=g, device=dev) > 0.3
+    mask[0] = False  # a CFG-dropped row: the null position only
+    cot = torch.randn(3, 70, 2, 64, generator=g, device=dev).to(dtype)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, nk, nv, qs, ks)]
+        out = fn(*leaves, mask=mask)
+        (out.float() * cot.float()).sum().backward()
+        return out, [t.grad for t in leaves]
+
+    before = attention.qknorm_attend.launches
+    out, got = grads(attention.qknorm_attend)
+    assert attention.qknorm_attend.launches == before + 1
+    ref, want = grads(attention.qknorm_attend_plain)
+    tol = 1e-4 if dtype == torch.float32 else K2_BF16_FROM_F32
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+    # with the gradient off the kernel runs alone and saves nothing
     with torch.no_grad():
-        out = attention.qknorm_attend(q, k, v, nk, nv, qs, ks)
-    torch.testing.assert_close(out, attention.qknorm_attend_plain(q, k, v, nk, nv, qs, ks).detach(), rtol=0, atol=1e-4)
-    assert attention.qknorm_attend(q.detach(), k, v, nk, nv, ks, ks).shape == q.shape
+        assert attention.qknorm_attend(q.requires_grad_(), k, v, nk, nv, qs, ks, mask=mask).grad_fn is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

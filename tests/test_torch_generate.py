@@ -192,7 +192,10 @@ def test_port_imports_no_jax():
     assert "muse_maskgit_pytorch_tpu_torch.utils.images" in modules
     for serving in ("serving", "serving_http", "utils.checkpoint", "utils.msgpack_codec", "utils.png"):
         assert f"muse_maskgit_pytorch_tpu_torch.{serving}" in modules
-    banned = ("jax", "flax", "msgpack", "PIL", "muse_maskgit_pytorch_tpu")
+    for training in ("data", "ema", "optim", "preemption", "shard_loader", "trainers"):
+        assert f"muse_maskgit_pytorch_tpu_torch.training.{training}" in modules
+    assert "muse_maskgit_pytorch_tpu_torch.utils.metrics" in modules
+    banned = ("jax", "flax", "optax", "orbax", "msgpack", "PIL", "muse_maskgit_pytorch_tpu")
     code = (
         f"import sys, importlib, muse_maskgit_pytorch_tpu_torch; [importlib.import_module(m) for m in {modules!r}]; "
         f"bad = [m for m in sys.modules if m.split('.')[0] in {banned!r}]; "
