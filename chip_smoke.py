@@ -30,6 +30,10 @@ read just after):
     `MaskGit.edit`, `generate_reranked` by log-likelihood and by critic,
     `Muse.edit` at 512px and `Muse(texts)` re-ranked at 256x384 -> 512x768
     -- K1 and K2 at the shapes these give them;
+  * `train`: `MaskGitTrainer` at `bench_sweep.py`'s exp_train_mfu width
+    (b64, the base stage's width, self-conditioning, EMA) -- K2's forward
+    and K2's backward kernel on every step, checked against the plain
+    backward at the train shapes of both stages first;
   * `serving`: the base model saved in the JAX package's checkpoint format
     and loaded into a fresh model (tensor- and image-equal), then served:
     `GeneratePipeline` at b16, T18, CFG 3 with T5 in front (warmup, timed
@@ -44,7 +48,7 @@ raises and the exit code is non-zero. The last line is
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
 selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
-t5, surfaces, serving, cascade, profile) while iterating; a subset prints its
+t5, surfaces, serving, train, cascade, profile) while iterating; a subset prints its
 phases' lines and no result lines.
 """
 
@@ -55,6 +59,7 @@ import base64
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -68,7 +73,7 @@ ALL_PHASES = (
     "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
     "cascade", "profile",
 )
-KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "vq_search", "flash_attention")
+KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "qknorm_attention_bwd", "vq_search", "flash_attention")
 
 # main-path shapes
 BATCH, STEPS, CFG = 32, 18, 3.0
@@ -255,7 +260,7 @@ def phase_build(torch, ctx):
     secs = dict(zip(KERNEL_SOURCES, times))
     secs["sampling_kernel (timing)"] = times[-1]
     wall = time.perf_counter() - t0
-    for lib in (sampling_kernel._lib, attention._lib, attention._flash_lib, vq._lib):
+    for lib in (sampling_kernel._lib, attention._lib, attention._bwd_lib, attention._flash_lib, vq._lib):
         lib()  # load each library and bind its entry points
     each = ", ".join(f"{name} {t:.1f}s" for name, t in secs.items())
     log(f"[build] nvcc sm_90a, in parallel: {each}; {wall:.1f}s wall")
@@ -560,8 +565,8 @@ def phase_k2(torch, ctx):
         for name, t in (sr_times | surf_times).items()
     }
     # inputs that need a gradient go through the autograd Function (K2
-    # forward, backward through the plain version); under no_grad K2 runs
-    # alone and keeps no graph (`[train]` checks the gradients)
+    # forward with the row logsumexp, K2's backward kernel); under no_grad
+    # K2 runs alone and keeps no graph (`[train]` checks the gradients)
     (q, *rest), _ = inputs(2, 70, 70, torch.bfloat16)
     out = qknorm_attend(q.detach().requires_grad_(), *rest)
     require(type(out.grad_fn).__name__ == "_QKNormAttentionBackward", f"K2 with a gradient: {out.grad_fn}")
@@ -920,8 +925,8 @@ def phase_profile(torch, ctx):
 
 def profile_train_step(torch, ctx):
     """One bf16 train step of `[train]`'s trainer under torch.profiler:
-    device time in all, by kernel, and under the autograd node of K2's
-    backward (its recompute through the plain version)."""
+    device time in all, by kernel, K2's backward kernels by name and share,
+    and the kernels under the autograd node of K2's backward."""
     from torch.profiler import ProfilerActivity, profile
 
     trainer, batch = ctx["trainer"], ctx["train_batch"]
@@ -944,7 +949,17 @@ def profile_train_step(torch, ctx):
         return
     device_ms = sum(r[0] for r in rows)
     k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
-    bwd = [e for e in averages if "_QKNormAttentionBackward" in e.key]
+    # K2's backward kernels (`csrc/qknorm_attention_bwd.cu`): five launches a call
+    kb = [(ms, n, re.search(r"qknorm_bwd_\w+", name).group(0)) for ms, n, name in rows if "qknorm_bwd_" in name]
+    kb_ms = sum(r[0] for r in kb)
+    require(
+        len(kb) == 5 and all(n == 2 * DEPTH for _, n, _ in kb),
+        f"the profiled step's K2 backward kernels: {[(n, name) for _, n, name in kb]}, expected 5 x{2 * DEPTH}",
+    )
+    kb_s = "; ".join(f"{ms:.2f} ms x{n} {name}" for ms, n, name in kb)
+    # the autograd node's own rows (the engine's evaluate_function row holds
+    # the same kernels again, so it is left out)
+    bwd = [e for e in averages if e.key == "_QKNormAttentionBackward"]
     bwd_us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) for e in bwd)
     bwd_s = f"{bwd_us / 1000:.1f} ms ({bwd_us / 1000 / device_ms:.1%})" if bwd_us else "not measured"
     # the kernels launched under K2's backward nodes, by name
@@ -957,12 +972,14 @@ def profile_train_step(torch, ctx):
         stack.extend(e.cpu_children)
     under_s = "; ".join(f"{ms:.2f} ms {name[:60]}" for name, ms in sorted(under.items(), key=lambda kv: -kv[1])[:8])
     top = "; ".join(f"{ms:.2f} ms x{n} {name[:70]}" for ms, n, name in rows[:12])
-    ctx["train"]["profile"] = dict(device_ms=device_ms, host_ms=host_ms, k2_fwd_ms=k2_ms, attn_bwd_ms=bwd_us / 1000)
+    ctx["train"]["profile"] = dict(
+        device_ms=device_ms, host_ms=host_ms, k2_fwd_ms=k2_ms, attn_bwd_ms=bwd_us / 1000, k2_bwd_kernels_ms=kb_ms
+    )
     log(
         f"[profile] train step b{TRAIN_BATCH}: device {device_ms:.1f} ms in a step of {host_ms:.1f} ms "
-        f"({device_ms / host_ms:.1%} busy); K2 forward {k2_ms:.2f} ms x{k2_n}; K2's backward (plain recompute, "
-        f"autograd node) {bwd_s}, by kernel: {under_s or 'not measured'}; top kernels of the step: {top} | "
-        f"{ctx['smi']}"
+        f"({device_ms / host_ms:.1%} busy); K2 forward {k2_ms:.2f} ms x{k2_n}; K2's backward kernels {kb_ms:.2f} ms "
+        f"({kb_ms / device_ms:.1%} of the step): {kb_s}; K2's backward autograd node {bwd_s}, by kernel: "
+        f"{under_s or 'not measured'}; top kernels of the step: {top} | {ctx['smi']}"
     )
 
 
@@ -1758,24 +1775,30 @@ def phase_train(torch, ctx):
     path, batch 64, seq 256, text 64 x 768, dim 512, depth 8, 8 x 64 heads,
     vocab 65536, bf16, self-conditioning on, EMA on, one micro-batch a step.
 
-    (a) K2 under the gradient at the train shapes, self (64, 256, 8, 64) x
-        256 keys and cross x 64 text keys with a CFG-dropped row, f32 and
-        bf16: the K2 route's forward output against `qknorm_attend_plain`
-        (1e-4 f32, K2_BF16_FROM_F32 bf16; bf16 also against the TPU-rounding
-        form within BF16_VS_ROUNDED; the dropped row gives null_v), and its
-        gradients of every input against autograd through the plain version.
-        Both sides of that gradient comparison run the same backward (the
-        vjp of the plain version), so it checks the route, not a kernel.
-        Forward + backward ms per call (CUDA events) beside SDPA's on the
-        normalised inputs (the attention core only).
+    (a) K2's gradient at the train shapes: the base stage's self (64, 256,
+        8, 64) x 256 keys and cross x 64 text keys with a CFG-dropped row,
+        the super-res stage's self (16, 1024) x 1024 and cross x 320 keys
+        (the null half's text keys off), f32 and bf16. One forward and one
+        backward launch a call; the forward output against
+        `qknorm_attend_plain` (1e-4 f32, K2_BF16_FROM_F32 bf16; bf16 also
+        against the TPU-rounding form within BF16_VS_ROUNDED; the dropped row
+        gives null_v); the backward kernel's gradients against
+        `qknorm_attend_backward_plain` (1e-4 of each gradient's max f32,
+        K2_BWD_BF16_FROM_F32 bf16, and K2_BWD_BF16_VS_ROUNDED against its
+        `round_to` form), a repeat bit-identical. The backward alone by graph
+        replay beside its bound, the plain backward and SDPA's backward on
+        the normalised inputs (the attention core only); forward + backward
+        by CUDA events beside SDPA's, as before.
     (b) one f32 `MaskGit.forward` + backward with the kernels and under
         `plain_path()`, on the same draws: losses to 1e-4 relative, each
         gradient leaf to 1e-3 of its largest |g|.
     (c) `MaskGitTrainer` in bf16 (lr 1e-4, warmup 2, EMA on; the model
         holds the VAE clone for (e) and never runs it): 2 warm-up steps, 10
         timed steps, launches per step (K2 16, or 32 with the
-        self-conditioning pass; K1 = K3 = K4 = 0), ms/step, img/s, MFU
-        (`maskgit_train_flops` / step / 989e12), peak memory; then a
+        self-conditioning pass; K2's backward 16; K1 = K3 = K4 = 0), ms/step,
+        img/s, MFU (`maskgit_train_flops` / step / 989e12), peak memory; the
+        step in turns with the backward kernel and with the plain backward
+        patched in here (kernel, plain, plain, kernel, 5 steps each); then a
         memorisation check at depth 2, lr 1e-3, one batch for 8 steps.
     (d) resume on the card at depth 2: 2 steps, save, a new trainer with
         `auto_resume`, 2 steps, against 4 straight steps; then the EMA model
@@ -1791,12 +1814,18 @@ def phase_train(torch, ctx):
     import numpy as np
 
     from muse_maskgit_pytorch_tpu_torch.models.maskgit import TrainDraws
+    from muse_maskgit_pytorch_tpu_torch.ops import attention
     from muse_maskgit_pytorch_tpu_torch.ops.attention import (
         BF16_VS_ROUNDED,
         K2_BF16_FROM_F32,
+        K2_BWD_BF16_FROM_F32,
+        K2_BWD_BF16_VS_ROUNDED,
         attend,
         qknorm_attend,
+        qknorm_attend_backward,
+        qknorm_attend_backward_plain,
         qknorm_attend_plain,
+        qknorm_attend_with_lse,
     )
     from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
     from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
@@ -1811,17 +1840,22 @@ def phase_train(torch, ctx):
     g = torch.Generator(device=dev).manual_seed(8)
     hd = HEADS * DIM_HEAD
 
-    # -- (a) K2 under the gradient at the train shapes
-    def grad_inputs(b, n, m, dtype, dropped):
+    # -- (a) K2's gradient at the train shapes: the forward and the backward kernel
+    def grad_inputs(b, n, m, dtype, mask_kind):
         q = torch.randn(b, n, hd, generator=g, device=dev).to(dtype).reshape(b, n, HEADS, DIM_HEAD)
         kv = torch.randn(b, m, 2 * hd, generator=g, device=dev).to(dtype)
         k, v = (t.reshape(b, m, HEADS, DIM_HEAD) for t in kv.chunk(2, dim=-1))  # views of one to_kv output
         nk, nv = (torch.randn(HEADS, DIM_HEAD, generator=g, device=dev).to(dtype) for _ in range(2))
         qs, ks = (1 + 0.1 * torch.randn(DIM_HEAD, generator=g, device=dev) for _ in range(2))
         mask = None
-        if dropped:
+        if mask_kind == "dropped":
             mask = torch.ones(b, m, dtype=torch.bool, device=dev)
             mask[0] = False  # a CFG-dropped row: the null position only
+        elif mask_kind == "superres":
+            # the super-res cross-attention under CFG: 64 text keys, then 256
+            # conditioning keys; the null half's text keys are off
+            mask = torch.ones(b, m, dtype=torch.bool, device=dev)
+            mask[b // 2 :, : m - COND_TOKENS] = False
         cot = torch.randn(b, n, HEADS, DIM_HEAD, generator=g, device=dev).to(dtype)
         return [q, k, v, nk, nv, qs, ks], mask, cot
 
@@ -1831,44 +1865,69 @@ def phase_train(torch, ctx):
         return out, torch.autograd.grad(out, leaves, cot)
 
     def rel_err(got, want):
-        return max((a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30) for a, b in zip(got, want))
+        return max(
+            (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+            for a, b in zip(got, want) if b.numel()
+        )
 
-    grad_shapes = {"self": (TRAIN_BATCH, SEQ, SEQ, False), "cross": (TRAIN_BATCH, SEQ, TEXT_LEN, True)}
+    # the base stage's self- and cross-attention (a CFG-dropped row), and the
+    # super-res stage's at b16 (the JAX trainer trains it with paired
+    # conditioning ids): self over 1024 positions, cross over 64 text + 256
+    # conditioning keys with the null half's text keys off
+    grad_shapes = {
+        "self": (TRAIN_BATCH, SEQ, SEQ, None),
+        "cross": (TRAIN_BATCH, SEQ, TEXT_LEN, "dropped"),
+        "sr_self": (CAS_BATCH, SR_SEQ, SR_SEQ, None),
+        "sr_cross": (CAS_BATCH, SR_SEQ, TEXT_LEN + COND_TOKENS, "superres"),
+    }
     grad_errs, grad_times = {}, {}
-    for name, (b, n, m, dropped) in grad_shapes.items():
+    for name, (b, n, m, mask_kind) in grad_shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
-            args, mask, cot = grad_inputs(b, n, m, dtype, dropped)
-            before = qknorm_attend.launches
+            f32 = dtype == torch.float32
+            args, mask, cot = grad_inputs(b, n, m, dtype, mask_kind)
+            before = qknorm_attend.launches, qknorm_attend_backward.launches
             out, got = fwd_bwd(qknorm_attend, args, mask, cot)
-            require(qknorm_attend.launches == before + 1, "K2's gradient route did not launch K2 once")
-            ref, want = fwd_bwd(qknorm_attend_plain, args, mask, cot)
+            launched = qknorm_attend.launches - before[0], qknorm_attend_backward.launches - before[1]
+            require(launched == (1, 1), f"K2's gradient route launched (forward, backward) {launched}, not (1, 1)")
+            _, again = fwd_bwd(qknorm_attend, args, mask, cot)
+            require(all(torch.equal(a, c) for a, c in zip(got, again)), f"K2 backward {name} {dtype}: a repeat differs")
+            ref = qknorm_attend_plain(*args, mask=mask)
+            want = qknorm_attend_backward_plain(cot, *args, mask=mask)
             torch.cuda.synchronize()
             # K2's forward at the train shapes, with the limits of `[k2]`
-            tol = 1e-4 if dtype == torch.float32 else K2_BF16_FROM_F32
+            tol = 1e-4 if f32 else K2_BF16_FROM_F32
             out_err = (out.float() - ref.float()).abs().max().item()
             require(math.isfinite(out_err) and out_err <= tol, f"K2 forward {name} {dtype}: max abs err {out_err:.3g} > {tol:g}")
-            if dropped:
+            if mask_kind == "dropped":
                 null_err = (out[0].float() - args[4].float()[None, None]).abs().max().item()
                 require(null_err <= tol, f"K2 forward {name} {dtype}: the dropped row is {null_err:.3g} from null_v")
-            # the same backward on both sides: this checks the route only
+            # the backward kernel against the plain backward, relative to each gradient's max
+            tol = 1e-4 if f32 else K2_BWD_BF16_FROM_F32
             err = rel_err(got, want)
-            require(math.isfinite(err) and err <= 1e-4, f"K2 gradient {name} {dtype}: {err:.3g} of max |g| > 1e-4")
-            errs = {"fwd vs plain": out_err, "grads vs plain": err}
-            if dtype == torch.bfloat16:
-                rounded_out, rounded = fwd_bwd(qknorm_attend_plain, args, mask, cot, round_to=torch.bfloat16)
+            require(math.isfinite(err) and err <= tol, f"K2 backward {name} {dtype}: {err:.3g} of max |g| > {tol:g}")
+            errs = {"fwd vs plain": out_err, "bwd vs plain": err}
+            if not f32:
+                rounded_out = qknorm_attend_plain(*args, mask=mask, round_to=torch.bfloat16)
                 rout = (out.float() - rounded_out.float()).abs().max().item()
                 require(rout <= BF16_VS_ROUNDED, f"K2 forward {name} bf16 vs the TPU-rounding plain: {rout:.3g}")
+                rounded = qknorm_attend_backward_plain(cot, *args, mask=mask, round_to=torch.bfloat16)
                 rerr = rel_err(got, rounded)
-                require(rerr <= BF16_VS_ROUNDED, f"K2 gradient {name} bf16 vs the TPU-rounding plain: {rerr:.3g}")
-                errs.update({"fwd vs rounded": rout, "grads vs rounded": rerr})
+                require(rerr <= K2_BWD_BF16_VS_ROUNDED, f"K2 backward {name} bf16 vs the rounding plain: {rerr:.3g}")
+                errs.update({"fwd vs rounded": rout, "bwd vs rounded": rerr})
+                del rounded_out, rounded
             grad_errs[(name, dtype)] = errs
+            del ref, want, again
             keys_on = float(mask.sum()) if mask is not None else b * m
-            flop = 12.0 * HEADS * n * keys_on * DIM_HEAD  # QK^T and PV forward; dV, dP, dQ, dK backward
-            moved = nbytes(*args, mask, cot) + 2 * nbytes(args[0]) + nbytes(*args[1:3])  # + out, dq, dk, dv
-            bound_ms, bound_by = bound(flop, moved, PEAK_BF16_TC if dtype == torch.bfloat16 else PEAK_F32)
+            peak = PEAK_F32 if f32 else PEAK_BF16_TC
+            # forward + backward: QK^T and PV forward; S, dP, dV, dQ, dK backward
+            # (4 + 10 n m d a head); the backward alone: 10 n m d
+            lse_bytes = b * HEADS * n * 4
+            fb_bound = bound(14.0 * HEADS * n * keys_on * DIM_HEAD, nbytes(*args, mask, cot) + 2 * nbytes(args[0]) + nbytes(*args[1:3]) + lse_bytes, peak)
+            bwd_bound = bound(10.0 * HEADS * n * keys_on * DIM_HEAD, nbytes(*args, mask, cot, out) + lse_bytes + nbytes(*args[:3]), peak)
             leaves = [t.detach().requires_grad_() for t in args]
-            # SDPA forward + backward on the normalised inputs with the null
-            # key and value in front: the attention core only
+            fwd_out, lse = qknorm_attend_with_lse(*args, mask=mask)
+            # SDPA on the normalised inputs with the null key and value in
+            # front: the attention core only (no mask), its flash backward
             qn, kn, nkn = (t.float() / t.float().norm(dim=-1, keepdim=True) for t in (args[0], args[1], args[3]))
             qn = (qn * args[5] * 8.0).to(dtype).transpose(1, 2).detach().requires_grad_()
             kn = torch.cat([nkn.expand(b, 1, HEADS, DIM_HEAD), kn * args[6]], 1).to(dtype).transpose(1, 2)
@@ -1880,31 +1939,49 @@ def phase_train(torch, ctx):
                 o = torch.nn.functional.scaled_dot_product_attention(qn, kn, vn, scale=1.0)
                 torch.autograd.grad(o, (qn, kn, vn), sdpa_cot)
 
+            plain_iters = 3 if n > SEQ else 10
             grad_times[(name, dtype)] = dict(
+                bwd_ms=graph_ms(lambda: qknorm_attend_backward(cot, *args, fwd_out, lse, mask=mask)),
+                bwd_plain_ms=cuda_ms(lambda: qknorm_attend_backward_plain(cot, *args, mask=mask), iters=plain_iters, warmup=1),
+                # SDPA's backward: its forward + backward less its forward,
+                # both by graph replay (a backward runs on its forward's stream,
+                # so the pair is captured together)
+                bwd_library_ms=graph_ms(sdpa_step) - graph_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(qn, kn, vn, scale=1.0)
+                ),
+                bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
                 ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend(*leaves, mask=mask), leaves, cot), iters=20),
                 fwd_ms=graph_ms(lambda: qknorm_attend(*args, mask=mask)),
-                plain_ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend_plain(*leaves, mask=mask), leaves, cot), iters=10),
+                plain_ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend_plain(*leaves, mask=mask), leaves, cot), iters=plain_iters, warmup=1),
                 library_ms=cuda_ms(sdpa_step, iters=20),
-                bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms=fb_bound[0], bound_by=fb_bound[1],
             )
-            del args, leaves, qn, kn, vn, out, ref, got, want
+            del args, leaves, qn, kn, vn, out, got, fwd_out, lse
     bf = torch.bfloat16
 
     def tline(name, dtype):
         t, e = grad_times[(name, dtype)], grad_errs[(name, dtype)]
         errs = ", ".join(f"{k} {v:.2g}" for k, v in e.items())
         return (
-            f"{str(dtype)[6:]} {t['ms']:.4f} ms fwd+bwd (eager) vs plain {t['plain_ms']:.4f}, SDPA fwd+bwd "
-            f"{t['library_ms']:.4f} (core only), bound {t['bound_ms']:.4f} ({t['bound_by']}); K2 forward alone "
-            f"{t['fwd_ms']:.4f} ms (graph replay); {errs}"
+            f"{str(dtype)[6:]}: backward {t['bwd_ms']:.4f} ms (graph replay) vs plain {t['bwd_plain_ms']:.3f}, SDPA "
+            f"backward {t['bwd_library_ms']:.4f} (core only), bound {t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}, "
+            f"{t['bwd_bound_ms'] / t['bwd_ms']:.0%}); fwd+bwd {t['ms']:.4f} ms (eager) vs plain {t['plain_ms']:.3f}, "
+            f"SDPA {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}); forward alone {t['fwd_ms']:.4f} "
+            f"ms (graph replay); {errs}"
         )
 
+    labels = {
+        "self": "self (64,256,8,64)x256", "cross": "cross (64,256|64) with a dropped row (null_v)",
+        "sr_self": f"super-res self ({CAS_BATCH},1024,8,64)x1024",
+        "sr_cross": f"super-res cross ({CAS_BATCH},1024|320), the null half's text keys off",
+    }
     log(
-        f"[train] K2 under the gradient ok (route: K2 forward, backward = vjp of the plain version; forward errors "
-        f"max abs, gradient errors relative to each input's max |g|; the gradients run the same backward on both "
-        f"sides, so they check the route, not a kernel): self (64,256,8,64)x256 {tline('self', torch.float32)}; "
-        f"{tline('self', bf)} | cross (64,256|64) with a dropped row (null_v) {tline('cross', torch.float32)}; "
-        f"{tline('cross', bf)} | {ctx['smi']}"
+        f"[train] K2's gradient ok (K2 forward with the row logsumexp + the backward kernel, 1 + 1 launches a call, "
+        f"a repeat bit-identical; forward errors max abs, backward errors relative to each gradient's max |g|, "
+        f"against qknorm_attend_backward_plain; limits f32 1e-4, bf16 {K2_BWD_BF16_FROM_F32:g} vs f32 plain, "
+        f"{K2_BWD_BF16_VS_ROUNDED:g} vs the rounding plain): "
+        + " | ".join(f"{labels[nm]} {tline(nm, torch.float32)}; {tline(nm, bf)}" for nm in grad_shapes)
+        + f" | {ctx['smi']}"
     )
 
     # -- (b) one f32 step on both routes, the same draws
@@ -1961,20 +2038,49 @@ def phase_train(torch, ctx):
     )
     t_build = time.perf_counter() - t0
     logs = [trainer.train_step_arrays(*batch) for _ in range(TRAIN_WARM)]
-    for fn in counted.values():
+    for fn in (*counted.values(), qknorm_attend_backward):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    per_step = []
+    per_step, bwd_steps = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         before = {k: fn.launches for k, fn in counted.items()}
+        bwd_before = qknorm_attend_backward.launches
         logs.append(trainer.train_step_arrays(*batch))
         per_step.append({k: fn.launches - before[k] for k, fn in counted.items()})
+        bwd_steps.append(qknorm_attend_backward.launches - bwd_before)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_STEPS
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     train_launches = {k: fn.launches for k, fn in counted.items()}
+    train_bwd_launches = qknorm_attend_backward.launches
+    require(all(n == 2 * DEPTH for n in bwd_steps), f"K2 backward launches per step {bwd_steps}, expected {2 * DEPTH}")
+
+    # the within-call pair: the step with the backward kernel and with the
+    # plain backward patched in here (the package has no switch for it), in
+    # turns kernel, plain, plain, kernel
+    def timed_steps(count=5):
+        trainer.train_step_arrays(*batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(count):
+            trainer.train_step_arrays(*batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / count * 1000
+
+    kernel_backward = attention._qknorm_backward_launch
+
+    def plain_backward(g_, q, k, v, nk, nv, qs, ks, bias, out, lse, scale):
+        return attention._qknorm_backward_plain(g_, q, k, v, nk, nv, qs, ks, bias, scale)
+
+    ab = []
+    for leg in ("kernel", "plain", "plain", "kernel"):
+        attention._qknorm_backward_launch = plain_backward if leg == "plain" else kernel_backward
+        try:
+            ab.append((leg, timed_steps()))
+        finally:
+            attention._qknorm_backward_launch = kernel_backward
     losses = [l["loss"] for l in logs]
     norms = [l["grad_norm"] for l in logs]
     require(all(math.isfinite(x) for x in losses + norms), f"non-finite losses {losses} or grad norms {norms}")
@@ -1992,7 +2098,8 @@ def phase_train(torch, ctx):
         f"[train] MaskGitTrainer bf16 b{TRAIN_BATCH} seq {SEQ} text {TEXT_LEN}x{TEXT_DIM} dim {DIM} depth {DEPTH} "
         f"vocab {VOCAB}, self-cond, EMA: {step_s * 1000:.2f} ms/step over {TRAIN_STEPS} steps after {TRAIN_WARM}, "
         f"{TRAIN_BATCH / step_s:.2f} img/s, MFU {mfu:.2%} ({flops / 1e12:.3f} TFLOP a step at self-cond 0.9), peak "
-        f"{peak_gib:.2f} GiB | launches per step K2 {k2_steps}, K1 = K3 = K4 = 0 | loss "
+        f"{peak_gib:.2f} GiB | launches per step K2 {k2_steps}, K2 backward {bwd_steps}, K1 = K3 = K4 = 0 | "
+        f"in turns, ms/step (5 steps a leg): {', '.join(f'{leg} {ms:.2f}' for leg, ms in ab)} | loss "
         f"{', '.join(f'{x:.4f}' for x in losses)} | grad norm {', '.join(f'{x:.3f}' for x in norms)} | lr "
         f"{lrs}, ... | {ctx['smi']} | built {t_build:.1f}s"
     )
@@ -2092,9 +2199,23 @@ def phase_train(torch, ctx):
     for k, fn in counted.items():
         ctx[k]["launches_per_train_step"] = [s[k] for s in per_step]
     ctx["train_launches"] = train_launches
+    t_self = grad_times[("self", torch.bfloat16)]
+    ctx["k2_backward"] = dict(
+        name="qknorm_attend_backward", route="cuda", source="muse_maskgit_pytorch_tpu_torch/csrc/qknorm_attention_bwd.cu",
+        replaces="none: JAX's _qknorm_bwd (muse_maskgit_pytorch_tpu/ops/attention.py:420) is XLA's vjp of _qknorm_xla",
+        ms=t_self["bwd_ms"], bound_ms=t_self["bwd_bound_ms"], bound_by=t_self["bwd_bound_by"],
+        library_ms=t_self["bwd_library_ms"], plain_ms=t_self["bwd_plain_ms"],
+        max_abs_err=grad_errs[("self", torch.bfloat16)]["bwd vs plain"],
+        launches=train_bwd_launches, launches_per_train_step=bwd_steps,
+        shapes={
+            f"{n}_{str(d)[6:]}": {k: grad_times[(n, d)][k] for k in ("bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by")}
+            for n, d in grad_times
+        },
+    )
     ctx["train"] = dict(
         ms_per_step=step_s * 1000, img_s=TRAIN_BATCH / step_s, mfu=mfu, flops_per_step=flops, peak_gib=peak_gib,
-        losses=losses, grad_norms=norms, k2_launches_per_step=k2_steps,
+        losses=losses, grad_norms=norms, k2_launches_per_step=k2_steps, k2_backward_launches_per_step=bwd_steps,
+        ab_ms_per_step=ab,
         k2_grad={f"{n}_{str(d)[6:]}": dict(grad_times[(n, d)], errs=grad_errs[(n, d)]) for n, d in grad_times},
         f32_step=dict(loss_rel=loss_rel, leaf_err=leaf_err), resume=dict(loss_rel=loss_diff, max_diff=max_diff),
         memorisation=mem, shard_losses=shard_losses,
@@ -2302,7 +2423,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=f"muse_maskgit_pytorch_tpu_torch/csrc/{src}",
             replaces=f"muse_maskgit_pytorch_tpu/ops/{tpu}", **{k: ctx[tag][k] for k in keys},
             **({"routes": ctx["k1_routes"]} if tag == "k1" else {}),
-            **({"shapes": ctx["k2_shapes"]} if tag == "k2" else {}),
+            **({"shapes": ctx["k2_shapes"], "backward": ctx["k2_backward"]} if tag == "k2" else {}),
         )
         for tag, name, src, tpu in rows
     ]

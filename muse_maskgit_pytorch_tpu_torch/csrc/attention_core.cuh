@@ -12,7 +12,9 @@
 // exp(S - running max) is rounded to bf16 before P V, another bf16 product
 // with f32 accumulation; the softmax statistics and the output accumulator
 // stay f32. K2's null key scores s0 = f32(q^) . nk^ in f32 and seeds the
-// online softmax (m0 = s0, l0 = 1, acc0 = nv). Keys past m score -inf, so a
+// online softmax (m0 = s0, l0 = 1, acc0 = nv). Under a gradient K2 also
+// writes each row's logsumexp m + log(l), null included, for its backward
+// (`qknorm_attention_bwd.cu`); K4 and K2's inference route pass no LSE. Keys past m score -inf, so a
 // ragged last tile never counts (K4's fully masked row is the mean of v over
 // its m real keys, as `xla_attention` defines it).
 //
@@ -72,6 +74,7 @@ struct Params {
   const __nv_bfloat16* nv;
   const float* q_scale;      // K2: (D,) learned scales
   const float* k_scale;
+  float* lse;                // K2 under a gradient: (B, H, n) f32 row logsumexp, or null
   long long q_sb, q_sh, q_sn;  // element strides of q over batch, head, row
   long long o_sb, o_sh, o_sn;  // and of the output
   int n, m, H;
@@ -511,6 +514,7 @@ flash_core_kernel(const __grid_constant__ CUtensorMap tmap_k, const __grid_const
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j + 2 * ii] * inv, o[4 * j + 2 * ii + 1] * inv);
+      if (p.lse != nullptr && t == 0) p.lse[(static_cast<long long>(b) * p.H + h) * p.n + qi] = m_r[ii] + logf(l);
     }
   }
 }

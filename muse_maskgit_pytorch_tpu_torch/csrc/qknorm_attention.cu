@@ -1,5 +1,6 @@
 // Fused qk-l2norm attention with a learned null key/value per head, for
-// Hopper (sm_90a). Forward only.
+// Hopper (sm_90a). The forward; under a gradient it also writes each row's
+// logsumexp, which the backward (`qknorm_attention_bwd.cu`) reads.
 //
 // Replaces the TPU kernel `_qknorm_kernel` in
 // muse_maskgit_pytorch_tpu/ops/attention.py (Pallas). From the RAW
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(NT)
 qknorm_attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ nk, const float* __restrict__ nv,
                    const float* __restrict__ q_scale, const float* __restrict__ k_scale,
-                   const float* __restrict__ bias, float* __restrict__ out, int n, int m, int H,
+                   const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ lse, int n, int m, int H,
                    long long q_sb, long long q_sn, long long k_sb, long long k_sm,
                    long long v_sb, long long v_sm, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -210,6 +211,7 @@ qknorm_attn_kernel(const float* __restrict__ q, const float* __restrict__ k, con
     const int qi = q0 + ty * 4 + i;
     if (qi >= n) continue;
     const float inv = 1.0f / lrow[i];
+    if (lse != nullptr && tx == 0) lse[((long long)b * H + h) * n + qi] = mrow[i] + logf(lrow[i]);
     float* o = out + (((long long)b * n + qi) * H + h) * D + tx * 4;
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[j] = acc[i][j] * inv;
@@ -221,7 +223,7 @@ constexpr size_t kSmemBytes = sizeof(float) * (D * QTP + D * KTP + KT * D + KT *
 // bf16 through the Hopper core: k, v as 3-D views {H * D, m, B} with the
 // callers' batch and sequence strides
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* nk, const void* nv,
-                        const void* qs, const void* ks, const void* bias, void* out, int B, int n,
+                        const void* qs, const void* ks, const void* bias, void* out, void* lse, int B, int n,
                         int m, int H, long long q_sb, long long q_sn, long long k_sb, long long k_sm,
                         long long v_sb, long long v_sm, float scale, cudaStream_t stream) {
   namespace ac = attention_core;
@@ -239,6 +241,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   p.nv = static_cast<const __nv_bfloat16*>(nv);
   p.q_scale = static_cast<const float*>(qs);
   p.k_scale = static_cast<const float*>(ks);
+  p.lse = static_cast<float*>(lse);
   p.q_sb = q_sb;
   p.q_sh = D;
   p.q_sn = q_sn;
@@ -256,7 +259,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* nk, const void* nv,
-                       const void* qs, const void* ks, const void* bias, void* out, int B, int n,
+                       const void* qs, const void* ks, const void* bias, void* out, void* lse, int B, int n,
                        int m, int H, long long q_sb, long long q_sn, long long k_sb, long long k_sm,
                        long long v_sb, long long v_sm, float scale, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(qknorm_attn_kernel,
@@ -266,7 +269,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   qknorm_attn_kernel<<<grid, NT, kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(nk), static_cast<const float*>(nv), static_cast<const float*>(qs),
-      static_cast<const float*>(ks), static_cast<const float*>(bias), static_cast<float*>(out), n,
+      static_cast<const float*>(ks), static_cast<const float*>(bias), static_cast<float*>(out),
+      static_cast<float*>(lse), n,
       m, H, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm, scale);
   return cudaGetLastError();
 }
@@ -278,20 +282,21 @@ extern "C" {
 // q (B, n, H, 64), k/v (B, m, H, 64) with unit stride over (H, 64) and the
 // given element strides over batch and sequence; nk/nv (H, 64) contiguous
 // in the inputs' dtype; q_scale/k_scale (64,) f32; bias (B, m) f32 or null;
-// out (B, n, H, 64) contiguous. dtype 0 = f32, 1 = bf16 (bf16: q, k, v
-// 16-byte aligned, their strides multiples of 8 elements).
+// out (B, n, H, 64) contiguous; lse (B, H, n) f32, each row's logsumexp
+// over the null position and the keys, or null. dtype 0 = f32, 1 = bf16
+// (bf16: q, k, v 16-byte aligned, their strides multiples of 8 elements).
 // Returns cudaGetLastError().
 int muse_qknorm_attn_launch(const void* q, const void* k, const void* v, const void* nk,
                             const void* nv, const void* q_scale, const void* k_scale,
-                            const void* bias, void* out, int B, int n, int m, int H,
+                            const void* bias, void* out, void* lse, int B, int n, int m, int H,
                             long long q_sb, long long q_sn, long long k_sb, long long k_sm,
                             long long v_sb, long long v_sm, float scale, int dtype, void* stream) {
   if (B <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_bf16(q, k, v, nk, nv, q_scale, k_scale, bias, out, B, n, m, H, q_sb, q_sn, k_sb,
+    return launch_bf16(q, k, v, nk, nv, q_scale, k_scale, bias, out, lse, B, n, m, H, q_sb, q_sn, k_sb,
                        k_sm, v_sb, v_sm, scale, s);
-  return launch_f32(q, k, v, nk, nv, q_scale, k_scale, bias, out, B, n, m, H, q_sb, q_sn, k_sb,
+  return launch_f32(q, k, v, nk, nv, q_scale, k_scale, bias, out, lse, B, n, m, H, q_sb, q_sn, k_sb,
                     k_sm, v_sb, v_sm, scale, s);
 }
 

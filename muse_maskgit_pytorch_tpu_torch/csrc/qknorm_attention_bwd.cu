@@ -1,0 +1,1042 @@
+// The backward of K2, the fused qk-l2norm attention with a learned null
+// key/value per head, for Hopper (sm_90a).
+//
+// The TPU has no kernel to replace here: JAX's backward of `_qknorm_kernel`
+// (`_qknorm_bwd` in muse_maskgit_pytorch_tpu/ops/attention.py) is XLA's vjp
+// of `_qknorm_xla`, a recompute of the whole attention in plain ops. This is
+// the port's own kernel for the function that vjp computes. Per (batch,
+// head), from the output gradient g (b, n, h, d), with u = t / |t| and
+// r = 1 / |t| (eps 1e-12 inside the rsqrt) for q, k and the null key:
+//   q^ = u_q q_scale scale, k^ = u_k k_scale, nk^ = u_nk k_scale;
+//   P = exp([s0, S + bias] - LSE), the row logsumexp LSE saved by the forward;
+//   D = rowsum(g out); dP = g [nv; v]^T; dS = P (dP - D);
+//   dv = P^T g, d nv = sum P_0 g; dq^ = dS [nk^; k^]; dk^ = dS^T q^,
+//   d nk^ = sum dS_0 q^; through each norm dt = r (w - u (u . w)) with w the
+//   gradient of t^ times its scale; d q_scale = scale sum dq^ u_q,
+//   d k_scale = sum dk^ u_k + sum_h d nk^ u_nk. The key bias gets none.
+//
+// What bounds it on the H100: the bytes, at the base stage's shapes. At d
+// 64 the backward does 10 n m d FLOP a head (S and dP recomputed, dV, dQ,
+// dK) against one read of q, k, v, out and g and one write of dq, dk and
+// dv: about 64 FLOP a byte at 64 keys and 160 at 256, under the 295 at
+// which the tensor cores would set the pace (at the super-res stage's 1024
+// keys, about 300, the two meet). So the design keeps every n x m tensor
+// (S, P, dP, dS) in registers and reads each input a few times at most:
+//   * `prep`: one pass over the rows normalises q and k once into q^ and k^
+//     (rounded to bf16 where the forward rounds them) and takes D from g and
+//     the saved output, so no tile loop redoes a norm.
+//   * `dkdv`: one block per (64 keys, head, batch), key-stationary: k^ and
+//     v stay in shared memory while the query tiles of q^, g, LSE and D
+//     stream past through a two-stage cp.async ring. S^T = k^ q^T and
+//     dP^T = v g^T are `wgmma` products from shared memory; P^T and dS^T are
+//     formed in the accumulator registers, rounded to bf16, and are the A
+//     fragments of dV += P^T g and dK^ += dS^T q^ (`wgmma` with A in
+//     registers, B read MN-major from the same tiles). Its epilogue applies
+//     the chain rule through k's norm and writes dk and dv, and a per-block
+//     partial of d k_scale.
+//   * `dq`: one block per (64 queries, head, batch), query-stationary, the
+//     mirror image over key tiles of k^, v and the key bias: dQ^ += dS k^.
+//     The null column is computed on CUDA cores in f32 (s0 from the rounded
+//     q^ as the forward does, P_0, dS_0); its epilogue applies the chain
+//     rule to dq, and writes per-block partials of d q_scale, d nk^ and d nv.
+//   * `sum_rows` and `reduce`: 128 blocks sum chunks of the partials' rows,
+//     then one block sums the chunks, each in a fixed order, and takes
+//     d nk^ through the null key's norm.
+// No float atomics anywhere: two launches on the same inputs give
+// bit-identical gradients. The tiles arrive by cp.async, not TMA: a block
+// loads two 8 KB tiles per step with all its threads and waits on its own
+// copy groups, so there is no producer warp and no mbarrier to hang on.
+// f32 inputs take CUDA-core kernels of the same structure (4 x 4 register
+// tiles, shared-memory operands in both layouts), simple and not tuned.
+// Rows past n or m are zero-filled and masked by LSE = +inf / bias = -inf;
+// a fully masked row (bias -1e30) or m = 0 gives P = 0 on every key, dq = 0
+// through the keys and all of g to null_v.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "attention_core.cuh"
+
+namespace {
+
+namespace ac = attention_core;
+
+constexpr int D = 64;            // head dim
+constexpr int T = 64;            // rows of a tile (keys or queries)
+constexpr int ROWB = D * 2;      // bytes of one bf16 row, the 128-byte swizzle
+constexpr int TILE = T * ROWB;   // one bf16 tile
+constexpr int NTH = 128;         // bf16 kernels: one warpgroup
+constexpr int EP = D + 4;        // padded row of the f32 epilogue tiles
+constexpr float LOG2E = 1.4426950408889634f;
+
+// -- small helpers ------------------------------------------------------------
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
+  ac::unpack8(*reinterpret_cast<const uint4*>(p), x);
+}
+__device__ __forceinline__ void load8(const float* p, float* x) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* x) {
+  *reinterpret_cast<uint4*>(p) = ac::pack8(x);
+}
+__device__ __forceinline__ void store8(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = ac::pack_bf16(a, b);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a 64-row bf16 tile into the swizzled K-major layout `wgmma` reads: row r
+// from src + r * stride (elements), rows >= rows zero-filled
+__device__ __forceinline__ void tile_async(uint32_t dst, const __nv_bfloat16* src, long long stride, int rows,
+                                           int tid) {
+#pragma unroll
+  for (int it = 0; it < T * 8 / NTH; ++it) {
+    const int c = tid + it * NTH, r = c >> 3, ch = c & 7;
+    const bool ok = r < rows;
+    cp16(dst + ac::swz<ROWB>(r, ch), ok ? src + r * stride + ch * 8 : src, ok);
+  }
+}
+
+// 32 values of row r of a swizzled bf16 tile (half 0: columns 0-31, 1: 32-63)
+__device__ __forceinline__ void tile_row_half(const unsigned char* tile, int r, int half, float* x) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) ac::unpack8(*reinterpret_cast<const uint4*>(tile + ac::swz<ROWB>(r, half * 4 + c)), x + 8 * c);
+}
+__device__ __forceinline__ float tile_at(const unsigned char* tile, int r, int c) {
+  const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(tile + ac::swz<ROWB>(r, c >> 3));
+  return __bfloat162float(p[c & 7]);
+}
+
+// The shared epilogue of `dkdv` and `dq`: acc (rows x 64, f32, two threads
+// a row, half a row each) holds dt^ of `rows` rows starting at row0 of the
+// raw input t (strides t_s). Writes dt = r (w - u (u . w)), w = dt^ * sc,
+// into dst (row stride H * D), and leaves dt^ u in acc for the scale's sum.
+template <typename TT>
+__device__ __forceinline__ void norm_chain_rows(float* acc, const TT* t, long long t_s, int rows, const float* sc,
+                                                TT* dst, long long d_s, int tid, int nthreads) {
+  for (int idx = tid; idx < 2 * T; idx += nthreads) {
+    const int r = idx >> 1, half = idx & 1;
+    float u[32], w[32];
+    float* a = acc + r * EP + half * 32;
+    const bool ok = r < rows;
+    float ss = 0.0f;
+    if (ok) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) load8(t + r * t_s + half * 32 + 8 * c, u + 8 * c);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) u[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) ss += u[e] * u[e];
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    const float rr = rsqrtf(ss + 1e-12f);
+    float uw = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      u[e] *= rr;
+      w[e] = a[e] * sc[half * 32 + e];
+      uw += u[e] * w[e];
+    }
+    uw += __shfl_xor_sync(0xffffffffu, uw, 1);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      a[e] *= u[e];
+      w[e] = rr * (w[e] - u[e] * uw);
+    }
+    if (ok) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) store8(dst + r * d_s + half * 32 + 8 * c, w + 8 * c);
+    }
+  }
+}
+
+// column sums of a (64 x 64, padded) f32 tile in row order, times mul
+__device__ __forceinline__ void column_sums(const float* acc, float* dst, float mul, int tid) {
+  if (tid < D) {
+    float s = 0.0f;
+    for (int r = 0; r < T; ++r) s += acc[r * EP + tid];
+    dst[tid] = s * mul;
+  }
+}
+
+// -- prep: q^, k^ and D ---------------------------------------------------------
+
+// eight threads a row, eight values each; rows 0 .. B n H - 1 are query
+// rows (q^ and D), the rest key rows (k^)
+template <typename TT>
+__global__ void __launch_bounds__(256)
+qknorm_bwd_prep(const TT* __restrict__ q, const TT* __restrict__ k, const TT* __restrict__ g,
+                const TT* __restrict__ out, const float* __restrict__ q_scale, const float* __restrict__ k_scale,
+                TT* __restrict__ qh, TT* __restrict__ kh, float* __restrict__ delta, int B, int n, int m, int H,
+                long long q_sb, long long q_sn, long long k_sb, long long k_sm, long long g_sb, long long g_sn,
+                float scale) {
+  const long long rows_q = (long long)B * n * H, rows = rows_q + (long long)B * m * H;
+  const long long row = blockIdx.x * 32ll + (threadIdx.x >> 3);
+  const int part = threadIdx.x & 7, lane = threadIdx.x & 31;
+  const unsigned mask = 0xffu << (lane & 24);
+  if (row >= rows) return;  // the eight lanes of a row leave together
+  float x[8], ss = 0.0f;
+  const bool is_q = row < rows_q;
+  const long long rr_ = is_q ? row : row - rows_q;
+  const int h = rr_ % H;
+  const long long bi = rr_ / H;  // b * len + i
+  const int len = is_q ? n : m;
+  const int b = bi / len, i = bi % len;
+  if (is_q)
+    load8(q + b * q_sb + i * q_sn + h * D + part * 8, x);
+  else
+    load8(k + b * k_sb + i * k_sm + h * D + part * 8, x);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ss += x[e] * x[e];
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) ss += __shfl_xor_sync(mask, ss, o);
+  const float r = rsqrtf(ss + 1e-12f);
+  if (is_q) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = x[e] * r * (q_scale[part * 8 + e] * scale);
+    store8(qh + row * D + part * 8, x);
+    float gv[8], ov[8], dd = 0.0f;
+    load8(g + b * g_sb + i * g_sn + h * D + part * 8, gv);
+    load8(out + row * D + part * 8, ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dd += gv[e] * ov[e];
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) dd += __shfl_xor_sync(mask, dd, o);
+    if (part == 0) delta[((long long)b * H + h) * n + i] = dd;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = x[e] * r * k_scale[part * 8 + e];
+    store8(kh + rr_ * D + part * 8, x);
+  }
+}
+
+// the arguments every main kernel takes
+template <typename TT>
+struct Bwd {
+  const TT *g, *q, *k, *v, *qh, *kh, *nk, *nv;
+  const float *lse, *delta, *q_scale, *k_scale, *bias;
+  TT *dq, *dk, *dv;
+  float *dqs_part, *dks_part, *dnk_part, *dnv_part;  // per block, (B, tiles, H, D)
+  long long g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm;
+  int n, m, H;
+  float scale;
+};
+
+// -- bf16: dK and dV, key-stationary ------------------------------------------------
+
+struct DkdvSmem {
+  static constexpr int K_OFF = 0, V_OFF = TILE;      // k^, v: resident
+  static constexpr int Q_OFF = 2 * TILE;             // [2] q^ tiles
+  static constexpr int G_OFF = 4 * TILE;             // [2] g tiles
+  static constexpr int LSE_OFF = 6 * TILE;           // [2][T] f32, LSE * log2(e)
+  static constexpr int DEL_OFF = LSE_OFF + 2 * T * 4;  // [2][T] f32
+  static constexpr int BYTES = DEL_OFF + 2 * T * 4;
+  static constexpr int ALLOC = BYTES + 1024;
+  static_assert(2 * TILE * 2 >= T * EP * 4, "the epilogue tile reuses the q^ and g stages");
+};
+
+__global__ void __launch_bounds__(NTH, 2) qknorm_bwd_dkdv_bf16(const Bwd<__nv_bfloat16> p) {
+  using L = DkdvSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (ac::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = ac::smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int key0 = kt * T, keys = min(T, p.m - key0);
+  const int nqt = (p.n + T - 1) / T;
+  const long long hd = (long long)p.H * D;
+
+  const __nv_bfloat16* qh = p.qh + (long long)b * p.n * hd + h * D;
+  const __nv_bfloat16* g = p.g + b * p.g_sb + h * D;
+  const float* lse = p.lse + ((long long)b * p.H + h) * p.n;
+  const float* del = p.delta + ((long long)b * p.H + h) * p.n;
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* del_s = reinterpret_cast<float*>(smem + L::DEL_OFF);
+
+  auto load_q_tile = [&](int i) {
+    const int s = i & 1, q0 = i * T, rows = min(T, p.n - q0);
+    tile_async(sbase + L::Q_OFF + s * TILE, qh + q0 * hd, hd, rows, tid);
+    tile_async(sbase + L::G_OFF + s * TILE, g + q0 * p.g_sn, p.g_sn, rows, tid);
+    if (tid < T) {
+      const bool ok = tid < rows;
+      lse_s[s * T + tid] = ok ? lse[q0 + tid] * LOG2E : INFINITY;
+      del_s[s * T + tid] = ok ? del[q0 + tid] : 0.0f;
+    }
+  };
+
+  tile_async(sbase + L::K_OFF, p.kh + ((long long)b * p.m + key0) * hd + h * D, hd, keys, tid);
+  tile_async(sbase + L::V_OFF, p.v + b * p.v_sb + key0 * p.v_sm + h * D, p.v_sm, keys, tid);
+  load_q_tile(0);
+  cp_commit();
+
+  // accumulator fragment: rows (keys) rw, rw + 8; columns 8 j + 2 t + {0, 1}
+  const int gq = lane >> 2, t = lane & 3;
+  const int rw = warp * 16 + gq;
+  float kb2[2];
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int key = key0 + rw + 8 * ii;
+    kb2[ii] = key < p.m ? (p.bias ? p.bias[(long long)b * p.m + key] : 0.0f) * LOG2E : -INFINITY;
+  }
+  float dv[32], dk[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dv[e] = dk[e] = 0.0f;
+
+  const uint32_t kaddr = sbase + L::K_OFF, vaddr = sbase + L::V_OFF;
+  for (int i = 0; i < nqt; ++i) {
+    const int s = i & 1;
+    if (i + 1 < nqt) {
+      load_q_tile(i + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    ac::fence_async_smem();
+    __syncthreads();
+    const uint32_t qaddr = sbase + L::Q_OFF + s * TILE, gaddr = sbase + L::G_OFF + s * TILE;
+
+    // S^T = k^ q^T and dP^T = v g^T (64 keys x 64 queries)
+    float sc[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
+    ac::fence_operands(sc);
+    ac::fence_operands(dp);
+    ac::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ac::wgmma_ss_n64(sc, ac::desc_kmajor<ROWB>(kaddr + kk * 32), ac::desc_kmajor<ROWB>(qaddr + kk * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ac::wgmma_ss_n64(dp, ac::desc_kmajor<ROWB>(vaddr + kk * 32), ac::desc_kmajor<ROWB>(gaddr + kk * 32), kk > 0);
+    ac::wgmma_commit();
+    ac::wgmma_wait_all();
+    ac::fence_operands(sc);
+    ac::fence_operands(dp);
+
+    // P^T = exp(S^T + bias - LSE), dS^T = P^T (dP^T - D)
+    const float* ls = lse_s + s * T;
+    const float* ds_ = del_s + s * T;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const float pe = exp2f(fmaf(sc[4 * j + e], LOG2E, kb2[e >> 1]) - ls[col]);
+        sc[4 * j + e] = pe;
+        dp[4 * j + e] = pe * (dp[4 * j + e] - ds_[col]);
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pa[kc][e] = ac::pack_bf16(sc[8 * kc + 2 * e], sc[8 * kc + 2 * e + 1]);
+        da[kc][e] = ac::pack_bf16(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1]);
+      }
+    }
+    // dV += P^T g, dK^ += dS^T q^ (B MN-major: 16 query rows a step)
+    ac::fence_operands(dv);
+    ac::fence_operands(dk);
+    ac::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) ac::wgmma_rs(dv, pa[kc], ac::desc_mnmajor<ROWB>(gaddr + kc * 16 * ROWB));
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) ac::wgmma_rs(dk, da[kc], ac::desc_mnmajor<ROWB>(qaddr + kc * 16 * ROWB));
+    ac::wgmma_commit();
+    ac::wgmma_wait_all();
+    ac::fence_operands(dv);
+    ac::fence_operands(dk);
+    __syncthreads();  // stage s is read; the next iteration's load may overwrite it
+  }
+
+  // dv as it is; dk^ through an f32 tile for k's norm and the k_scale partial
+  float* acc = reinterpret_cast<float*>(smem + L::Q_OFF);
+  __nv_bfloat16* dvp = p.dv + ((long long)b * p.m + key0) * hd + h * D;
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int r = rw + 8 * ii;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (r < keys) store2(dvp + r * hd + c, dv[4 * j + 2 * ii], dv[4 * j + 2 * ii + 1]);
+      acc[r * EP + c] = dk[4 * j + 2 * ii];
+      acc[r * EP + c + 1] = dk[4 * j + 2 * ii + 1];
+    }
+  }
+  __syncthreads();
+  norm_chain_rows(acc, p.k + b * p.k_sb + key0 * p.k_sm + h * D, p.k_sm, keys, p.k_scale,
+                  p.dk + ((long long)b * p.m + key0) * hd + h * D, hd, tid, NTH);
+  __syncthreads();
+  column_sums(acc, p.dks_part + (((long long)b * gridDim.x + kt) * p.H + h) * D, 1.0f, tid);
+}
+
+// -- bf16: dQ, query-stationary, and the null column ----------------------------------
+
+struct DqSmem {
+  static constexpr int Q_OFF = 0, G_OFF = TILE;       // q^, g: resident
+  static constexpr int K_OFF = 2 * TILE;              // [2] k^ tiles
+  static constexpr int V_OFF = 4 * TILE;              // [2] v tiles
+  static constexpr int BIAS_OFF = 6 * TILE;           // [2][T] f32, bias * log2(e)
+  static constexpr int VEC_OFF = BIAS_OFF + 2 * T * 4;  // nk^, nv, q_scale * scale [D]; P_0, dS_0 [T]
+  static constexpr int BYTES = VEC_OFF + (3 * D + 2 * T) * 4;
+  static constexpr int ALLOC = BYTES + 1024;
+  static_assert(4 * TILE >= T * EP * 4, "the epilogue tile reuses the k^ and v stages");
+};
+
+__global__ void __launch_bounds__(NTH, 2) qknorm_bwd_dq_bf16(const Bwd<__nv_bfloat16> p) {
+  using L = DqSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (ac::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = ac::smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * T, rows = min(T, p.n - q0);
+  const int nkt = (p.m + T - 1) / T;
+  const long long hd = (long long)p.H * D;
+  float* bias_s = reinterpret_cast<float*>(smem + L::BIAS_OFF);
+  float* nkh = reinterpret_cast<float*>(smem + L::VEC_OFF);
+  float* nvs = nkh + D;
+  float* qsc = nvs + D;
+  float* p0s = qsc + D;
+  float* ds0s = p0s + T;
+
+  const __nv_bfloat16* kh = p.kh + (long long)b * p.m * hd + h * D;
+  const __nv_bfloat16* v = p.v + b * p.v_sb + h * D;
+  const float* brow = p.bias ? p.bias + (long long)b * p.m : nullptr;
+  auto load_k_tile = [&](int i) {
+    const int s = i & 1, k0 = i * T, keys = min(T, p.m - k0);
+    tile_async(sbase + L::K_OFF + s * TILE, kh + k0 * hd, hd, keys, tid);
+    tile_async(sbase + L::V_OFF + s * TILE, v + k0 * p.v_sm, p.v_sm, keys, tid);
+    if (tid < T) bias_s[s * T + tid] = tid < keys ? (brow ? brow[k0 + tid] : 0.0f) * LOG2E : -INFINITY;
+  };
+
+  tile_async(sbase + L::Q_OFF, p.qh + ((long long)b * p.n + q0) * hd + h * D, hd, rows, tid);
+  tile_async(sbase + L::G_OFF, p.g + b * p.g_sb + q0 * p.g_sn + h * D, p.g_sn, rows, tid);
+  cp_commit();
+  if (nkt > 0) {
+    load_k_tile(0);
+    cp_commit();
+  }
+  if (tid < D) qsc[tid] = p.q_scale[tid] * p.scale;
+  if (warp == 0) {  // the null key, normalised and scaled in f32, as the forward does
+    const float a0 = __bfloat162float(p.nk[h * D + lane]), a1 = __bfloat162float(p.nk[h * D + lane + 32]);
+    const float r = rsqrtf(warp_sum(a0 * a0 + a1 * a1) + 1e-12f);
+    nkh[lane] = a0 * r * p.k_scale[lane];
+    nkh[lane + 32] = a1 * r * p.k_scale[lane + 32];
+    nvs[lane] = __bfloat162float(p.nv[h * D + lane]);
+    nvs[lane + 32] = __bfloat162float(p.nv[h * D + lane + 32]);
+  }
+  if (nkt > 0)
+    cp_wait<1>();
+  else
+    cp_wait<0>();
+  ac::fence_async_smem();
+  __syncthreads();
+
+  // the null column of each row: two threads a row
+  const float* lse = p.lse + ((long long)b * p.H + h) * p.n + q0;
+  const float* del = p.delta + ((long long)b * p.H + h) * p.n + q0;
+  {
+    const int r = tid >> 1, half = tid & 1;
+    float qv[32], gv[32];
+    tile_row_half(smem + L::Q_OFF, r, half, qv);
+    tile_row_half(smem + L::G_OFF, r, half, gv);
+    float s0 = 0.0f, dp0 = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s0 += qv[e] * nkh[half * 32 + e];
+      dp0 += gv[e] * nvs[half * 32 + e];
+    }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    dp0 += __shfl_xor_sync(0xffffffffu, dp0, 1);
+    if (half == 0) {
+      const bool ok = r < rows;
+      const float p0 = ok ? exp2f(s0 * LOG2E - lse[r] * LOG2E) : 0.0f;
+      p0s[r] = p0;
+      ds0s[r] = ok ? p0 * (dp0 - del[r]) : 0.0f;
+    }
+  }
+  __syncthreads();
+  {  // d nv and d nk^ partials of this block: sum over its rows, in row order
+    const int c = tid & (D - 1);
+    const bool is_nv = tid < D;
+    const float* w = is_nv ? p0s : ds0s;
+    const unsigned char* tile = smem + (is_nv ? L::G_OFF : L::Q_OFF);
+    float s = 0.0f;
+    for (int r = 0; r < T; ++r) s += w[r] * tile_at(tile, r, c);
+    float* dst = is_nv ? p.dnv_part : p.dnk_part;
+    dst[(((long long)b * gridDim.x + qt) * p.H + h) * D + c] = s;
+  }
+
+  // accumulator fragment: rows (queries) rw, rw + 8; columns 8 j + 2 t + {0, 1}
+  const int gq = lane >> 2, t = lane & 3;
+  const int rw = warp * 16 + gq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int r = rw + 8 * ii;
+    lse2[ii] = r < rows ? lse[r] * LOG2E : INFINITY;
+    dl[ii] = r < rows ? del[r] : 0.0f;
+  }
+  float dq[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dq[e] = 0.0f;
+  const uint32_t qaddr = sbase + L::Q_OFF, gaddr = sbase + L::G_OFF;
+
+  for (int i = 0; i < nkt; ++i) {
+    const int s = i & 1;
+    cp_wait<0>();  // tile i, the one group in flight
+    ac::fence_async_smem();
+    __syncthreads();
+    if (i + 1 < nkt) {  // into the stage of tile i - 1, released by the barrier at its end
+      load_k_tile(i + 1);
+      cp_commit();
+    }
+    const uint32_t kaddr = sbase + L::K_OFF + s * TILE, vaddr = sbase + L::V_OFF + s * TILE;
+
+    float sc[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
+    ac::fence_operands(sc);
+    ac::fence_operands(dp);
+    ac::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ac::wgmma_ss_n64(sc, ac::desc_kmajor<ROWB>(qaddr + kk * 32), ac::desc_kmajor<ROWB>(kaddr + kk * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ac::wgmma_ss_n64(dp, ac::desc_kmajor<ROWB>(gaddr + kk * 32), ac::desc_kmajor<ROWB>(vaddr + kk * 32), kk > 0);
+    ac::wgmma_commit();
+    ac::wgmma_wait_all();
+    ac::fence_operands(sc);
+    ac::fence_operands(dp);
+
+    const float* bs = bias_s + s * T;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const float pe = exp2f(fmaf(sc[4 * j + e], LOG2E, bs[col]) - lse2[e >> 1]);
+        dp[4 * j + e] = pe * (dp[4 * j + e] - dl[e >> 1]);
+      }
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) da[kc][e] = ac::pack_bf16(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1]);
+    }
+    // dQ^ += dS k^ (B MN-major: 16 key rows a step)
+    ac::fence_operands(dq);
+    ac::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) ac::wgmma_rs(dq, da[kc], ac::desc_mnmajor<ROWB>(kaddr + kc * 16 * ROWB));
+    ac::wgmma_commit();
+    ac::wgmma_wait_all();
+    ac::fence_operands(dq);
+    __syncthreads();  // stage s is read
+  }
+
+  // dq^ += dS_0 nk^, then q's norm and the q_scale partial through an f32 tile
+  float* acc = reinterpret_cast<float*>(smem + L::K_OFF);
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int r = rw + 8 * ii;
+    const float d0 = ds0s[r];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      acc[r * EP + c] = fmaf(d0, nkh[c], dq[4 * j + 2 * ii]);
+      acc[r * EP + c + 1] = fmaf(d0, nkh[c + 1], dq[4 * j + 2 * ii + 1]);
+    }
+  }
+  __syncthreads();
+  norm_chain_rows(acc, p.q + b * p.q_sb + q0 * p.q_sn + h * D, p.q_sn, rows, qsc,
+                  p.dq + ((long long)b * p.n + q0) * hd + h * D, hd, tid, NTH);
+  __syncthreads();
+  column_sums(acc, p.dqs_part + (((long long)b * gridDim.x + qt) * p.H + h) * D, p.scale, tid);
+}
+
+// -- f32: the same two kernels on CUDA cores ------------------------------------------
+
+constexpr int FT = 256;     // threads: 16 x 16, each a 4 x 4 tile
+constexpr int TP = T + 4;   // padded row of the f32 operand tiles
+constexpr int FTILE = T * TP;
+
+// acc[i][j] = sum_c A[c][ty 4 + i] B[c][tx 4 + j] over 64 c; A, B [64][TP]
+__device__ __forceinline__ void mm_4x4(float (&acc)[4][4], const float* A, const float* B, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+#pragma unroll 8
+  for (int c = 0; c < T; ++c) {
+    const float4 a = *reinterpret_cast<const float4*>(A + c * TP + ty * 4);
+    const float4 bb = *reinterpret_cast<const float4*>(B + c * TP + tx * 4);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+__device__ __forceinline__ void mm_4x4_add(float (&acc)[4][4], const float* A, const float* B, int ty, int tx) {
+  float part[4][4];
+  mm_4x4(part, A, B, ty, tx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+}
+
+// 64 rows of an f32 (rows, 64) view into a row-major tile [r][c] and/or a
+// transposed one [c][r] (either may be null); rows >= rows are zero
+__device__ __forceinline__ void f32_tile(const float* src, long long stride, int rows, float* straight, float* tr,
+                                         int tid) {
+  for (int idx = tid; idx < T * D / 4; idx += FT) {
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < rows) x = *reinterpret_cast<const float4*>(src + r * stride + c);
+    if (straight) *reinterpret_cast<float4*>(straight + r * TP + c) = x;
+    if (tr) {
+      tr[(c + 0) * TP + r] = x.x;
+      tr[(c + 1) * TP + r] = x.y;
+      tr[(c + 2) * TP + r] = x.z;
+      tr[(c + 3) * TP + r] = x.w;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FT) qknorm_bwd_dkdv_f32(const Bwd<float> p) {
+  extern __shared__ __align__(16) float fs[];
+  float* Kt = fs;              // [c][key] k^
+  float* Vt = Kt + FTILE;      // [c][key] v
+  float* Qt = Vt + FTILE;      // [c][q] q^
+  float* Gt = Qt + FTILE;      // [c][q] g
+  float* Qs = Gt + FTILE;      // [q][c] q^
+  float* Gs = Qs + FTILE;      // [q][c] g
+  float* Pt = Gs + FTILE;      // [q][key] P
+  float* St = Pt + FTILE;      // [q][key] dS
+  float* lse_s = St + FTILE;   // [T]
+  float* del_s = lse_s + T;    // [T]
+  float* kb_s = del_s + T;     // [T]
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int key0 = kt * T, keys = min(T, p.m - key0);
+  const long long hd = (long long)p.H * D;
+  const float* lse = p.lse + ((long long)b * p.H + h) * p.n;
+  const float* del = p.delta + ((long long)b * p.H + h) * p.n;
+
+  f32_tile(p.kh + ((long long)b * p.m + key0) * hd + h * D, hd, keys, nullptr, Kt, tid);
+  f32_tile(p.v + b * p.v_sb + key0 * p.v_sm + h * D, p.v_sm, keys, nullptr, Vt, tid);
+  if (tid < T) {
+    const int key = key0 + tid;
+    kb_s[tid] = key < p.m ? (p.bias ? p.bias[(long long)b * p.m + key] : 0.0f) : -INFINITY;
+  }
+  float dv[4][4] = {}, dk[4][4] = {};
+  for (int q0 = 0; q0 < p.n; q0 += T) {
+    const int rows = min(T, p.n - q0);
+    __syncthreads();
+    f32_tile(p.qh + ((long long)b * p.n + q0) * hd + h * D, hd, rows, Qs, Qt, tid);
+    f32_tile(p.g + b * p.g_sb + q0 * p.g_sn + h * D, p.g_sn, rows, Gs, Gt, tid);
+    if (tid < T) {
+      lse_s[tid] = tid < rows ? lse[q0 + tid] : INFINITY;
+      del_s[tid] = tid < rows ? del[q0 + tid] : 0.0f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    mm_4x4(s, Kt, Qt, ty, tx);
+    mm_4x4(dp, Vt, Gt, ty, tx);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qc = tx * 4 + j;
+      float pv[4], sv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = expf(s[i][j] + kb_s[ty * 4 + i] - lse_s[qc]);
+        sv[i] = pv[i] * (dp[i][j] - del_s[qc]);
+      }
+      *reinterpret_cast<float4*>(Pt + qc * TP + ty * 4) = make_float4(pv[0], pv[1], pv[2], pv[3]);
+      *reinterpret_cast<float4*>(St + qc * TP + ty * 4) = make_float4(sv[0], sv[1], sv[2], sv[3]);
+    }
+    __syncthreads();
+    mm_4x4_add(dv, Pt, Gs, ty, tx);
+    mm_4x4_add(dk, St, Qs, ty, tx);
+  }
+  __syncthreads();
+  float* acc = Qt;  // [key][c], EP == TP
+  float* dvp = p.dv + ((long long)b * p.m + key0) * hd + h * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r * EP + tx * 4 + j] = dk[i][j];
+    if (r < keys)
+      *reinterpret_cast<float4*>(dvp + r * hd + tx * 4) = make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]);
+  }
+  __syncthreads();
+  norm_chain_rows(acc, p.k + b * p.k_sb + key0 * p.k_sm + h * D, p.k_sm, keys, p.k_scale,
+                  p.dk + ((long long)b * p.m + key0) * hd + h * D, hd, tid, FT);
+  __syncthreads();
+  column_sums(acc, p.dks_part + (((long long)b * gridDim.x + kt) * p.H + h) * D, 1.0f, tid);
+}
+
+__global__ void __launch_bounds__(FT) qknorm_bwd_dq_f32(const Bwd<float> p) {
+  extern __shared__ __align__(16) float fs[];
+  float* Qt = fs;              // [c][q] q^
+  float* Gt = Qt + FTILE;      // [c][q] g
+  float* Kt = Gt + FTILE;      // [c][key] k^
+  float* Vt = Kt + FTILE;      // [c][key] v
+  float* Ks = Vt + FTILE;      // [key][c] k^
+  float* St = Ks + FTILE;      // [key][q] dS
+  float* kb_s = St + FTILE;    // [T]
+  float* lse_s = kb_s + T;     // [T]
+  float* del_s = lse_s + T;    // [T]
+  float* p0s = del_s + T;      // [T]
+  float* ds0s = p0s + T;       // [T]
+  float* nkh = ds0s + T;       // [D]
+  float* nvs = nkh + D;        // [D]
+  float* qsc = nvs + D;        // [D]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ty = tid >> 4, tx = tid & 15;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * T, rows = min(T, p.n - q0);
+  const long long hd = (long long)p.H * D;
+  const float* lse = p.lse + ((long long)b * p.H + h) * p.n + q0;
+  const float* del = p.delta + ((long long)b * p.H + h) * p.n + q0;
+
+  f32_tile(p.qh + ((long long)b * p.n + q0) * hd + h * D, hd, rows, nullptr, Qt, tid);
+  f32_tile(p.g + b * p.g_sb + q0 * p.g_sn + h * D, p.g_sn, rows, nullptr, Gt, tid);
+  if (tid < T) {
+    lse_s[tid] = tid < rows ? lse[tid] : INFINITY;
+    del_s[tid] = tid < rows ? del[tid] : 0.0f;
+  }
+  if (tid < D) qsc[tid] = p.q_scale[tid] * p.scale;
+  if (warp == 0) {
+    const float a0 = p.nk[h * D + lane], a1 = p.nk[h * D + lane + 32];
+    const float r = rsqrtf(warp_sum(a0 * a0 + a1 * a1) + 1e-12f);
+    nkh[lane] = a0 * r * p.k_scale[lane];
+    nkh[lane + 32] = a1 * r * p.k_scale[lane + 32];
+    nvs[lane] = p.nv[h * D + lane];
+    nvs[lane + 32] = p.nv[h * D + lane + 32];
+  }
+  __syncthreads();
+  for (int r = warp; r < T; r += FT / 32) {  // the null column: one warp a row
+    const float s0 = warp_sum(Qt[lane * TP + r] * nkh[lane] + Qt[(lane + 32) * TP + r] * nkh[lane + 32]);
+    const float dp0 = warp_sum(Gt[lane * TP + r] * nvs[lane] + Gt[(lane + 32) * TP + r] * nvs[lane + 32]);
+    if (lane == 0) {
+      const float p0 = r < rows ? expf(s0 - lse_s[r]) : 0.0f;
+      p0s[r] = p0;
+      ds0s[r] = r < rows ? p0 * (dp0 - del_s[r]) : 0.0f;
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * D) {
+    const int c = tid & (D - 1);
+    const bool is_nv = tid < D;
+    const float* w = is_nv ? p0s : ds0s;
+    const float* tile = is_nv ? Gt : Qt;
+    float s = 0.0f;
+    for (int r = 0; r < T; ++r) s += w[r] * tile[c * TP + r];
+    float* dst = is_nv ? p.dnv_part : p.dnk_part;
+    dst[(((long long)b * gridDim.x + qt) * p.H + h) * D + c] = s;
+  }
+
+  float dq[4][4] = {};
+  const float* brow = p.bias ? p.bias + (long long)b * p.m : nullptr;
+  for (int k0 = 0; k0 < p.m; k0 += T) {
+    const int keys = min(T, p.m - k0);
+    __syncthreads();
+    f32_tile(p.kh + ((long long)b * p.m + k0) * hd + h * D, hd, keys, Ks, Kt, tid);
+    f32_tile(p.v + b * p.v_sb + k0 * p.v_sm + h * D, p.v_sm, keys, nullptr, Vt, tid);
+    if (tid < T) kb_s[tid] = tid < keys ? (brow ? brow[k0 + tid] : 0.0f) : -INFINITY;
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    mm_4x4(s, Qt, Kt, ty, tx);
+    mm_4x4(dp, Gt, Vt, ty, tx);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = tx * 4 + j;
+      float sv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pe = expf(s[i][j] + kb_s[kc] - lse_s[ty * 4 + i]);
+        sv[i] = pe * (dp[i][j] - del_s[ty * 4 + i]);
+      }
+      *reinterpret_cast<float4*>(St + kc * TP + ty * 4) = make_float4(sv[0], sv[1], sv[2], sv[3]);
+    }
+    __syncthreads();
+    mm_4x4_add(dq, St, Ks, ty, tx);
+  }
+  __syncthreads();
+  float* acc = Kt;  // [q][c]
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r * EP + tx * 4 + j] = fmaf(ds0s[r], nkh[tx * 4 + j], dq[i][j]);
+  }
+  __syncthreads();
+  norm_chain_rows(acc, p.q + b * p.q_sb + q0 * p.q_sn + h * D, p.q_sn, rows, qsc,
+                  p.dq + ((long long)b * p.n + q0) * hd + h * D, hd, tid, FT);
+  __syncthreads();
+  column_sums(acc, p.dqs_part + (((long long)b * gridDim.x + qt) * p.H + h) * D, p.scale, tid);
+}
+
+// -- the partials, in a fixed order -------------------------------------------------------
+
+constexpr int CH = 32;          // row chunks of the first stage
+constexpr int RT = 512;         // threads of the second stage
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// First stage, grid (CH, 4): block (c, a) sums chunk c of the rows of
+// partial a in row order into stage[a][c]. The partials are f32 (tiles, H,
+// D): a = 0 d q_scale and a = 1 d k_scale as (tiles x H) rows of D columns;
+// a = 2 d nv and a = 3 d nk^ as tiles rows of H x D columns. q_tiles =
+// B x query tiles, k_tiles = B x key tiles.
+__global__ void __launch_bounds__(256)
+qknorm_bwd_sum_rows(const float* __restrict__ dqs_part, const float* __restrict__ dks_part,
+                    const float* __restrict__ dnv_part, const float* __restrict__ dnk_part, float* __restrict__ stage,
+                    int q_tiles, int k_tiles, int H) {
+  const int c = blockIdx.x, a = blockIdx.y;
+  const float* src = a == 0 ? dqs_part : a == 1 ? dks_part : a == 2 ? dnv_part : dnk_part;
+  const long long rows = a == 0 ? (long long)q_tiles * H : a == 1 ? (long long)k_tiles * H : q_tiles;
+  const int width = a < 2 ? D : H * D;
+  const long long per = (rows + CH - 1) / CH;
+  const long long r0 = min(rows, c * per), r1 = min(rows, r0 + per);
+  float* dst = stage + ((long long)a * CH + c) * H * D;
+  for (int col = threadIdx.x; col < width; col += blockDim.x) {
+    float sum = 0.0f;
+    for (long long r = r0; r < r1; ++r) sum += src[r * width + col];
+    dst[col] = sum;
+  }
+}
+
+// Second stage, one block: the CH chunks of each partial in order, d nk^
+// through the null key's norm, and its share of d k_scale.
+template <typename TT>
+__global__ void __launch_bounds__(RT)
+qknorm_bwd_reduce(const float* __restrict__ stage, const TT* __restrict__ nk, const float* __restrict__ k_scale,
+                  float* __restrict__ dqs, float* __restrict__ dks, float* __restrict__ dnk, float* __restrict__ dnv,
+                  int H) {
+  extern __shared__ float rs[];
+  float* dnkh = rs;             // [H][D] d nk^
+  float* contrib = rs + H * D;  // [H][D] d nk^ u_nk
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long hd = (long long)H * D, plane = CH * hd;
+  for (int idx = tid; idx < H * D; idx += RT) {
+    float a = 0.0f, b = 0.0f;
+    for (int c = 0; c < CH; ++c) {
+      a += stage[2 * plane + c * hd + idx];
+      b += stage[3 * plane + c * hd + idx];
+    }
+    dnv[idx] = a;
+    dnkh[idx] = b;
+  }
+  __syncthreads();
+  for (int h = warp; h < H; h += RT / 32) {  // d null_k through its norm
+    float u[2], w[2], ss = 0.0f, uw = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      u[e] = to_f(nk[h * D + lane + 32 * e]);
+      ss += u[e] * u[e];
+    }
+    const float r = rsqrtf(warp_sum(ss) + 1e-12f);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cc = lane + 32 * e;
+      u[e] *= r;
+      w[e] = dnkh[h * D + cc] * k_scale[cc];
+      uw += u[e] * w[e];
+      contrib[h * D + cc] = dnkh[h * D + cc] * u[e];
+    }
+    uw = warp_sum(uw);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) dnk[h * D + lane + 32 * e] = r * (w[e] - u[e] * uw);
+  }
+  __syncthreads();
+  if (tid < D) {
+    float sq = 0.0f, sk = 0.0f;
+    for (int c = 0; c < CH; ++c) {
+      sq += stage[c * hd + tid];
+      sk += stage[plane + c * hd + tid];
+    }
+    for (int h = 0; h < H; ++h) sk += contrib[h * D + tid];
+    dqs[tid] = sq;
+    dks[tid] = sk;
+  }
+}
+
+// -- host side ------------------------------------------------------------------
+
+inline size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
+
+struct Workspace {
+  size_t qh, kh, delta, dqs_part, dks_part, dnk_part, dnv_part, stage, bytes;
+};
+
+inline Workspace workspace(int B, int n, int m, int H, int esize) {
+  const size_t nqt = (n + T - 1) / T, nkt = (m + T - 1) / T;
+  Workspace w;
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    const size_t here = at;
+    at += align256(bytes);
+    return here;
+  };
+  w.qh = take((size_t)B * n * H * D * esize);
+  w.kh = take((size_t)B * m * H * D * esize);
+  w.delta = take((size_t)B * H * n * 4);
+  w.dqs_part = take((size_t)B * nqt * H * D * 4);
+  w.dks_part = take((size_t)B * nkt * H * D * 4);
+  w.dnk_part = take((size_t)B * nqt * H * D * 4);
+  w.dnv_part = take((size_t)B * nqt * H * D * 4);
+  w.stage = take((size_t)4 * CH * H * D * 4);
+  w.bytes = at;
+  return w;
+}
+
+template <typename TT>
+cudaError_t launch_all(const void* g, const void* q, const void* k, const void* v, const void* out, const float* lse,
+                       const void* nk, const void* nv, const float* qs, const float* ks, const float* bias, void* dq,
+                       void* dk, void* dv, float* dnk, float* dnv, float* dqs, float* dks, unsigned char* ws, int B,
+                       int n, int m, int H, long long g_sb, long long g_sn, long long q_sb, long long q_sn,
+                       long long k_sb, long long k_sm, long long v_sb, long long v_sm, float scale,
+                       cudaStream_t stream) {
+  constexpr bool BF16 = sizeof(TT) == 2;
+  const Workspace w = workspace(B, n, m, H, sizeof(TT));
+  const int nqt = (n + T - 1) / T, nkt = (m + T - 1) / T;
+  Bwd<TT> p = {};
+  p.g = static_cast<const TT*>(g);
+  p.q = static_cast<const TT*>(q);
+  p.k = static_cast<const TT*>(k);
+  p.v = static_cast<const TT*>(v);
+  p.qh = reinterpret_cast<const TT*>(ws + w.qh);
+  p.kh = reinterpret_cast<const TT*>(ws + w.kh);
+  p.nk = static_cast<const TT*>(nk);
+  p.nv = static_cast<const TT*>(nv);
+  p.lse = lse;
+  p.delta = reinterpret_cast<const float*>(ws + w.delta);
+  p.q_scale = qs;
+  p.k_scale = ks;
+  p.bias = bias;
+  p.dq = static_cast<TT*>(dq);
+  p.dk = static_cast<TT*>(dk);
+  p.dv = static_cast<TT*>(dv);
+  p.dqs_part = reinterpret_cast<float*>(ws + w.dqs_part);
+  p.dks_part = reinterpret_cast<float*>(ws + w.dks_part);
+  p.dnk_part = reinterpret_cast<float*>(ws + w.dnk_part);
+  p.dnv_part = reinterpret_cast<float*>(ws + w.dnv_part);
+  p.g_sb = g_sb, p.g_sn = g_sn, p.q_sb = q_sb, p.q_sn = q_sn;
+  p.k_sb = k_sb, p.k_sm = k_sm, p.v_sb = v_sb, p.v_sm = v_sm;
+  p.n = n, p.m = m, p.H = H, p.scale = scale;
+
+  const long long rows = (long long)B * (n + m) * H;
+  qknorm_bwd_prep<TT><<<(unsigned)((rows + 31) / 32), 256, 0, stream>>>(
+      p.q, p.k, p.g, static_cast<const TT*>(out), qs, ks, const_cast<TT*>(p.qh), const_cast<TT*>(p.kh),
+      const_cast<float*>(p.delta), B, n, m, H, q_sb, q_sn, k_sb, k_sm, g_sb, g_sn, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  if constexpr (BF16) {
+    if (nkt > 0) {
+      e = cudaFuncSetAttribute(qknorm_bwd_dkdv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, DkdvSmem::ALLOC);
+      if (e != cudaSuccess) return e;
+      qknorm_bwd_dkdv_bf16<<<dim3(nkt, H, B), NTH, DkdvSmem::ALLOC, stream>>>(p);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    e = cudaFuncSetAttribute(qknorm_bwd_dq_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, DqSmem::ALLOC);
+    if (e != cudaSuccess) return e;
+    qknorm_bwd_dq_bf16<<<dim3(nqt, H, B), NTH, DqSmem::ALLOC, stream>>>(p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  } else {
+    constexpr int KV_SMEM = (8 * FTILE + 3 * T) * 4;
+    constexpr int Q_SMEM = (6 * FTILE + 5 * T + 3 * D) * 4;
+    if (nkt > 0) {
+      e = cudaFuncSetAttribute(qknorm_bwd_dkdv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM);
+      if (e != cudaSuccess) return e;
+      qknorm_bwd_dkdv_f32<<<dim3(nkt, H, B), FT, KV_SMEM, stream>>>(p);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    e = cudaFuncSetAttribute(qknorm_bwd_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM);
+    if (e != cudaSuccess) return e;
+    qknorm_bwd_dq_f32<<<dim3(nqt, H, B), FT, Q_SMEM, stream>>>(p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+
+  float* stage = reinterpret_cast<float*>(ws + w.stage);
+  qknorm_bwd_sum_rows<<<dim3(CH, 4), 256, 0, stream>>>(p.dqs_part, p.dks_part, p.dnv_part, p.dnk_part, stage,
+                                                       B * nqt, B * nkt, H);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  qknorm_bwd_reduce<TT><<<1, RT, 2 * H * D * 4, stream>>>(stage, p.nk, ks, dqs, dks, dnk, dnv, H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of the scratch buffer `muse_qknorm_attn_bwd_launch` takes.
+long long muse_qknorm_attn_bwd_workspace(int B, int n, int m, int H, int dtype) {
+  return static_cast<long long>(workspace(B, n, m, H, dtype == 1 ? 2 : 4).bytes);
+}
+
+// g (B, n, H, 64), q (B, n, H, 64), k/v (B, m, H, 64): unit stride over
+// (H, 64), the given element strides over batch and sequence; out (B, n, H,
+// 64) contiguous, the forward's output; lse (B, H, n) f32, the forward's row
+// logsumexp; nk/nv (H, 64) in the inputs' dtype; q_scale/k_scale (64,) f32;
+// bias (B, m) f32 or null. Writes dq (B, n, H, 64), dk/dv (B, m, H, 64)
+// contiguous in the inputs' dtype and d nk, d nv (H, 64), d q_scale,
+// d k_scale (64,) in f32. dtype 0 = f32, 1 = bf16 (bf16: 16-byte aligned
+// rows). Returns the first cudaGetLastError() that is not cudaSuccess.
+int muse_qknorm_attn_bwd_launch(const void* g, const void* q, const void* k, const void* v, const void* out,
+                                const void* lse, const void* nk, const void* nv, const void* q_scale,
+                                const void* k_scale, const void* bias, void* dq, void* dk, void* dv, void* dnk,
+                                void* dnv, void* dqs, void* dks, void* workspace_, int B, int n, int m, int H,
+                                long long g_sb, long long g_sn, long long q_sb, long long q_sn, long long k_sb,
+                                long long k_sm, long long v_sb, long long v_sm, float scale, int dtype,
+                                void* stream) {
+  if (B <= 0 || n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* ws = static_cast<unsigned char*>(workspace_);
+  const auto* lf = static_cast<const float*>(lse);
+  const auto* qs = static_cast<const float*>(q_scale);
+  const auto* ks = static_cast<const float*>(k_scale);
+  const auto* bf = static_cast<const float*>(bias);
+  auto f = [](void* x) { return static_cast<float*>(x); };
+  if (dtype == 1)
+    return launch_all<__nv_bfloat16>(g, q, k, v, out, lf, nk, nv, qs, ks, bf, dq, dk, dv, f(dnk), f(dnv), f(dqs),
+                                     f(dks), ws, B, n, m, H, g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm, scale, s);
+  return launch_all<float>(g, q, k, v, out, lf, nk, nv, qs, ks, bf, dq, dk, dv, f(dnk), f(dnv), f(dqs), f(dks), ws,
+                           B, n, m, H, g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm, scale, s);
+}
+
+const char* muse_qknorm_attn_bwd_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+}  // extern "C"

@@ -9,9 +9,12 @@ bounds it on the H100 and how its design answers that):
     `qknorm_attend_plain` is the same function in plain PyTorch (the math of
     the JAX package's `_qknorm_xla`). Unlike the JAX package there is no
     crossover to a library attention below some kv length: every attention
-    of the models goes through this function. Its gradient, as JAX's
-    `_qknorm_bwd` takes it, recomputes through the plain version
-    (`_QKNormAttention`).
+    of the models goes through this function. Its gradient
+    (`_QKNormAttention`) is the port's own kernel,
+    `csrc/qknorm_attention_bwd.cu` behind `qknorm_attend_backward`, fed the
+    row logsumexp that the forward saves; JAX's `_qknorm_bwd` is XLA's vjp
+    of `_qknorm_xla`, no Pallas kernel. `qknorm_attend_backward_plain` is
+    its plain version, the flash backward's formulas written out.
   * `_flash_kernel` by `csrc/flash_attention.cu`, behind
     `attend(impl="flash")`; `attend_plain` is its plain version
     (`xla_attention` in f32). No model path calls it, as in JAX; its
@@ -44,6 +47,14 @@ FLASH_HEAD_DIMS = (32, 64)
 BF16_VS_ROUNDED = 2e-2
 K2_BF16_FROM_F32 = 2e-2
 K4_BF16_FROM_F32 = 2e-2
+# The same for K2's bf16 backward, as a fraction of each gradient's largest
+# |entry|: against the f32 plain backward on the same bf16 inputs, the
+# distance its rounding of q^, k^, P and dS and of the bf16 gradients keeps
+# (the plain `round_to` form measures 0.002-0.007 at the train and super-res
+# shapes); against the `round_to` form, which rounds at the same places, a
+# few bf16 steps of the gradients (one step is 2^-8 of an entry).
+K2_BWD_BF16_FROM_F32 = 2e-2
+K2_BWD_BF16_VS_ROUNDED = 1e-2
 
 
 def xla_attention(
@@ -126,12 +137,99 @@ def _qknorm_plain(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, round_
     return (out / p.sum(dim=-1)[..., None].transpose(1, 2)).to(q.dtype)
 
 
+def qknorm_attend_backward_plain(
+    g: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    null_k: torch.Tensor,
+    null_v: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: float = 8.0,
+    round_to: Optional[torch.dtype] = None,
+):
+    """Plain PyTorch version of K2's backward: the gradients of
+    `qknorm_attend`'s output against the output gradient `g` (b, n, h, d),
+    as (dq, dk, dv, d null_k, d null_v, d q_scale, d k_scale), each in its
+    input's dtype. The flash formulas written out, with no autograd.
+
+    `round_to` (e.g. torch.bfloat16) rounds where the kernel rounds: q^ and
+    k^ after the f32 norm and scale, P before P^T g, and dS before dS k^ and
+    dS^T q^, with the row terms, the null column and every sum in f32, and
+    D = g . out taken from the output the bf16 forward returns. Only the
+    checks use it."""
+    bias = key_mask_bias(mask, k.shape[0], k.shape[1], q.device)
+    return _qknorm_backward_plain(g, q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, round_to)
+
+
+def _qknorm_backward_plain(g, q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, round_to=None):
+    """`qknorm_attend_backward_plain` with the key mask as its (b, m) bias.
+
+    Per (batch, head), with u = t / |t| and r = 1 / |t| for each of q, k and
+    the null key: q^ = u_q q_scale scale, k^ = u_k k_scale; P = softmax over
+    [null, keys]; D = rowsum(g out); dP = g [nv; v]^T; dS = P (dP - D);
+    dv = P^T g; dq^ = dS [nk^; k^]; dk^ = dS^T q^; through each norm
+    dt = r (w - u (u . w)) with w = dt^ times its scale; the scales'
+    gradients sum dt^ u. The key bias gets no gradient."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    rnd = (lambda t: t.to(round_to).to(acc)) if round_to is not None else (lambda t: t)
+
+    def unit(t):
+        t = t.to(acc)
+        r = torch.rsqrt((t * t).sum(dim=-1, keepdim=True) + 1e-12)
+        return t * r, r
+
+    def through_norm(dt_hat, u, r, s):
+        w = dt_hat * s
+        return r * (w - u * (u * w).sum(dim=-1, keepdim=True))
+
+    uq, rq = unit(q)
+    uk, rk = unit(k)
+    unk, rnk = unit(null_k)  # (h, d)
+    qsc, ksc = q_scale.to(acc) * scale, k_scale.to(acc)
+    qn, kn, nkn = rnd(uq * qsc), rnd(uk * ksc), unk * ksc
+    gf, vf, nvf = g.to(acc), v.to(acc), null_v.to(acc)
+
+    s = torch.einsum("bnhd,bmhd->bhnm", qn, kn)
+    if bias is not None:
+        s = s + bias.to(acc)[:, None, None, :]
+    s0 = torch.einsum("bnhd,hd->bhn", qn, nkn)
+    lse = torch.logsumexp(torch.cat([s0[..., None], s], dim=-1), dim=-1)  # (b, h, n)
+    p, p0 = torch.exp(s - lse[..., None]), torch.exp(s0 - lse)
+    dp, dp0 = torch.einsum("bnhd,bmhd->bhnm", gf, vf), torch.einsum("bnhd,hd->bhn", gf, nvf)
+    if round_to is None:
+        # D = g . out taken as sum P dP over the null and the keys, the form
+        # of the softmax's vjp: a row with every key masked gets dS = 0 exactly
+        dd = (p * dp).sum(dim=-1) + p0 * dp0
+    else:
+        out = _qknorm_plain(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, round_to).to(acc)
+        dd = torch.einsum("bnhd,bnhd->bhn", gf, out)
+    ds = p * (dp - dd[..., None])
+    ds0 = p0 * (dp0 - dd)
+
+    dv = torch.einsum("bhnm,bnhd->bmhd", rnd(p), gf)
+    dnv = torch.einsum("bhn,bnhd->hd", p0, gf)
+    dqn = torch.einsum("bhnm,bmhd->bnhd", rnd(ds), kn) + torch.einsum("bhn,hd->bnhd", ds0, nkn)
+    dkn = torch.einsum("bhnm,bnhd->bmhd", rnd(ds), qn)
+    dnkn = torch.einsum("bhn,bnhd->hd", ds0, qn)
+
+    dq = through_norm(dqn, uq, rq, qsc)
+    dk = through_norm(dkn, uk, rk, ksc)
+    dnk = through_norm(dnkn, unk, rnk, ksc)
+    dqs = scale * (dqn * uq).sum(dim=(0, 1, 2))
+    dks = (dkn * uk).sum(dim=(0, 1, 2)) + (dnkn * unk).sum(dim=0)
+    grads = (dq, dk, dv, dnk, dnv, dqs, dks)
+    return tuple(t.to(x.dtype) for t, x in zip(grads, (q, k, v, null_k, null_v, q_scale, k_scale)))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("qknorm_attention")
     fn = lib.muse_qknorm_attn_launch
     if fn.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 6 + [f, i, p]
+        fn.argtypes = [p] * 10 + [i] * 4 + [ll] * 6 + [f, i, p]
         fn.restype = ctypes.c_int
         lib.muse_qknorm_attn_error_string.argtypes = [ctypes.c_int]
         lib.muse_qknorm_attn_error_string.restype = ctypes.c_char_p
@@ -155,8 +253,10 @@ def _heads_contiguous(t: torch.Tensor) -> torch.Tensor:
     return _aligned(t)
 
 
-def _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale: float) -> torch.Tensor:
-    """Launch K2 on CUDA tensors (checked by `qknorm_attend`)."""
+def _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale: float, with_lse: bool = False):
+    """Launch K2 on CUDA tensors (checked by `qknorm_attend`). With
+    `with_lse`, returns (out, lse): lse (b, h, n) f32 is each row's
+    logsumexp over the null position and the keys, for the backward."""
     b, n, h, d = q.shape
     m = k.shape[1]
     q, k, v = _heads_contiguous(q), _heads_contiguous(k), _heads_contiguous(v)
@@ -167,42 +267,160 @@ def _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale: float
     if bias is not None:
         bias = bias.contiguous()
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _lib()
     err = lib.muse_qknorm_attn_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), nk.data_ptr(), nv.data_ptr(),
         qs.data_ptr(), ks.data_ptr(), bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), b, n, m, h,
+        out.data_ptr(), lse.data_ptr() if with_lse else None, b, n, m, h,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         float(scale), 1 if q.dtype == torch.bfloat16 else 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib.muse_qknorm_attn_error_string, err, "qknorm_attend")
     qknorm_attend.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("qknorm_attention_bwd")
+    fn = lib.muse_qknorm_attn_bwd_launch
+    if fn.argtypes is None:
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        fn.argtypes = [p] * 19 + [i] * 4 + [ll] * 8 + [f, i, p]
+        fn.restype = ctypes.c_int
+        lib.muse_qknorm_attn_bwd_workspace.argtypes = [i] * 5
+        lib.muse_qknorm_attn_bwd_workspace.restype = ll
+        lib.muse_qknorm_attn_bwd_error_string.argtypes = [i]
+        lib.muse_qknorm_attn_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _qknorm_backward_launch(g, q, k, v, null_k, null_v, q_scale, k_scale, bias, out, lse, scale: float):
+    """Launch K2's backward on CUDA tensors: `out` and `lse` are what the
+    forward returned with `with_lse`. Returns the seven gradients, each in
+    its input's dtype."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    if q.device.type != "cuda":
+        raise ValueError(f"K2's backward kernel runs on CUDA tensors, got {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K2's backward takes f32 or bf16, got {q.dtype}")
+    if d != KERNEL_HEAD_DIM or g.shape != q.shape or out.shape != q.shape or k.shape != (b, m, h, d) or v.shape != k.shape:
+        raise ValueError(f"K2's backward: g {tuple(g.shape)}, q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32:
+        raise ValueError(f"K2's backward: lse {tuple(lse.shape)} {lse.dtype}, expected ({b}, {h}, {n}) f32")
+    for t in (g, k, v, null_k, null_v, q_scale, k_scale, out, lse):
+        if t.device != q.device:
+            raise ValueError("K2's backward: all inputs must be on one device")
+    g, q, k, v = (_heads_contiguous(t.to(q.dtype)) for t in (g, q, k, v))
+    out, lse = _aligned(out.contiguous()), lse.contiguous()
+    nk = null_k.to(q.dtype).contiguous()
+    nv = null_v.to(q.dtype).contiguous()
+    qs = q_scale.to(torch.float32).contiguous()
+    ks = k_scale.to(torch.float32).contiguous()
+    if bias is not None:
+        bias = bias.contiguous()
+    dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
+    small = torch.empty((2 * h + 2, d), dtype=torch.float32, device=q.device)  # d nk, d nv, d q_scale, d k_scale
+    dnk, dnv, dqs, dks = small[:h], small[h : 2 * h], small[2 * h], small[2 * h + 1]
+    lib = _bwd_lib()
+    dtype = 1 if q.dtype == torch.bfloat16 else 0
+    ws = torch.empty(lib.muse_qknorm_attn_bwd_workspace(b, n, m, h, dtype), dtype=torch.uint8, device=q.device)
+    err = lib.muse_qknorm_attn_bwd_launch(
+        g.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        nk.data_ptr(), nv.data_ptr(), qs.data_ptr(), ks.data_ptr(), bias.data_ptr() if bias is not None else None,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dnk.data_ptr(), dnv.data_ptr(), dqs.data_ptr(), dks.data_ptr(),
+        ws.data_ptr(), b, n, m, h,
+        g.stride(0), g.stride(1), q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        float(scale), dtype, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib.muse_qknorm_attn_bwd_error_string, err, "qknorm_attend_backward")
+    qknorm_attend_backward.launches += 1
+    return (
+        dq, dk, dv, dnk.to(null_k.dtype), dnv.to(null_v.dtype), dqs.to(q_scale.dtype), dks.to(k_scale.dtype),
+    )
+
+
+def qknorm_attend_backward(
+    g: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    null_k: torch.Tensor,
+    null_v: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: float = 8.0,
+):
+    """K2's backward: the gradients (dq, dk, dv, d null_k, d null_v,
+    d q_scale, d k_scale) of `qknorm_attend` at these inputs against the
+    output gradient g, given the forward's output and row logsumexp
+    (`qknorm_attend_with_lse`). The kernel for CUDA tensors;
+    `qknorm_attend_backward_plain` for CPU tensors, which needs neither
+    `out` nor `lse`."""
+    if q.device.type == "cpu":
+        return qknorm_attend_backward_plain(g, q, k, v, null_k, null_v, q_scale, k_scale, mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"qknorm_attend_backward: unsupported device {q.device}")
+    bias = key_mask_bias(mask, k.shape[0], k.shape[1], q.device)
+    return _qknorm_backward_launch(g, q, k, v, null_k, null_v, q_scale, k_scale, bias, out, lse, scale)
+
+
+qknorm_attend_backward.launches = 0
 
 
 class _QKNormAttention(torch.autograd.Function):
-    """K2 forward (the plain version for CPU tensors); the backward
-    recomputes through the plain version and takes its vjp, as JAX's
-    `_qknorm_bwd` takes the vjp of `_qknorm_xla`. The key bias gets no
-    gradient."""
+    """K2 under a gradient. CUDA tensors: K2's forward, which also writes
+    the row logsumexp, then K2's backward kernel from the saved output and
+    logsumexp. CPU tensors: the plain version and the plain backward. The
+    key bias gets no gradient; the backward is not itself differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, null_k, null_v, q_scale, k_scale, bias, scale):
-        ctx.save_for_backward(q, k, v, null_k, null_v, q_scale, k_scale, bias)
         ctx.scale = scale
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, null_k, null_v, q_scale, k_scale, bias, None, None)
             return _qknorm_plain(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale)
-        return _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale)
+        out, lse = _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, null_k, null_v, q_scale, k_scale, bias, out, lse)
+        return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        *inputs, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in inputs]
-            out = _qknorm_plain(*inputs, bias, ctx.scale)
-            grads = torch.autograd.grad(out, inputs, g)
+        *inputs, bias, out, lse = ctx.saved_tensors
+        if g.device.type == "cpu":
+            grads = _qknorm_backward_plain(g, *inputs, bias, ctx.scale)
+        else:
+            grads = _qknorm_backward_launch(g, *inputs, bias, out, lse, ctx.scale)
         return (*grads, None, None)
+
+
+def qknorm_attend_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    null_k: torch.Tensor,
+    null_v: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: float = 8.0,
+):
+    """K2's forward as the gradient route runs it on CUDA tensors: (out,
+    lse), lse (b, h, n) f32 the row logsumexp that `qknorm_attend_backward`
+    reads. No graph is kept."""
+    if q.device.type != "cuda":
+        raise ValueError(f"qknorm_attend_with_lse runs K2 on CUDA tensors, got {q.device}")
+    bias = key_mask_bias(mask, k.shape[0], k.shape[1], q.device)
+    with torch.no_grad():
+        return _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, with_lse=True)
 
 
 def qknorm_attend(
@@ -224,8 +442,8 @@ def qknorm_attend(
     always attendable). Returns (b, n, h, d) in q's dtype.
 
     Where gradients are on and an input needs one, the call goes through
-    `_QKNormAttention` (K2 forward, backward through the plain version);
-    else K2 runs alone and nothing is saved."""
+    `_QKNormAttention` (K2 forward with the row logsumexp, K2's backward
+    kernel); else K2 runs alone and nothing is saved."""
     inputs = (q, k, v, null_k, null_v, q_scale, k_scale)
     b, n, h, d = q.shape
     m = k.shape[1]

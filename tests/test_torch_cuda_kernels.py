@@ -20,7 +20,13 @@ from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel, vq
 # bf16 attention: against the plain version with the TPU kernels' roundings,
 # one bf16 step of the output apart; against the f32 plain version, as far
 # as each Pallas kernel keeps from its f32 oracle (`ops/attention.py`)
-from muse_maskgit_pytorch_tpu_torch.ops.attention import BF16_VS_ROUNDED, K2_BF16_FROM_F32, K4_BF16_FROM_F32
+from muse_maskgit_pytorch_tpu_torch.ops.attention import (
+    BF16_VS_ROUNDED,
+    K2_BF16_FROM_F32,
+    K2_BWD_BF16_FROM_F32,
+    K2_BWD_BF16_VS_ROUNDED,
+    K4_BF16_FROM_F32,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -188,11 +194,22 @@ def test_qknorm_sampling_surface_shapes(dev, dtype, shape):
         torch.testing.assert_close(out.float(), rounded.float(), rtol=0, atol=BF16_VS_ROUNDED)
 
 
+def _leaves_close(got, want, frac):
+    """Each gradient within frac of its largest |entry| (f32 comparison)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        if b.numel():
+            b = b.float()
+            torch.testing.assert_close(a.float(), b, rtol=0, atol=frac * b.abs().max().item(), msg=f"leaf {i}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_qknorm_gradients_match_plain(dev, dtype):
-    # inputs that need a gradient: K2 runs the forward (one launch), the
-    # backward recomputes through the plain version, so every gradient is
-    # autograd's through `qknorm_attend_plain`
+    # inputs that need a gradient: K2 runs the forward (one launch) and K2's
+    # backward kernel (one launch); against autograd through
+    # `qknorm_attend_plain`, which computes in f32 on the same inputs: f32
+    # within 1e-4 of each gradient's max (summation order), bf16 within
+    # K2_BWD_BF16_FROM_F32 (the kernel's bf16 roundings)
     g = torch.Generator(device=dev).manual_seed(4)
     q, k, v = (torch.randn(3, 70, 2, 64, generator=g, device=dev).to(dtype) for _ in range(3))
     nk, nv = (torch.randn(2, 64, generator=g, device=dev).to(dtype) for _ in range(2))
@@ -207,17 +224,76 @@ def test_qknorm_gradients_match_plain(dev, dtype):
         (out.float() * cot.float()).sum().backward()
         return out, [t.grad for t in leaves]
 
-    before = attention.qknorm_attend.launches
+    before = attention.qknorm_attend.launches, attention.qknorm_attend_backward.launches
     out, got = grads(attention.qknorm_attend)
-    assert attention.qknorm_attend.launches == before + 1
+    assert (attention.qknorm_attend.launches, attention.qknorm_attend_backward.launches) == (before[0] + 1, before[1] + 1)
     ref, want = grads(attention.qknorm_attend_plain)
     tol = 1e-4 if dtype == torch.float32 else K2_BF16_FROM_F32
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+    _leaves_close(got, want, 1e-4 if dtype == torch.float32 else K2_BWD_BF16_FROM_F32)
     # with the gradient off the kernel runs alone and saves nothing
     with torch.no_grad():
         assert attention.qknorm_attend(q.requires_grad_(), k, v, nk, nv, qs, ks, mask=mask).grad_fn is None
+
+
+# K2's backward kernel against its plain version: ragged n and m with a
+# partial mask and a dropped row, no keys, a cross-attention with a dropped
+# row, and n = m = 1024 (the super-res self-attention's length)
+BACKWARD_SHAPES = {
+    "ragged": (3, 70, 200, 2, "partial"),
+    "m0": (2, 70, 0, 2, None),
+    "cross_dropped": (4, 256, 64, 8, "dropped"),
+    "n1024": (1, 1024, 1024, 2, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(BACKWARD_SHAPES))
+def test_qknorm_backward_matches_plain(dev, dtype, shape):
+    b, n, m, h, mask_kind = BACKWARD_SHAPES[shape]
+    g = torch.Generator(device=dev).manual_seed(n + m)
+    q = torch.randn(b, n, h, 64, generator=g, device=dev).to(dtype)
+    kv = torch.randn(b, m, 2 * h * 64, generator=g, device=dev).to(dtype)
+    k, v = (t.reshape(b, m, h, 64) for t in kv.chunk(2, dim=-1))  # strided views, as the model passes them
+    nk, nv = (torch.randn(h, 64, generator=g, device=dev).to(dtype) for _ in range(2))
+    qs, ks = (1 + 0.1 * torch.randn(64, generator=g, device=dev) for _ in range(2))
+    mask = None
+    if mask_kind is not None:
+        mask = torch.rand(b, m, generator=g, device=dev) > (0.3 if mask_kind == "partial" else -1.0)
+        mask[b - 1] = False  # a CFG-dropped row: the null position only
+    cot = torch.randn(b, n, h, 64, generator=g, device=dev).to(dtype)
+    args = [q, k, v, nk, nv, qs, ks]
+
+    def kernel():
+        leaves = [t.detach().requires_grad_() for t in args]
+        return torch.autograd.grad(attention.qknorm_attend(*leaves, mask=mask), leaves, cot)
+
+    before = attention.qknorm_attend_backward.launches
+    got = kernel()
+    assert attention.qknorm_attend_backward.launches == before + 1
+    again = kernel()
+    assert all(torch.equal(a, c) for a, c in zip(got, again)), "two launches gave different gradients"
+    # the public wrapper from the forward's output and logsumexp: the same kernel
+    out, lse = attention.qknorm_attend_with_lse(*args, mask=mask)
+    direct = attention.qknorm_attend_backward(cot, *args, out, lse, mask=mask)
+    assert all(torch.equal(a, c) for a, c in zip(got, direct))
+    want = attention.qknorm_attend_backward_plain(cot, *args, mask=mask)
+    if m == 0:
+        # no keys: P_0 = 1, so dq, d null_k and the scales' gradients are 0
+        # up to rounding, and g reaches null_v whole
+        for i in (0, 3, 5, 6):
+            assert got[i].float().abs().max().item() <= 1e-4, i
+        _leaves_close(got[4:5], [cot.float().sum(dim=(0, 1)).to(dtype)], 1e-4 if dtype == torch.float32 else K2_BWD_BF16_VS_ROUNDED)
+        assert got[1].numel() == got[2].numel() == 0
+        return
+    if mask_kind is not None:
+        assert got[0][b - 1].float().abs().max().item() <= 1e-4  # the dropped row's q sees no key
+    if dtype == torch.float32:
+        _leaves_close(got, want, 1e-4)
+    else:
+        _leaves_close(got, want, K2_BWD_BF16_FROM_F32)
+        rounded = attention.qknorm_attend_backward_plain(cot, *args, mask=mask, round_to=torch.bfloat16)
+        _leaves_close(got, rounded, K2_BWD_BF16_VS_ROUNDED)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

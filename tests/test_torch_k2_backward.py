@@ -1,0 +1,144 @@
+"""K2's backward in plain PyTorch (`ops.attention.qknorm_attend_backward_plain`,
+the formulas the port's CUDA backward computes) against `jax.vjp` of the JAX
+package's `_qknorm_xla`, the function JAX's `_qknorm_bwd` differentiates, at
+toy size on the CPU.
+
+Tolerances: f32 against JAX to 1e-4 of each gradient's largest |entry| (both
+compute in f32 and differ in summation order only); f64 against autograd
+through `_qknorm_plain` to 1e-10 of it (the same function, differentiated two
+ways); the bf16 `round_to` form against the f32 form within
+`K2_BWD_BF16_FROM_F32`. Where m = 0 the exact dq, d null_k and the scales'
+gradients are 0 (the null position takes all of the softmax), so those are
+held to an absolute 1e-5 instead: each side's value is rounding noise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from muse_maskgit_pytorch_tpu.ops.attention import _qknorm_xla
+from muse_maskgit_pytorch_tpu_torch.ops import attention as port_attention
+from muse_maskgit_pytorch_tpu_torch.ops.attention import K2_BWD_BF16_FROM_F32
+
+GRAD_FRAC = 1e-4
+NAMES = ("q", "k", "v", "null_k", "null_v", "q_scale", "k_scale")
+ZERO_WITHOUT_KEYS = ("q", "null_k", "q_scale", "k_scale")
+
+# (b, n, m, h, mask): self; cross with a partial mask; a row with every key
+# masked; no keys at all; n != m over three heads
+CASES = {
+    "self": (2, 20, 20, 3, None),
+    "cross-mask": (2, 20, 12, 2, "partial"),
+    "row-masked": (3, 17, 12, 2, "row"),
+    "m0": (2, 9, 0, 2, None),
+    "n-ne-m": (2, 9, 23, 3, "partial"),
+}
+
+
+def _inputs(case, d=16, seed=0):
+    b, n, m, h, mask_kind = CASES[case]
+    rs = np.random.RandomState(seed + 13 * len(case))
+    f = lambda *s: rs.randn(*s).astype(np.float32)  # noqa: E731
+    arrays = [f(b, n, h, d), f(b, m, h, d), f(b, m, h, d), f(h, d), f(h, d), 1 + 0.1 * f(d), 1 + 0.1 * f(d)]
+    mask = None
+    if mask_kind is not None:
+        mask = rs.rand(b, m) > 0.4
+        if mask_kind == "row":
+            mask[1] = False  # row 1 attends the null position only
+    return arrays, mask, f(b, n, h, d)
+
+
+def _bias(mask, b, m):
+    return np.zeros((b, m), np.float32) if mask is None else np.where(mask, 0.0, port_attention.NEG_INF).astype(np.float32)
+
+
+@jax.jit
+def _jax_vjp(xs, bias, cot):
+    return jax.vjp(lambda *a: _qknorm_xla(*a, bias, 8.0), *xs)[1](cot)
+
+
+def _assert_leaves_close(got, want, frac, case):
+    for name, a, w in zip(NAMES, got, want):
+        a, w = np.asarray(a, np.float64), np.asarray(w, np.float64)
+        assert a.shape == w.shape, name
+        if a.size == 0:
+            continue
+        if CASES[case][2] == 0 and name in ZERO_WITHOUT_KEYS:
+            np.testing.assert_allclose(a, 0.0, rtol=0, atol=1e-5, err_msg=name)
+            np.testing.assert_allclose(w, 0.0, rtol=0, atol=1e-5, err_msg=name)
+            continue
+        np.testing.assert_allclose(a, w, rtol=0, atol=frac * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_plain_matches_jax_vjp(case):
+    arrays, mask, cot = _inputs(case)
+    b, _, m, _, _ = CASES[case]
+    want = _jax_vjp(tuple(jnp.asarray(a) for a in arrays), jnp.asarray(_bias(mask, b, m)), jnp.asarray(cot))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    got = port_attention.qknorm_attend_backward_plain(
+        torch.from_numpy(cot), *(torch.from_numpy(a) for a in arrays), mask=tmask, scale=8.0
+    )
+    assert [t.dtype for t in got] == [torch.float32] * 7
+    _assert_leaves_close([t.numpy() for t in got], [np.asarray(w) for w in want], GRAD_FRAC, case)
+    if mask is not None and not mask.any(axis=1).all():
+        # a fully masked row: no gradient reaches q through the keys, and its
+        # whole output gradient goes to null_v
+        row = int(np.flatnonzero(~mask.any(axis=1))[0])
+        assert np.abs(got[0][row].numpy()).max() < 1e-6
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_plain_matches_autograd_f64(case):
+    arrays, mask, cot = _inputs(case, seed=1)
+    ts = [torch.from_numpy(a).double() for a in arrays]
+    tmask = None if mask is None else torch.from_numpy(mask)
+    leaves = [t.clone().requires_grad_() for t in ts]
+    out = port_attention.qknorm_attend_plain(*leaves, mask=tmask)
+    want = torch.autograd.grad(out, leaves, torch.from_numpy(cot).double(), allow_unused=True)
+    want = [torch.zeros_like(t) if w is None else w for t, w in zip(ts, want)]
+    got = port_attention.qknorm_attend_backward_plain(torch.from_numpy(cot).double(), *ts, mask=tmask)
+    assert [t.dtype for t in got] == [torch.float64] * 7
+    for name, a, w in zip(NAMES, got, want):
+        if a.numel():
+            torch.testing.assert_close(a, w, rtol=0, atol=1e-10 * max(w.abs().max().item(), 1.0), msg=name)
+
+
+@pytest.mark.parametrize("case", ["cross-mask", "row-masked", "n-ne-m"])
+def test_backward_plain_bf16_rounding_within_limit(case):
+    # the kernel's roundings (q^, k^, P, dS and the bf16 gradients) keep the
+    # bf16 backward within K2_BWD_BF16_FROM_F32 of the f32 one; d 64, as the
+    # kernel takes it
+    arrays, mask, cot = _inputs(case, d=64, seed=2)
+    ts = [torch.from_numpy(a) for a in arrays]
+    ts = [t.bfloat16() if i < 5 else t for i, t in enumerate(ts)]
+    g = torch.from_numpy(cot).bfloat16()
+    tmask = None if mask is None else torch.from_numpy(mask)
+    exact = port_attention.qknorm_attend_backward_plain(g, *ts, mask=tmask)
+    rounded = port_attention.qknorm_attend_backward_plain(g, *ts, mask=tmask, round_to=torch.bfloat16)
+    assert [t.dtype for t in rounded] == [torch.bfloat16] * 5 + [torch.float32] * 2
+    assert any(not torch.equal(a, b) for a, b in zip(rounded, exact))
+    for name, a, w in zip(NAMES, rounded, exact):
+        w = w.float()
+        torch.testing.assert_close(a.float(), w, rtol=0, atol=K2_BWD_BF16_FROM_F32 * w.abs().max().item(), msg=name)
+
+
+def test_backward_wrapper_on_cpu_is_the_plain_version():
+    # CPU tensors: the public wrapper and the autograd route run the plain
+    # backward, launch nothing, and need neither the output nor its logsumexp
+    arrays, mask, cot = _inputs("cross-mask")
+    ts = [torch.from_numpy(a) for a in arrays]
+    tmask = torch.from_numpy(mask)
+    g = torch.from_numpy(cot)
+    before = port_attention.qknorm_attend_backward.launches
+    got = port_attention.qknorm_attend_backward(g, *ts, None, None, mask=tmask)
+    want = port_attention.qknorm_attend_backward_plain(g, *ts, mask=tmask)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    leaves = [t.clone().requires_grad_() for t in ts]
+    routed = torch.autograd.grad(port_attention.qknorm_attend(*leaves, mask=tmask), leaves, g)
+    assert all(torch.equal(a, w) for a, w in zip(routed, want))
+    assert port_attention.qknorm_attend_backward.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        port_attention.qknorm_attend_with_lse(*ts, mask=tmask)
