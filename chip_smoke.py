@@ -34,6 +34,11 @@ read just after):
     (b64, the base stage's width, self-conditioning, EMA) -- K2's forward
     and K2's backward kernel on every step, checked against the plain
     backward at the train shapes of both stages first;
+  * `gan`: `VQGanVAETrainer` at `bench_sweep.py`'s exp_gan_step scale (VAE
+    dim 256, 4 layers, codebook 65536, 256px, VGG16 and the discriminator,
+    micro-batch 8) in f32 with LFQ and with EMA-VQ and in bf16 with LFQ, the
+    R1 penalty on and off, and `bench_ema_vq.py`'s EMA-VQ run from a folder
+    of PNGs (memorisation, exact resume) -- K3 three times an EMA-VQ step;
   * `serving`: the base model saved in the JAX package's checkpoint format
     and loaded into a fresh model (tensor- and image-equal), then served:
     `GeneratePipeline` at b16, T18, CFG 3 with T5 in front (warmup, timed
@@ -48,8 +53,8 @@ raises and the exit code is non-zero. The last line is
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
 selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
-t5, surfaces, serving, train, cascade, profile) while iterating; a subset prints its
-phases' lines and no result lines.
+t5, surfaces, serving, train, gan, cascade, profile) while iterating; a
+subset prints its phases' lines and no result lines.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import base64
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -71,7 +77,7 @@ from pathlib import Path
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
     "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
-    "cascade", "profile",
+    "gan", "cascade", "profile",
 )
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "qknorm_attention_bwd", "vq_search", "flash_attention")
 
@@ -92,6 +98,14 @@ SERVE_BATCH, SERVE_CAS_BATCH, BURST_REQUESTS, BURST_CLIENTS = 16, 8, 48, 16
 # checks' depth and rate
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM, TRAIN_LR, TRAIN_WARMUP = 64, 10, 2, 1e-4, 2
 SMALL_DEPTH, SMALL_LR = 2, 1e-3
+# the VQ-GAN step (`bench_sweep.py`'s exp_gan_step: the tokenizer's width,
+# micro-batch 8, accumulation 1, EMA) with the reference EMA-VQ settings
+# (`vqgan_vae.py`'s vq_kwargs); warm-up and timed steps
+GAN_BATCH, GAN_WARM, GAN_STEPS = 8, 2, 5
+EMA_VQ_KW = dict(codebook_dim=CODE_DIM, decay=0.8, commitment_weight=1.0, kmeans_init=True, use_cosine_sim=True)
+# `bench_ema_vq.py`'s EMA-VQ run: dim 64, 2 layers, 128px, batch 16, dead
+# codes revived below 2.0, no GAN, lr 1e-3; fed from a folder of PNGs
+MEM_DIM, MEM_LAYERS, MEM_IMAGE, MEM_BATCH, MEM_LR, MEM_STEPS, MEM_FILES = 64, 2, 128, 16, 1e-3, 30, 24
 # 57-63 bytes each: with the end token, a T5 length of 64, so 64 + 256 cross-attention keys
 PROMPTS = (
     "a watercolor painting of a lighthouse on a cliff at sunrise",
@@ -760,7 +774,7 @@ def build_models(torch, dtype=None, with_vae=True, seed=0, self_cond=False, dept
     from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE
 
     gen = torch.Generator().manual_seed(seed)
-    vae = VQGanVAE(dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, generator=gen) if with_vae else None
+    vae = VQGanVAE(dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, use_vgg_and_gan=False, generator=gen) if with_vae else None
     transformer = MaskGitTransformer(
         num_tokens=VOCAB, dim=DIM, seq_len=SEQ, depth=depth, dim_head=DIM_HEAD, heads=HEADS,
         text_embed_dim=TEXT_DIM, dtype=dtype or torch.bfloat16, generator=gen, self_cond=self_cond,
@@ -805,15 +819,44 @@ def known_tokens_kept(grid, vae, source, pixel_mask) -> bool:
 
 
 def profile_rows(prof):
-    """(device ms, count, name) of every kernel a torch.profiler run saw, largest first."""
+    """(device ms, count, name) of every kernel a torch.profiler run saw,
+    largest first: the device's rows only, since where CPU events are
+    recorded an op's row holds its kernels' time too."""
     rows = []
     for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             rows.append((us / 1000, e.count, e.key))
     return sorted(rows, reverse=True)
+
+
+def device_busy(prof, pattern=None):
+    """(ms, streams, repeats) of the device work a torch.profiler run saw
+    whose name matches `pattern` (all of it when None): the union of the
+    kernels' intervals, which cannot exceed the wall time, the streams they
+    ran on, and the records that repeat an earlier one's name and interval.
+    Where kernels overlap or repeat, their summed durations exceed the union."""
+    spans, streams, seen, repeats = [], set(), set(), 0
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and (pattern is None or re.search(pattern, e.name)):
+            span = (e.time_range.start, e.time_range.end)
+            repeats += (e.name, span) in seen
+            seen.add((e.name, span))
+            spans.append(span)
+            streams.add(getattr(e, "device_resource_id", None))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1000, len(streams), repeats
+
+
+def busy_within(busy_ms, host_ms, what):
+    require(busy_ms <= host_ms, f"{what}: the device was busy {busy_ms:.1f} ms in {host_ms:.1f} ms of wall time")
 
 
 def kernel_total(rows, part):
@@ -902,10 +945,11 @@ def phase_profile(torch, ctx):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1000
     rows = profile_rows(prof)
-    device_ms = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] the profiler saw no device time: not measured | {ctx['smi']}")
         return
+    device_ms, streams, repeats = device_busy(prof)
+    busy_within(device_ms, host_ms, "the profiled request")
 
     k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
     k1_ms, k1_n = kernel_total(rows, "sample_kernel")
@@ -915,12 +959,84 @@ def phase_profile(torch, ctx):
     )
     top = "; ".join(f"{ms:.1f} ms x{n} {name[:70]}" for ms, n, name in rows[:10])
     log(
-        f"[profile] generate b{BATCH} T{STEPS} cfg{CFG:g}: device {device_ms:.1f} ms in a request of "
+        f"[profile] generate b{BATCH} T{STEPS} cfg{CFG:g}: device busy {device_ms:.1f} ms (kernels' sum "
+        f"{sum(r[0] for r in rows):.1f} ms, {streams} stream(s), {repeats} repeated records) in a request of "
         f"{host_ms:.1f} ms ({device_ms / host_ms:.1%} busy); K2 {k2_ms:.2f} ms x{k2_n}, K1 {k1_ms:.2f} ms "
         f"x{k1_n}; top kernels: {top} | {ctx['smi']}"
     )
     if "trainer" in ctx:
         profile_train_step(torch, ctx)
+    if "gan_trainer" in ctx:
+        profile_gan_step(torch, ctx)
+
+
+def profile_gan_step(torch, ctx):
+    """Where an f32 EMA-VQ GAN step of `[gan]` goes: its parts by CUDA
+    events on a fresh trainer after one step (the generator's loss and
+    gradient, the codebook update, the discriminator's loss and gradient
+    without and with the R1 penalty, the rest: both updates, the norms,
+    the EMA), then one whole step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, imgs = ctx.pop("gan_trainer")(), ctx.pop("gan_images")
+    vae, img = trainer.vae, imgs[0]
+    trainer.train_step_arrays(imgs)  # k-means and the first update
+    gen_params = trainer.gen_params
+    discr_params = trainer.discr_params
+
+    def gen_part():
+        loss = vae(img, return_loss=True, train=True, update_stats=False)
+        torch.autograd.grad(loss, gen_params)
+
+    def discr_part(penalty):
+        loss = vae(img, return_discr_loss=True, add_gradient_penalty=penalty, train=False)
+        torch.autograd.grad(loss, discr_params)
+
+    parts = {
+        "generator loss + gradient": gen_part,
+        "codebook update": lambda: vae.update_quantizer_stats(img, rng=torch.Generator().manual_seed(0)),
+        "discriminator loss + gradient": lambda: discr_part(False),
+        "the same with the R1 penalty": lambda: discr_part(True),
+    }
+    with torch.no_grad():
+        state = [t.detach().clone() for t in _train_tensors(trainer)]
+    part_ms = {name: cuda_ms(fn, iters=3, warmup=1) for name, fn in parts.items()}
+    with torch.no_grad():
+        torch._foreach_copy_(_train_tensors(trainer), state)
+    del state
+    trainer.apply_grad_penalty_every = 10**9  # the profiled step without the penalty
+    step_ms = cuda_ms(lambda: trainer.train_step_arrays(imgs), iters=3, warmup=1)
+    rest_ms = step_ms - sum(part_ms[k] for k in ("generator loss + gradient", "codebook update", "discriminator loss + gradient"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_step_arrays(imgs)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1000
+    rows = profile_rows(prof)
+    if not rows:
+        log(f"[profile] GAN step: the profiler saw no device time: not measured | {ctx['smi']}")
+        return
+    device_ms, streams, repeats = device_busy(prof)
+    busy_within(device_ms, host_ms, "the profiled GAN step")
+    kernels_ms = sum(r[0] for r in rows)
+    k3_ms, k3_n = kernel_total(rows, "vq_search_kernel")
+    require(k3_n == 3, f"the profiled GAN step launched K3's search {k3_n} times, expected 3")
+    conv_ms, _, _ = device_busy(prof, r"(?i)conv|xmma|cudnn|implicit|dgrad|wgrad|fprop|fft")
+    parts_s = "; ".join(f"{name} {ms:.1f} ms" for name, ms in part_ms.items())
+    top = "; ".join(f"{ms:.1f} ms x{n} {name[:70]}" for ms, n, name in rows[:10])
+    ctx["gan"]["profile"] = dict(
+        parts_ms=part_ms, rest_ms=rest_ms, step_ms=step_ms, device_ms=device_ms, kernels_ms=kernels_ms,
+        streams=streams, repeats=repeats, host_ms=host_ms, conv_ms=conv_ms, k3_ms=k3_ms,
+    )
+    log(
+        f"[profile] GAN step b{GAN_BATCH} f32 EMA-VQ, no penalty, {step_ms:.1f} ms by CUDA events: {parts_s}; "
+        f"the rest (updates, norms, EMA) {rest_ms:.1f} ms | under torch.profiler: device busy {device_ms:.1f} ms "
+        f"(kernels' sum {kernels_ms:.1f} ms, {streams} stream(s), {repeats} repeated records) in a step of "
+        f"{host_ms:.1f} ms ({device_ms / host_ms:.1%} busy), convolution kernels busy {conv_ms:.1f} ms "
+        f"({conv_ms / device_ms:.1%}), K3 {k3_ms:.2f} ms x{k3_n} ({k3_ms / device_ms:.1%}); top kernels (summed): "
+        f"{top} | {ctx['smi']}"
+    )
 
 
 def profile_train_step(torch, ctx):
@@ -938,16 +1054,12 @@ def profile_train_step(torch, ctx):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1000
     averages = prof.key_averages()
-    # the kernels' rows only: with CPU events on, an op's row holds its kernels' time too
-    rows = sorted(
-        ((getattr(e, "self_device_time_total", 0) / 1000, e.count, e.key) for e in averages
-         if str(getattr(e, "device_type", "")).endswith("CUDA") and getattr(e, "self_device_time_total", 0) > 0),
-        reverse=True,
-    )
+    rows = profile_rows(prof)
     if not rows:
         log(f"[profile] train step: the profiler saw no device time: not measured | {ctx['smi']}")
         return
-    device_ms = sum(r[0] for r in rows)
+    device_ms, streams, repeats = device_busy(prof)
+    busy_within(device_ms, host_ms, "the profiled train step")
     k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
     # K2's backward kernels (`csrc/qknorm_attention_bwd.cu`): five launches a call
     kb = [(ms, n, re.search(r"qknorm_bwd_\w+", name).group(0)) for ms, n, name in rows if "qknorm_bwd_" in name]
@@ -976,9 +1088,11 @@ def profile_train_step(torch, ctx):
         device_ms=device_ms, host_ms=host_ms, k2_fwd_ms=k2_ms, attn_bwd_ms=bwd_us / 1000, k2_bwd_kernels_ms=kb_ms
     )
     log(
-        f"[profile] train step b{TRAIN_BATCH}: device {device_ms:.1f} ms in a step of {host_ms:.1f} ms "
-        f"({device_ms / host_ms:.1%} busy); K2 forward {k2_ms:.2f} ms x{k2_n}; K2's backward kernels {kb_ms:.2f} ms "
-        f"({kb_ms / device_ms:.1%} of the step): {kb_s}; K2's backward autograd node {bwd_s}, by kernel: "
+        f"[profile] train step b{TRAIN_BATCH}: device busy {device_ms:.1f} ms (kernels' sum "
+        f"{sum(r[0] for r in rows):.1f} ms, {streams} stream(s), {repeats} repeated records) in a step of "
+        f"{host_ms:.1f} ms ({device_ms / host_ms:.1%} busy); K2 forward {k2_ms:.2f} ms x{k2_n}; K2's backward "
+        f"kernels {kb_ms:.2f} ms ({kb_ms / device_ms:.1%} of the step): {kb_s}; K2's backward autograd node "
+        f"{bwd_s}, by kernel: "
         f"{under_s or 'not measured'}; top kernels of the step: {top} | {ctx['smi']}"
     )
 
@@ -1169,7 +1283,9 @@ def phase_tokenize(torch, ctx):
 
     def build(**kw):
         gen = torch.Generator().manual_seed(1)
-        return VQGanVAE(dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, generator=gen, **kw).eval()
+        return VQGanVAE(
+            dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, use_vgg_and_gan=False, generator=gen, **kw
+        ).eval()
 
     maskgit = ctx.get("maskgit")
     configs = {"lfq": maskgit.vae if maskgit is not None else build(), "ema_vq": build(lookup_free_quantization=False)}
@@ -2223,6 +2339,381 @@ def phase_train(torch, ctx):
     ctx["trainer"], ctx["train_batch"] = trainer, batch
 
 
+def phase_gan(torch, ctx):
+    """VQ-GAN training through `VQGanVAETrainer`, two configurations.
+
+    (a) `bench_sweep.py`'s exp_gan_step: VAE dim 256, 4 layers, codebook
+        65536, 256px, `use_vgg_and_gan=True` (random-init VGG16 and the
+        discriminator), micro-batch 8, accumulation 1, EMA on, TF32 off. Three
+        arms: f32 LFQ, f32 EMA-VQ at the reference vq_kwargs, bf16 enc/dec
+        with LFQ; each 2 warm-up steps and 5 timed ones (host clock around
+        synchronised steps): median ms a step, img/s, peak memory. EMA-VQ
+        launches K3 three times a step (the generator loss, the codebook
+        update, the discriminator phase's forward) and ten more on its first
+        step (k-means); K3 at (2048, 256) x (65536, 256) by CUDA events
+        beside its plain version and its bound, and its share of the step.
+        Then one step with the R1 penalty and one without (finite, the
+        adaptive weight in (0, 1e4]), and one EMA-VQ step twice from one
+        state and one draw: with K3 and with `nearest_code_plain` patched
+        in here (ids equal or within the near-tie rule, losses and gradient
+        norms within 1e-5 relative).
+    (b) `bench_ema_vq.py`'s EMA-VQ run through `VQGanVAETrainer(folder=...)`
+        on 24 PNGs of 160x150 written here (resize and crop both run): the
+        reconstruction loss of a fixed batch after 30 steps below half of
+        its value before them, the live codes; then exact resume (2 steps,
+        save, a fresh trainer with `auto_resume`, 1 step, against 3
+        straight steps) under `torch.use_deterministic_algorithms(True)`.
+    """
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from muse_maskgit_pytorch_tpu_torch import VGG16, VQGanVAE, VQGanVAETrainer
+    from muse_maskgit_pytorch_tpu_torch.models import quantizers, vqgan_vae
+    from muse_maskgit_pytorch_tpu_torch.models.quantizers import VQDraws, l2norm
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code, nearest_code_plain, score_gap
+    from muse_maskgit_pytorch_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    dev = "cuda"
+    counted = dict(k1=fused_topk_gumbel_sample, k2=qknorm_attend, k3=nearest_code, k4=attend)
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=scratch))
+    g = torch.Generator(device=dev).manual_seed(11)
+    imgs = torch.rand(1, GAN_BATCH, IMAGE, IMAGE, 3, generator=g, device=dev)  # (accum, B, H, W, C)
+    grid = IMAGE >> VAE_LAYERS
+    n_rows = GAN_BATCH * grid * grid
+
+    # the adaptive weight, read where the VAE computes it (the script's
+    # instrument: the package has no switch for it)
+    weights = []
+    safe_div = vqgan_vae.safe_div
+
+    def recording_safe_div(numer, denom, eps=1e-8):
+        out = safe_div(numer, denom, eps)
+        weights.append(out.detach())
+        return out
+
+    # weights drawn on the card from a card generator (a CPU draw of the
+    # reference VAE's 375 M parameters takes tens of seconds); one random-init
+    # VGG16, f32 as exp_gan_step's arms keep it, for every arm
+    def card_built(cls, **kw):
+        with torch.device(dev):
+            return cls(generator=torch.Generator(dev).manual_seed(0), device=dev, **kw)
+
+    resident = torch.cuda.memory_allocated()  # what earlier phases hold: not the arms'
+    vgg = card_built(VGG16)
+
+    def gan_trainer(name, vae_kw, **kw):
+        vae = card_built(
+            VQGanVAE, dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, use_vgg_and_gan=True, vgg=vgg, **vae_kw
+        )
+        return VQGanVAETrainer(
+            vae, folder=None, dataset=[np.zeros((IMAGE, IMAGE, 3), np.float32)], num_train_steps=10**6,
+            batch_size=GAN_BATCH, image_size=IMAGE, results_folder=str(tmp / name), save_results_every=10**9,
+            save_model_every=10**9, valid_frac=0.0, use_ema=True, **kw,
+        )
+
+    def timed_step(trainer):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = trainer.train_step_arrays(imgs, imgs)
+        torch.cuda.synchronize()
+        return logs, (time.perf_counter() - t) * 1000
+
+    # EMA-VQ last: its trainer stays for the checks below, out of the
+    # other arms' peak memory
+    arms = {
+        "f32 LFQ": {},
+        "bf16 LFQ": dict(dtype=torch.bfloat16),
+        "f32 EMA-VQ": dict(lookup_free_quantization=False, vq_kwargs=EMA_VQ_KW),
+    }
+    tf_gen, tf_discr, tf_discr_gp, tf_enc = gan_step_tflop(torch, GAN_BATCH)
+    step_tflop = tf_gen + tf_discr  # an LFQ step without the penalty
+    results, lines = {}, []
+    for fn in counted.values():
+        fn.launches = 0
+    vqgan_vae.safe_div = recording_safe_div
+    try:
+        for arm, vae_kw in arms.items():
+            t0 = time.perf_counter()
+            trainer = gan_trainer(arm.replace(" ", "_"), vae_kw)
+            t_build = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            k3_steps, times, logs = [], [], []
+            for i in range(GAN_WARM + GAN_STEPS):
+                before = nearest_code.launches
+                out, ms = timed_step(trainer)
+                k3_steps.append(nearest_code.launches - before)
+                logs.append(out)
+                if i >= GAN_WARM:
+                    times.append(ms)
+            step_ms = statistics.median(times)
+            # the arm's own peak: its trainer, the shared VGG16 and the step
+            peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            require(all(math.isfinite(v) for x in logs for v in x.values()), f"{arm}: logs not finite {logs}")
+            want_k3 = [13] + [3] * (len(k3_steps) - 1) if "EMA-VQ" in arm else [0] * len(k3_steps)
+            require(k3_steps == want_k3, f"{arm}: K3 launches per step {k3_steps}, expected {want_k3}")
+            # one step with the penalty and one without
+            gp = {}
+            for every, tag in ((1, "with"), (10**9, "without")):
+                trainer.apply_grad_penalty_every = every
+                weights.clear()
+                out, ms = timed_step(trainer)
+                aw = [w.item() for w in weights]
+                require(all(math.isfinite(v) for v in out.values()), f"{arm}: a step {tag} the penalty: {out}")
+                require(len(aw) == 1 and 0.0 < aw[0] <= 1e4, f"{arm}: adaptive weight {aw} not in (0, 1e4]")
+                gp[tag] = dict(ms=ms, loss=out["loss"], discr_loss=out["discr_loss"], adaptive_weight=aw[0])
+            tflop = step_tflop + (tf_enc if "EMA-VQ" in arm else 0.0)
+            results[arm] = dict(
+                ms_per_step=step_ms, img_s=GAN_BATCH / step_ms * 1000, peak_gib=peak, times_ms=times,
+                tflop_per_step=tflop, tflop_s=tflop / step_ms * 1000,
+                k3_launches_per_step=k3_steps, loss=[x["loss"] for x in logs], discr_loss=[x["discr_loss"] for x in logs],
+                penalty=gp, built_s=t_build,
+            )
+            lines.append(
+                f"{arm} {step_ms:.1f} ms/step ({GAN_BATCH / step_ms * 1000:.2f} img/s, "
+                f"{tflop / step_ms * 1000:.1f} TFLOP/s, steps "
+                f"{', '.join(f'{t:.1f}' for t in times)}), peak {peak:.2f} GiB above the "
+                f"{resident / 2**30:.2f} GiB earlier phases hold, K3 per step {k3_steps}, with the "
+                f"penalty {gp['with']['ms']:.1f} ms (discr loss {gp['with']['discr_loss']:.4f}), without "
+                f"{gp['without']['ms']:.1f} ms ({gp['without']['discr_loss']:.4f}), adaptive weight "
+                f"{gp['with']['adaptive_weight']:.4g}; built {t_build:.1f}s"
+            )
+            if "EMA-VQ" in arm:
+                vq_trainer = trainer
+            else:
+                del trainer
+    finally:
+        vqgan_vae.safe_div = safe_div
+    gan_launches = {k: fn.launches for k, fn in counted.items()}
+    require(gan_launches["k1"] == gan_launches["k2"] == gan_launches["k4"] == 0, f"GAN steps launched {gan_launches}")
+
+    # K3 at the training shape, its share of the EMA-VQ step
+    vae, q = vq_trainer.vae, vq_trainer.vae.quantizer
+    with torch.no_grad():
+        z = l2norm(q.project_in(vae.enc_dec.encode(imgs[0])).reshape(-1, CODE_DIM).float())
+        zeros = torch.zeros(VOCAB, device=dev)
+        k3_ms = cuda_ms(lambda: nearest_code(z, q.codebook, zeros), iters=10)
+        k3_plain_ms = cuda_ms(lambda: nearest_code_plain(z, q.codebook, zeros), iters=5)
+    require(tuple(z.shape) == (n_rows, CODE_DIM), f"K3 rows {tuple(z.shape)}")
+    k3_bound_ms, k3_bound_by = bound(2.0 * n_rows * VOCAB * CODE_DIM, nbytes(z, q.codebook, zeros) + n_rows * 4, PEAK_F32)
+    vq_step = results["f32 EMA-VQ"]["ms_per_step"]
+    k3_share = 3 * k3_ms / vq_step
+
+    # one EMA-VQ step twice from one state: with K3, then with the plain
+    # search patched in here (the package runs it for CPU tensors only)
+    state = [t.detach().clone() for t in _train_tensors(vq_trainer)]
+    counts = (vq_trainer.gen_opt.count, vq_trainer.discr_opt.count, vq_trainer._step)
+    gen_state = vq_trainer.generator.get_state()
+    draws = [VQDraws.draw(VOCAB, n_rows, torch.Generator().manual_seed(5))]
+    calls = {}
+
+    def recorded(search, tag):
+        def run(x, codebook, cb_sq=None):
+            ids = search(x, codebook, cb_sq)
+            calls.setdefault(tag, []).append((x.detach().clone(), codebook.clone(), cb_sq, ids))
+            return ids
+
+        return run
+
+    ab_logs = {}
+    for tag, search in (("kernel", nearest_code), ("plain", nearest_code_plain)):
+        with torch.no_grad():
+            torch._foreach_copy_(_train_tensors(vq_trainer), state)
+        vq_trainer.gen_opt.count, vq_trainer.discr_opt.count, vq_trainer._step = counts
+        vq_trainer.generator.set_state(gen_state)
+        quantizers.nearest_code = recorded(search, tag)
+        try:
+            ab_logs[tag] = vq_trainer.train_step_arrays(imgs, imgs, draws=draws)
+        finally:
+            quantizers.nearest_code = nearest_code
+    del state
+    require(len(calls["kernel"]) == len(calls["plain"]) == 3, f"searches a step {len(calls['kernel'])}, {len(calls['plain'])}")
+    differ, gaps = 0, []
+    for (x, cb, cb_sq, ids), (_, _, _, plain_ids) in zip(calls["kernel"], calls["plain"]):
+        differ += int((ids != plain_ids).sum())
+        gaps.append(score_gap(x, cb, ids, cb_sq).max().item())
+    require(max(gaps) <= NEAR_TIE, f"K3 ids in the GAN step off the f64 best by {gaps}")
+    ab_rel = {
+        k: abs(ab_logs["kernel"][k] - ab_logs["plain"][k]) / max(abs(ab_logs["plain"][k]), 1e-12)
+        for k in ("loss", "grad_norm", "discr_loss", "discr_grad_norm")
+    }
+    require(max(ab_rel.values()) <= 1e-5, f"the EMA-VQ step with K3 and with the plain search: {ab_rel}")
+    del calls, vq_trainer, vae, q, z
+    # `[profile]` (last) profiles one EMA-VQ GAN step of a trainer built anew
+    ctx["gan_trainer"] = lambda: gan_trainer("profile", arms["f32 EMA-VQ"])
+    ctx["gan_images"] = imgs
+    log(
+        f"[gan] reference scale b{GAN_BATCH} {IMAGE}px dim {VAE_DIM} K {VOCAB}, VGG16 + discriminator, EMA; "
+        f"TFLOP a step by PyTorch's formulas on the meta device: generator {tf_gen:.3f}, discriminator "
+        f"{tf_discr:.3f} ({tf_discr_gp:.3f} with the penalty), EMA-VQ's extra encode {tf_enc:.3f}, K3 "
+        f"{3 * 2.0 * n_rows * VOCAB * CODE_DIM / 1e12:.3f}: "
+        + " | ".join(lines)
+        + f" | K3 ({n_rows}, {CODE_DIM}) x ({VOCAB}, {CODE_DIM}) {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms, bound "
+        f"{k3_bound_ms:.3f} ms ({k3_bound_by}), 3 a step = {k3_share:.1%} of the EMA-VQ step | one step with K3 and with "
+        f"the plain search: {differ} ids differ, max f64 gap {max(gaps):.3g}, loss / grad norm / discr loss / discr grad "
+        f"norm within {max(ab_rel.values()):.2g} relative | {ctx['smi']}"
+    )
+
+    # -- (b) bench_ema_vq's run from a folder of PNGs
+    folder = tmp / "pngs"
+    folder.mkdir()
+    rs = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:150, 0:160] / 150.0
+    for i in range(MEM_FILES):
+        f = rs.uniform(1.0, 4.0, (3, 2))
+        ph = rs.uniform(0, 2 * np.pi, (3, 2))
+        img = np.stack([0.5 + 0.25 * np.sin(f[c, 0] * 2 * np.pi * xx + ph[c, 0]) + 0.25 * np.cos(f[c, 1] * 2 * np.pi * yy + ph[c, 1]) for c in range(3)], -1)
+        (folder / f"{i:03d}.png").write_bytes(encode_png((img * 255).round().clip(0, 255).astype(np.uint8)))
+
+    def mem_trainer(name, **kw):
+        vae = card_built(
+            VQGanVAE, dim=MEM_DIM, layers=MEM_LAYERS, codebook_size=VOCAB, lookup_free_quantization=False,
+            vq_kwargs=dict(EMA_VQ_KW, threshold_ema_dead_code=2.0), use_vgg_and_gan=False,
+        )
+        return VQGanVAETrainer(
+            vae, folder=str(folder), num_train_steps=MEM_STEPS, batch_size=MEM_BATCH, image_size=MEM_IMAGE, lr=MEM_LR,
+            results_folder=str(tmp / name), save_results_every=10, save_model_every=10**9, **kw,
+        )
+
+    t0 = time.perf_counter()
+    trainer = mem_trainer("memo")
+    ds = trainer.ds
+    fixed = torch.from_numpy(np.stack([ds.load(i, False) for i in range(MEM_BATCH)])).to(dev)
+    require(tuple(fixed.shape) == (MEM_BATCH, MEM_IMAGE, MEM_IMAGE, 3), f"dataset items {tuple(fixed.shape)}")
+
+    def recon_loss():
+        with torch.no_grad():
+            return trainer.vae(fixed, return_loss=True, train=False).item()
+
+    before = recon_loss()
+    launches = nearest_code.launches
+    trainer.train()
+    mem_k3 = nearest_code.launches - launches
+    after = recon_loss()
+    t_mem = time.perf_counter() - t0
+    cluster = trainer.vae.quantizer.cluster_size
+    with torch.no_grad():
+        _, ids, _ = trainer.vae.encode(fixed)
+    live = int((cluster > 2.0).sum())
+    used = int(ids.unique().numel())
+    require(trainer.steps == MEM_STEPS and after < 0.5 * before, f"memorisation: recon loss {before:.4f} -> {after:.4f}")
+    # k-means, the loss and the codebook update of each step, and the two
+    # reconstruction grids (live and EMA) of every tenth step
+    want_k3 = 10 + 2 * MEM_STEPS + 2 * -(-MEM_STEPS // 10)
+    require(mem_k3 == want_k3, f"K3 launches in {MEM_STEPS} steps {mem_k3}, expected {want_k3}")
+    require((tmp / "memo" / "0.png").exists() and (tmp / "memo" / "0.ema.png").exists(), "no reconstruction grids")
+    del trainer, fixed
+
+    # exact resume, with deterministic algorithms in this check only
+    batches = [torch.rand(1, MEM_BATCH, MEM_IMAGE, MEM_IMAGE, 3, generator=g, device=dev) for _ in range(3)]
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = mem_trainer("straight")
+        want = [straight.train_step_arrays(b) for b in batches]
+        first = mem_trainer("resumed")
+        got = [first.train_step_arrays(b) for b in batches[:2]]
+        first.save()
+        del first
+        second = mem_trainer("resumed", auto_resume=True)
+        require(second.steps == 2, f"auto_resume found step {second.steps}")
+        got.append(second.train_step_arrays(batches[2]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved_env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+    pairs = list(zip(_train_tensors(second), _train_tensors(straight)))
+    exact = all(torch.equal(a, b) for a, b in pairs) and got[2]["loss"] == want[2]["loss"]
+    resume_rel = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in pairs if b.is_floating_point())
+    loss_rel = abs(got[2]["loss"] - want[2]["loss"]) / abs(want[2]["loss"])
+    require(exact or (resume_rel <= 1e-6 and loss_rel <= 1e-6), f"resume: state off by {resume_rel:.3g}, loss by {loss_rel:.3g}")
+    del straight, second
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(
+        f"[gan] bench_ema_vq b{MEM_BATCH} {MEM_IMAGE}px dim {MEM_DIM} K {VOCAB} from {MEM_FILES} PNGs of 160x150: "
+        f"fixed-batch recon loss {before:.4f} -> {after:.4f} in {MEM_STEPS} steps ({after / before:.1%}), live codes "
+        f"{live} (cluster size > 2.0), {used} codes in the fixed batch, K3 +{mem_k3} (10 k-means, 2 a step at "
+        f"({MEM_BATCH * (MEM_IMAGE >> MEM_LAYERS) ** 2}, {CODE_DIM}), 2 a reconstruction grid), {t_mem:.1f}s | resume 2 + save + auto_resume + "
+        f"1 vs 3 straight, deterministic algorithms: {'bit-identical' if exact else 'not bitwise'} (state within "
+        f"{resume_rel:.2g} of each tensor's max, loss {loss_rel:.2g}) | phase {time.perf_counter() - t_phase:.1f}s"
+    )
+    for k, fn in counted.items():
+        ctx[k]["launches_per_gan_step"] = results["f32 EMA-VQ"]["k3_launches_per_step"] if k == "k3" else 0
+    ctx["gan_launches"] = gan_launches
+    ctx["gan"] = dict(
+        tflop=dict(generator=tf_gen, discriminator=tf_discr, discriminator_penalty=tf_discr_gp, encode=tf_enc),
+        arms=results, k3=dict(shape=[n_rows, CODE_DIM, VOCAB], ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound_ms,
+                              bound_by=k3_bound_by, share_of_step=k3_share),
+        k3_vs_plain=dict(ids_differ=differ, max_gap=max(gaps), rel=ab_rel),
+        memorisation=dict(before=before, after=after, live_codes=live, used_codes=used, k3_launches=mem_k3),
+        resume=dict(exact=exact, state_rel=resume_rel, loss_rel=loss_rel),
+    )
+
+
+def gan_step_tflop(torch, image_batch):
+    """TFLOP of one LFQ GAN step's parts at the reference scale for
+    `image_batch` images: (generator phase, discriminator phase, the same
+    with the R1 penalty, one encoder pass), from PyTorch's FLOP formulas
+    (`torch.utils.flop_counter`) over the shapes of a run on the meta
+    device (no data, no card time). Counted by a dispatch mode of its own:
+    `FlopCounterMode`'s module hooks refuse `autograd.grad` on leaves."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    from muse_maskgit_pytorch_tpu_torch import VGG16, VQGanVAE
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.total += formula(*args, **(kwargs or {}), out_val=out)
+            return out
+
+    with torch.device("meta"):
+        vae = VQGanVAE(dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, vgg=VGG16(device="meta"), device="meta")
+    img = torch.empty(image_batch, IMAGE, IMAGE, 3, device="meta")
+    gen = [p for n, p in vae.named_parameters() if not n.startswith(("discr.", "_vgg."))]
+    discr = [p for n, p in vae.named_parameters() if n.startswith("discr.")]
+
+    def counted(fn):
+        with Count() as c:
+            fn()
+        return c.total / 1e12
+
+    def gen_part():
+        torch.autograd.grad(vae(img, return_loss=True, train=True, update_stats=False), gen)
+
+    def discr_part(penalty):
+        torch.autograd.grad(vae(img, return_discr_loss=True, add_gradient_penalty=penalty, train=False), discr)
+
+    def encode():
+        with torch.no_grad():
+            vae.enc_dec.encode(img)
+
+    return counted(gen_part), counted(lambda: discr_part(False)), counted(lambda: discr_part(True)), counted(encode)
+
+
+def _train_tensors(trainer):
+    """Every tensor of a `VQGanVAETrainer`'s state: both parameter groups,
+    the VAE's buffers, both optimizers' moments and the EMA."""
+    return [
+        *trainer.gen_params, *trainer.discr_params, *trainer.vae.buffers(), *trainer.gen_opt.mu,
+        *trainer.gen_opt.nu, *trainer.discr_opt.mu, *trainer.discr_opt.nu, *(trainer.ema or []),
+    ]
+
+
 def phase_cascade(torch, ctx):
     """texts -> 512px at batch 16: (a) the chain `bench.py` times, the base
     stage's token grid handed to the super-res stage, from text embeddings;
@@ -2335,13 +2826,16 @@ def phase_cascade(torch, ctx):
         _, prof_host, _, _ = chain(7)
     rows = profile_rows(prof)
     require(rows, "torch.profiler saw no device time in a cascade request")
-    device_ms = sum(r[0] for r in rows)
+    device_ms, streams, repeats = device_busy(prof)
+    busy_within(device_ms, prof_host * 1000, "the profiled cascade request")
     k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
     k1_ms, k1_n = kernel_total(rows, "sample_kernel")
     require((k1_n, k2_n) == want[:2], f"the profiler counted K1 x{k1_n}, K2 x{k2_n} in a cascade request")
     top = "; ".join(f"{ms:.1f} ms x{n} {name[:70]}" for ms, n, name in rows[:12])
     prof_s = (
-        f"one request under torch.profiler: device {device_ms:.1f} ms in {prof_host * 1000:.1f} ms; K2 "
+        f"one request under torch.profiler: device busy {device_ms:.1f} ms (kernels' sum "
+        f"{sum(r[0] for r in rows):.1f} ms, {streams} stream(s), {repeats} repeated records) in "
+        f"{prof_host * 1000:.1f} ms; K2 "
         f"{k2_ms:.2f} ms x{k2_n}, K1 {k1_ms:.2f} ms x{k1_n}; top kernels: {top}"
     )
 
@@ -2404,7 +2898,7 @@ def main(argv=None) -> int:
     for tag in ("k1", "k2", "k4", "k3"):
         ctx[tag]["launches"] += (
             ctx["cascade_launches"][tag] + ctx["surface_launches"][tag] + ctx["serving_launches"][tag]
-            + ctx["train_launches"][tag]
+            + ctx["train_launches"][tag] + ctx["gan_launches"][tag]
         )
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
     rows = [
@@ -2415,7 +2909,8 @@ def main(argv=None) -> int:
     ]
     keys = (
         "launches", "launches_per_request", "launches_per_cascade_request", "launches_per_surface_request",
-        "launches_per_serving_batch", "launches_per_train_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "launches_per_serving_batch", "launches_per_train_step", "launches_per_gan_step", "max_abs_err", "ms",
+        "plain_ms", "bound_ms",
         "bound_by", "library_ms",
     )
     kernels = [
@@ -2432,7 +2927,7 @@ def main(argv=None) -> int:
             {
                 "cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"], "surfaces": ctx["surfaces"],
                 "vaes_share_weights_ms": ctx["vaes_share_weights_ms"], "serving": ctx["serving"],
-                "train": ctx["train"],
+                "train": ctx["train"], "gan": ctx["gan"],
             }
         ),
         flush=True,

@@ -8,7 +8,10 @@ as pixels or as token ids, with every sampling surface of the JAX package:
 guidance ramps and per-row scales, negative prompts, any resolution, token
 critics, editing and re-ranking), and the VQ-GAN tokenizer's inference
 (`VQGanVAE.encode` to token ids and `decode_from_ids` back, with the LFQ,
-EMA-VQ and FSQ quantizers); serving (`GeneratePipeline`, `GenerateServer`)
+EMA-VQ and FSQ quantizers) and its GAN training (`VQGanVAETrainer`: the
+`Discriminator` with the R1 penalty, the `VGG16` perceptual loss, the
+adaptive weight, LFQ's losses, EMA-VQ's k-means init and codebook updates,
+the image folder dataset); serving (`GeneratePipeline`, `GenerateServer`)
 and module checkpoints in the JAX package's file format, read and written
 without JAX (`MaskGit.load` / `save`, `utils.checkpoint`); and training
 (`MaskGit.forward`, the masked-token loss, with K2's gradient, and
@@ -22,6 +25,8 @@ CPU. See ROADMAP.md for what is still to come.
 
 from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
     FSQ,
+    VGG16,
+    Discriminator,
     LFQ,
     MaskGit,
     MaskGitTransformer,
@@ -32,6 +37,7 @@ from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
     TrainDraws,
     Transformer,
     VectorQuantizeEMA,
+    VQDraws,
     VQGanVAE,
     t5_encode_text,
     vaes_share_weights,
@@ -42,6 +48,7 @@ from muse_maskgit_pytorch_tpu_torch.serving_http import GenerateServer  # noqa: 
 from muse_maskgit_pytorch_tpu_torch.training import (  # noqa: F401
     MaskGitTrainer,
     PreemptionGuard,
+    VQGanVAETrainer,
     ShardLoader,
     ema_init,
     ema_update,

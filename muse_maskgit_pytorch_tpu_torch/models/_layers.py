@@ -3,9 +3,11 @@
 Random init follows flax's defaults so a randomly initialised port has the
 activation and logit scales the JAX model has: lecun-normal (truncated
 normal, std sqrt(1/fan_in) / 0.8796...) for Linear and Conv kernels, normal
-with std 1/sqrt(features) for embeddings, zeros for biases. `Linear` keeps
-its weight in f32 and, like `nnx.Linear(dtype=...)`, casts both the input
-and the weight to its compute dtype.
+with std 1/sqrt(features) for embeddings, zeros for biases. `Linear`,
+`Conv2d` and `ConvTranspose2d` keep their weights in f32 and, like flax's
+layers with `dtype=...`, cast the input, weight and bias to their compute
+dtype on each call; a convolution without one computes in the promoted type
+of its input and weight (flax's `dtype=None`: f32 for f32 weights).
 """
 
 from __future__ import annotations
@@ -61,6 +63,10 @@ class Embedding(nn.Embedding):
         """Initialised in __init__ with the JAX initialiser instead."""
 
 
+def _compute_dtype(layer, x: torch.Tensor) -> torch.dtype:
+    return layer.compute_dtype or torch.promote_types(x.dtype, layer.weight.dtype)
+
+
 class Conv2d(nn.Conv2d):
     """NCHW convolution with flax's lecun-normal kernel and zero bias.
 
@@ -68,14 +74,20 @@ class Conv2d(nn.Conv2d):
     stride (for a 4x4 kernel at stride 2 and p 1 both give floor(h / 2))."""
 
     def __init__(
-        self, cin: int, cout: int, kernel: int, padding: int = 0, stride: int = 1, *, generator=None
+        self, cin: int, cout: int, kernel: int, padding: int = 0, stride: int = 1, *,
+        dtype: Optional[torch.dtype] = None, generator=None,
     ):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding)
+        self.compute_dtype = dtype
         lecun_normal_(self.weight, cin * kernel * kernel, generator)
         nn.init.zeros_(self.bias)
 
     def reset_parameters(self) -> None:
         """Initialised in __init__ with the JAX initialiser instead."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self, x)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -86,10 +98,18 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     flax kernel (kh, kw, in, out) is this module's weight (in, out, kh, kw)
     flipped in space (the weight bridge does the flip)."""
 
-    def __init__(self, cin: int, cout: int, *, generator=None):
+    def __init__(self, cin: int, cout: int, *, dtype: Optional[torch.dtype] = None, generator=None):
         super().__init__(cin, cout, 4, stride=2, padding=1)
+        self.compute_dtype = dtype
         lecun_normal_(self.weight, cin * 16, generator)
         nn.init.zeros_(self.bias)
 
     def reset_parameters(self) -> None:
         """Initialised in __init__ with the JAX initialiser instead."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self, x)
+        return F.conv_transpose2d(
+            x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding, self.output_padding,
+            self.groups, self.dilation,
+        )

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models.transformer import MaskGitTransformer, SelfCritic, TokenCritic
-from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE
+from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE, _strip_towers
 from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.images import to_pil_images
@@ -100,13 +100,15 @@ def _hw(size) -> Tuple[int, int]:
 
 
 def _frozen_copy(vae: Optional[VQGanVAE], memo: dict) -> Optional[VQGanVAE]:
-    """A frozen eval clone of a tokenizer, as JAX's `copy_for_eval` makes:
-    the caller's module stays as it was. One `memo` for all the clones of a
-    model keeps a VAE that was passed twice one object."""
+    """A frozen eval clone of a tokenizer without its discriminator and VGG
+    tower, as JAX's `copy_for_eval` makes: the caller's module stays as it
+    was. One `memo` for all the clones of a model keeps a VAE that was
+    passed twice one object."""
     if vae is None:
         return None
+    memo.update({id(t): None for t in (vae.discr, vae._vgg) if t is not None})  # not copied
     clone = copy.deepcopy(vae, memo)
-    return clone.eval().requires_grad_(False)
+    return _strip_towers(clone).eval().requires_grad_(False)
 
 
 @functools.lru_cache(maxsize=64)

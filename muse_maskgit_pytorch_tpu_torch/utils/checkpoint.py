@@ -13,7 +13,9 @@ written by either package verifies in the other.
 
 The train-state tier (`save_train_state`, `load_train_state`, the JAX
 package's Orbax tier) keeps a trainer's whole state (parameters, optimizer
-moments, EMA, step, generator state) in torch's own format, one directory a
+moments, EMA, step, generator state; for `VQGanVAETrainer` the generator's
+and the discriminator's parameters and optimizers and the VAE's buffers,
+EMA-VQ's codebook statistics among them) in torch's own format, one directory a
 step, `step_XXXXXXXX/state.pt`: it is written under a temporary name and
 renamed when complete, so a listed step is always a whole one. Only module
 checkpoints cross between the packages.
@@ -86,8 +88,9 @@ def load_module(module: nn.Module, path, exclude: Sequence[str] = ()) -> List[st
     The file is checked against a manifest beside it, if one lists it. The
     top-level subtrees named in `exclude` keep their current values. Raises
     if a parameter or buffer of `module` is missing from the file or has
-    another shape; returns the file's leaves that no part of the port took
-    (e.g. a `Discriminator`'s, "discr.…"), by dotted path."""
+    another shape; returns the file's leaves that no part of `module` took
+    (e.g. a `Discriminator`'s, "discr.…", when `module` has none), by
+    dotted path."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(f"checkpoint not found: {path}")

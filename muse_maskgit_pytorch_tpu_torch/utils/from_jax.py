@@ -28,8 +28,10 @@ state dict, in the JAX layout, with a module that the JAX state holds once
 A file that the JAX package's `save_module` wrote is read without JAX by
 `utils.checkpoint.load_module` (through `utils.msgpack_codec`, which needs
 neither flax nor msgpack), which hands the decoded tree to `load_jax_state`.
-The leaves that no port module takes (a `Discriminator`'s, when the VAE was
-built with `use_vgg_and_gan=True`) are skipped and returned by name.
+The `Discriminator` and `VGG16` are built of these layers under the JAX
+names, so they bridge by the same rules. The leaves that no port module
+takes (a discriminator's, when a GAN VAE's file is loaded into a VAE built
+with `use_vgg_and_gan=False`) are skipped and returned by name.
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ def load_jax_state(module: nn.Module, tree: Mapping) -> List[str]:
     """Copy every parameter and buffer of `module` from `tree`, in place, so
     each stays on its module's device. Raises if one is missing or has
     another shape; returns the JAX leaves that the port consumed none of
-    (e.g. a not-yet-ported discriminator).
+    (e.g. a discriminator's, where `module` has none).
 
     One port module may stand under several paths where the JAX tree holds a
     subtree for each: a `MaskGit` built with `vae=v, cond_vae=v` keeps one

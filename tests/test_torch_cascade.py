@@ -48,7 +48,7 @@ def jax_vae(seed=0):
 
 
 def port_vae(jvae=None):
-    pvae = VQGanVAE(dim=16, layers=2, codebook_size=CODEBOOK, device="cpu")
+    pvae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=CODEBOOK, device="cpu")
     if jvae is not None:
         load_jax_state(pvae, jax_params(jvae))
     return pvae
@@ -312,7 +312,7 @@ def test_superres_needs_its_conditioning(shared):
     with pytest.raises(ValueError, match="cond_image_size must be specified"):
         MaskGit(image_size=32, transformer=psr.transformer, vae=psr.vae, cond_vae=psr.vae, device="cpu")
     with pytest.raises(ValueError, match="codebook size"):
-        other = VQGanVAE(dim=16, layers=2, codebook_size=64, device="cpu")
+        other = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=64, device="cpu")
         MaskGit(image_size=32, cond_image_size=16, transformer=psr.transformer, vae=psr.vae, cond_vae=other, device="cpu")
     assert psr.resize_image_for_cond_image and psr.has_separate_cond_vae and psr.cond_vae is psr.vae
 
@@ -325,7 +325,7 @@ def test_vaes_share_weights_three_tiers():
     assert view is not a and vaes_share_weights(a, view)
     assert vaes_share_weights(a, port_vae(jax_vae(0)))  # restored twice from one source: equal values
     assert not vaes_share_weights(a, port_vae(jax_vae(3)))
-    wider = VQGanVAE(dim=32, layers=2, codebook_size=CODEBOOK, device="cpu")
+    wider = VQGanVAE(use_vgg_and_gan=False, dim=32, layers=2, codebook_size=CODEBOOK, device="cpu")
     assert not vaes_share_weights(a, wider)  # shapes differ: no values read
     assert not vaes_share_weights(a, None) and vaes_share_weights(None, None)
 

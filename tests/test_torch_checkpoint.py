@@ -112,7 +112,7 @@ def _ema_pair(seed):
 
 def test_ema_vq_batch_stats_both_ways(tmp_path):
     jv = _ema_pair(1)
-    pv = VQGanVAE(device="cpu", **EMA_KW)
+    pv = VQGanVAE(use_vgg_and_gan=False, device="cpu", **EMA_KW)
     jv.save(tmp_path / "vae.msgpack")
     assert pv.load(tmp_path / "vae.msgpack") == []
     assert_same_state(jax_state(jv), flatten_tree(to_jax_state(pv)))
@@ -130,15 +130,43 @@ def test_ema_vq_batch_stats_both_ways(tmp_path):
 
 
 def test_discriminator_leaves_are_returned_not_raised(tmp_path):
-    """A VAE saved with its GAN tower: the port (no discriminator yet, A10)
-    loads the rest and names the leaves it skipped."""
+    """A VAE saved with its GAN tower, loaded into a VAE built without one
+    (`use_vgg_and_gan=False`): the port loads the rest and names the
+    discriminator's leaves it skipped."""
     jv = JVAE(dim=16, layers=2, codebook_size=VOCAB, use_vgg_and_gan=True, rngs=nnx.Rngs(0))
     jv.save(tmp_path / "gan.msgpack")
-    pv = VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, device="cpu")
+    pv = VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, use_vgg_and_gan=False, device="cpu")
     unused = pv.load(tmp_path / "gan.msgpack")
     assert unused and all(k.startswith("discr.") for k in unused)
     want = {k: v for k, v in jax_state(jv).items() if not k.startswith("discr.")}
     assert_same_state(want, flatten_tree(to_jax_state(pv)))
+
+
+def test_gan_vae_file_loads_fully_both_ways(tmp_path):
+    """The same file into a GAN VAE of the port: every leaf, the
+    discriminator's too, and back into a JAX GAN VAE; the VGG tower is never
+    saved on either side."""
+    jv = JVAE(dim=16, layers=2, codebook_size=VOCAB, use_vgg_and_gan=True, rngs=nnx.Rngs(0))
+    jv.save(tmp_path / "gan.msgpack")
+    pv = VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, device="cpu", generator=torch.Generator().manual_seed(3))
+    assert pv.load(tmp_path / "gan.msgpack") == []
+    assert_same_state(jax_state(jv), flatten_tree(to_jax_state(pv)))
+    pv.set_vgg(torch.nn.Linear(2, 2))  # an injected tower stays out of the file
+    pv.save(tmp_path / "back.msgpack")
+    assert (tmp_path / "back.msgpack").read_bytes() == (tmp_path / "gan.msgpack").read_bytes()
+    other = JVAE(dim=16, layers=2, codebook_size=VOCAB, use_vgg_and_gan=True, rngs=nnx.Rngs(7))
+    other.load(tmp_path / "back.msgpack")
+    assert_same_state(jax_state(jv), jax_state(other))
+
+
+def test_default_vae_files_hold_the_same_leaves(tmp_path):
+    """Both packages' VQGanVAE default to `use_vgg_and_gan=True`: their
+    files hold the same leaves (paths, shapes, dtypes)."""
+    JVAE(dim=16, layers=2, codebook_size=VOCAB, rngs=nnx.Rngs(0)).save(tmp_path / "jax.msgpack")
+    VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, device="cpu").save(tmp_path / "port.msgpack")
+    trees = [flatten_tree(msgpack_codec.unpackb((tmp_path / f).read_bytes())) for f in ("jax.msgpack", "port.msgpack")]
+    assert any(k.startswith("discr.") for k in trees[0])
+    assert {k: (v.shape, v.dtype) for k, v in trees[0].items()} == {k: (v.shape, v.dtype) for k, v in trees[1].items()}
 
 
 def test_missing_or_misshapen_leaf_raises(models, tmp_path):
@@ -293,7 +321,7 @@ def test_cascade_saved_sharing_one_vae_still_hands_over_ids(tmp_path):
     the pipeline's `cond_via="auto"` resolves to "ids" again."""
     from tests.test_torch_serving import toy_maskgit
 
-    vae = VQGanVAE(dim=16, layers=2, codebook_size=32, device="cpu", generator=torch.Generator().manual_seed(0))
+    vae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=32, device="cpu", generator=torch.Generator().manual_seed(0))
     toy_maskgit(16, vae=vae).save(tmp_path / "base.msgpack")
     toy_maskgit(32, cond=16, vae=vae, seed=1).save(tmp_path / "sr.msgpack")
     base, sr = toy_maskgit(16, vae_seed=3), toy_maskgit(32, cond=16, seed=1, vae_seed=4)

@@ -451,6 +451,95 @@ def test_nearest_code_duplicates_exact(dev):
     assert torch.equal(ids, vq.nearest_code_plain(x, cb, zeros))
 
 
+def test_nearest_code_at_the_gan_training_shape(dev):
+    """EMA-VQ's search in the reference GAN step: (2048, 256) x (65536, 256),
+    cosine. 16 row tiles on 132 SMs give 8 codebook splits; ties across the
+    splits go to the lowest index (every code stored twice, half a codebook
+    apart)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = _unit(torch.randn(2048, 256, generator=g, device=dev))
+    cb = _unit(torch.randn(65536, 256, generator=g, device=dev))
+    zeros = torch.zeros(65536, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert vq._k_splits(2048, 65536, dev) == min(512, sms // 16)
+    before = vq.nearest_code.launches
+    ids = vq.nearest_code(x, cb, zeros)
+    assert vq.nearest_code.launches == before + 1
+    for side in (ids, vq.nearest_code_plain(x, cb, zeros)):
+        assert bool((vq.score_gap(x, cb, side, zeros) <= 1e-5).all())
+    twice = torch.cat([cb[:32768], cb[:32768]])
+    ids = vq.nearest_code(x, twice, zeros)
+    assert int(ids.max()) < 32768
+    assert torch.equal(ids, vq.nearest_code_plain(x, twice, zeros))
+
+
+def test_nearest_code_on_a_kmeans_codebook(dev):
+    """k-means' first centres: 65536 rows drawn from 2048, so most codes are
+    exact duplicates; its assignment (euclidean, the rows themselves) gives
+    the plain version's ids exactly."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    z = _unit(torch.randn(2048, 256, generator=g, device=dev))
+    cb = z[torch.randint(0, 2048, (65536,), generator=g, device=dev)]
+    ids = vq.nearest_code(z, cb)
+    assert torch.equal(ids, vq.nearest_code_plain(z, cb))
+
+
+def test_ema_vq_codebook_update_repeats_bit_identically(dev):
+    """No float atomics in the codebook statistics: the same update from the
+    same state twice gives the same bits, and the per-code sums match the
+    one-hot product."""
+    from muse_maskgit_pytorch_tpu_torch import VectorQuantizeEMA
+    from muse_maskgit_pytorch_tpu_torch.models.quantizers import VQDraws, _code_sums
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    z = torch.randn(16384, 256, generator=g, device=dev)
+    codes = torch.randint(0, 4096, (16384,), generator=g, device=dev).int()
+    counts, sums = _code_sums(z, codes, 4096)
+    again = _code_sums(z, codes, 4096)
+    assert torch.equal(counts, again[0]) and torch.equal(sums, again[1])
+    onehot = torch.nn.functional.one_hot(codes.long(), 4096).float()
+    torch.testing.assert_close(sums, onehot.T @ z, rtol=1e-5, atol=1e-4)
+    results = []
+    for _ in range(2):
+        q = VectorQuantizeEMA(
+            dim=64, codebook_size=4096, threshold_ema_dead_code=2.0, generator=torch.Generator().manual_seed(0)
+        )
+        x = torch.randn(8, 16, 16, 64, generator=torch.Generator(device=dev).manual_seed(10), device=dev)
+        draws = VQDraws.draw(4096, 2048, torch.Generator().manual_seed(11))
+        before = vq.nearest_code.launches
+        q.update_from_input(x, rng=draws)
+        q.update_from_input(x + 0.1, rng=draws)
+        assert vq.nearest_code.launches == before + 10 + 2  # k-means, then one search an update
+        results.append([b.clone() for b in q.buffers()])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+def test_vqgan_trainer_step_on_the_card(dev, tmp_path):
+    """A small GAN step with EMA-VQ on the card: K3 three times a step (ten
+    more for k-means on the first), finite logs, no gradient left behind."""
+    from muse_maskgit_pytorch_tpu_torch import VQGanVAETrainer
+
+    vae = VQGanVAE(
+        dim=32, layers=2, codebook_size=1024, lookup_free_quantization=False,
+        generator=torch.Generator().manual_seed(0), vq_kwargs=dict(codebook_dim=64),
+    )
+    t = VQGanVAETrainer(
+        vae, folder=None, dataset=[torch.zeros(32, 32, 3).numpy()], num_train_steps=3, batch_size=2, image_size=32,
+        valid_frac=0.0, save_results_every=10**9, save_model_every=10**9, results_folder=str(tmp_path),
+        apply_grad_penalty_every=2,
+    )
+    imgs = torch.rand(1, 2, 32, 32, 3, generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+    launches = []
+    for _ in range(3):
+        before = vq.nearest_code.launches
+        logs = t.train_step_arrays(imgs)
+        launches.append(vq.nearest_code.launches - before)
+        assert all(torch.isfinite(torch.tensor(v)) for v in logs.values())
+    assert launches == [13, 3, 3]
+    assert all(p.grad is None for p in vae.parameters())
+
+
 def test_nearest_code_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 4"):
         vq.nearest_code(torch.randn(4, 6, device=dev), torch.randn(8, 6, device=dev))

@@ -11,6 +11,7 @@ from muse_maskgit_pytorch_tpu_torch.models.t5 import T5Config
 from muse_maskgit_pytorch_tpu_torch import (
     FSQ,
     LFQ,
+    Discriminator,
     MaskGit,
     MaskGitTransformer,
     Muse,
@@ -43,6 +44,7 @@ PUBLIC = {
     "MaskGitTransformer": lambda **kw: MaskGitTransformer(**_T, **kw),
     "Transformer": lambda **kw: Transformer(**_T, **kw),
     "VQGanVAE": lambda **kw: VQGanVAE(dim=16, layers=2, codebook_size=64, **kw),
+    "Discriminator": lambda **kw: Discriminator((16, 16, 32), **kw),
     "LFQ": lambda **kw: LFQ(dim=8, codebook_size=64, **kw),
     "FSQ": lambda **kw: FSQ(dim=8, levels=(8, 5, 5), **kw),
     "VectorQuantizeEMA": lambda **kw: VectorQuantizeEMA(dim=8, codebook_size=32, codebook_dim=4, **kw),

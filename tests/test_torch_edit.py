@@ -149,7 +149,7 @@ def test_edit_rejects_what_jax_rejects(pair, superres):
 def test_maskgit_stores_frozen_vae_clones():
     # F3: the caller's VAE objects stay trainable and untouched; the model
     # holds eval clones, one object where one was passed twice
-    vae, other = (VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, device="cpu") for _ in range(2))
+    vae, other = (VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=VOCAB, device="cpu") for _ in range(2))
     tr = MaskGitTransformer(device="cpu", **transformer_kw(64))
     shared = MaskGit(image_size=32, cond_image_size=16, transformer=tr, vae=vae, cond_vae=vae, device="cpu")
     separate = MaskGit(image_size=32, cond_image_size=16, transformer=tr, vae=vae, cond_vae=other, device="cpu")

@@ -125,7 +125,7 @@ pt5.T5_CONFIGS.setdefault(TINY_T5, pt5.T5Config(d_model=TEXT_DIM, d_ff=48, num_h
 
 def test_muse_reranks_at_any_resolution_as_its_chain():
     pt5.set_model(TINY_T5, pt5.T5Encoder(pt5.get_config(TINY_T5), device="cpu"))
-    vae = VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, device="cpu")
+    vae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=VOCAB, device="cpu")
     base = MaskGit(
         image_size=16, vae=vae, device="cpu",
         transformer=MaskGitTransformer(device="cpu", t5_name=TINY_T5, **transformer_kw(16)),

@@ -99,7 +99,7 @@ def test_rectangular_images_match_jax(pair):
 def test_sizes_the_vae_does_not_divide_raise():
     # F1: a size off the VAE's factor raises, as the JAX package asserts,
     # instead of flooring onto the trained grid
-    vae = VQGanVAE(dim=16, layers=4, codebook_size=VOCAB, device="cpu")  # factor 16
+    vae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=4, codebook_size=VOCAB, device="cpu")  # factor 16
     tr = MaskGitTransformer(device="cpu", **transformer_kw(256))
     mg = MaskGit(image_size=256, transformer=tr, vae=vae, device="cpu")
     te = torch.zeros(1, 4, 24)

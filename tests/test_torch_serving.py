@@ -30,7 +30,7 @@ def toy_maskgit(image_size=16, cond=None, vae=None, seed=0, vae_seed=0):
     """A port MaskGit (VAE of two layers: 4 x 4 tokens at 16px) on the CPU;
     a super-res stage with `cond` conditions on `vae` too."""
     if vae is None:
-        vae = VQGanVAE(dim=16, layers=2, codebook_size=32, device="cpu", generator=torch.Generator().manual_seed(vae_seed))
+        vae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=32, device="cpu", generator=torch.Generator().manual_seed(vae_seed))
     fmap = image_size // 4
     tr = MaskGitTransformer(
         num_tokens=32, dim=32, seq_len=fmap * fmap, depth=1, dim_head=16, heads=2, t5_name=TINY_T5,
@@ -53,7 +53,7 @@ def model():
 
 
 def cascade(shared=True):
-    vae = VQGanVAE(dim=16, layers=2, codebook_size=32, device="cpu", generator=torch.Generator().manual_seed(0))
+    vae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=32, device="cpu", generator=torch.Generator().manual_seed(0))
     base = toy_maskgit(16, vae=vae)
     sr = toy_maskgit(32, cond=16, vae=vae if shared else None, seed=1, vae_seed=5)
     return Muse(base, sr, device="cpu")

@@ -164,7 +164,7 @@ def _port_model(vae=False, seed=0, t5_name=None):
     gen = torch.Generator().manual_seed(seed)
     extra = dict(t5_name=t5_name) if t5_name else {}
     transformer = MaskGitTransformer(device="cpu", generator=gen, **transformer_kw(16, self_cond=True, **extra))
-    v = VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, device="cpu", generator=gen) if vae else None
+    v = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=VOCAB, device="cpu", generator=gen) if vae else None
     return MaskGit(image_size=16, transformer=transformer, vae=v, device="cpu")
 
 

@@ -100,7 +100,7 @@ def test_glu_resblock():
 def test_decode_from_ids_pixels(layers):
     jvae = jv.VQGanVAE(dim=16, layers=layers, codebook_size=256, use_vgg_and_gan=False, rngs=nnx.Rngs(6))
     _perturb_norms(jvae)
-    pvae = pv.VQGanVAE(dim=16, layers=layers, codebook_size=256, device="cpu")
+    pvae = pv.VQGanVAE(use_vgg_and_gan=False, dim=16, layers=layers, codebook_size=256, device="cpu")
     assert load_jax_state(pvae, jax_params(jvae)) == []
     ids = np.random.RandomState(7).randint(0, 256, size=(2, 4, 4))
     want = np.asarray(jvae.decode_from_ids(jnp.asarray(ids)))
@@ -111,19 +111,42 @@ def test_decode_from_ids_pixels(layers):
 
 
 def test_encode_side_raises_not_ported():
-    # inference is ported; training (losses, codebook updates, the GAN
-    # towers) is not
-    vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, device="cpu")
-    img = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="A10"):
-        vae.encode(img, train=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        vae.encode(img, update_stats=True)
-    vq_vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, lookup_free_quantization=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        vq_vae.encode(img, train=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        pv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=True, device="cpu")
+    """The encode side's training is ported (ROADMAP A10): what raised here
+    now matches the JAX module on the same weights and inputs: LFQ's
+    training losses (`train=True`), EMA-VQ's codebook update in the call
+    (`update_stats=True` with a `VQDraws`), and a VAE built with its GAN
+    towers (`use_vgg_and_gan=True`, the discriminator bridged)."""
+    from muse_maskgit_pytorch_tpu_torch.models.quantizers import VQDraws
+
+    img = np.random.RandomState(20).rand(2, 16, 16, 3).astype(np.float32)
+    jvae = jv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=False, rngs=nnx.Rngs(21))
+    vae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=False, device="cpu")
+    load_jax_state(vae, jax_params(jvae))
+    _, _, jaux = jvae.encode(jnp.asarray(img), train=True)
+    with torch.no_grad():
+        _, _, aux = vae.encode(torch.from_numpy(img), train=True)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    assert float(aux) != 0.0
+
+    kw = dict(codebook_size=64, lookup_free_quantization=False, vq_kwargs=dict(codebook_dim=8))
+    jvq = jv.VQGanVAE(dim=16, layers=2, use_vgg_and_gan=False, rngs=nnx.Rngs(22), **kw)
+    vq_vae = pv.VQGanVAE(dim=16, layers=2, use_vgg_and_gan=False, device="cpu", **kw)
+    load_jax_state(vq_vae, jax_params(jvq))
+    key = jax.random.PRNGKey(23)
+    jvq.encode(jnp.asarray(img), train=True, rng=key, update_stats=True)
+    draws = VQDraws(torch.from_numpy(np.array(jax.random.randint(key, (64,), 0, 2 * 4 * 4))))
+    with torch.no_grad():
+        vq_vae.encode(torch.from_numpy(img), train=True, rng=draws, update_stats=True)
+    for name in ("codebook", "cluster_size", "embed_avg"):
+        want = np.asarray(getattr(jvq.quantizer, name)[...])
+        np.testing.assert_allclose(getattr(vq_vae.quantizer, name).numpy(), want, atol=1e-5 * max(1.0, np.abs(want).max()))
+
+    jgan = jv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=True, rngs=nnx.Rngs(24))
+    gan = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=True, device="cpu")
+    assert load_jax_state(gan, jax_params(jgan)) == []
+    with torch.no_grad():
+        logits = gan.discr(torch.from_numpy(img)).numpy()
+    np.testing.assert_allclose(logits, np.asarray(jgan.discr(jnp.asarray(img))), **TOL)
 
 
 @pytest.mark.parametrize("size", [8, 9], ids=["even", "odd"])
@@ -183,8 +206,12 @@ def test_lfq_forward_ids_exact(dim):
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-6)
     assert float(aux) == float(jaux) == 0.0
-    with pytest.raises(NotImplementedError, match="A10"):
-        pl(torch.from_numpy(x), train=True)
+    # with `train` the entropy and commitment losses, as in JAX
+    _, jids, jaux = jl(jnp.asarray(x), train=True)
+    with torch.no_grad():
+        _, ids, aux = pl(torch.from_numpy(x), train=True)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
 
 
 @pytest.mark.parametrize(
@@ -238,7 +265,7 @@ def test_encode_decode_slice(kw):
     cosine)."""
     jvae = jv.VQGanVAE(dim=16, layers=2, codebook_size=256, use_vgg_and_gan=False, rngs=nnx.Rngs(18), **kw)
     _perturb_norms(jvae)
-    pvae = pv.VQGanVAE(dim=16, layers=2, codebook_size=256, device="cpu", **kw)
+    pvae = pv.VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=256, device="cpu", **kw)
     assert load_jax_state(pvae, jax_params(jvae)) == []
     assert pvae.codebook_size == 256
     img = np.random.RandomState(19).rand(2, 16, 16, 3).astype(np.float32)

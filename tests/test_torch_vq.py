@@ -12,6 +12,7 @@ a 256-term dot; for euclidean scores it is 1e-5 times the row's score scale
 |x|^2 + max |c|^2. Where the codebook holds exact duplicates, ids are equal.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,8 +148,29 @@ def test_ema_vq_random_init_is_unit_norm_and_seeded():
 
 
 def test_ema_vq_training_raises_not_ported():
-    pm = pq.VectorQuantizeEMA(dim=16, codebook_size=32, codebook_dim=8, device="cpu")
-    x = torch.randn(2, 16)
-    for call in (lambda: pm(x, train=True), lambda: pm(x, update_stats=True), lambda: pm.update_from_input(x)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            call()
+    """EMA-VQ training is ported (ROADMAP A10): the three calls that raised
+    here, `forward(train=True)`, `forward(update_stats=True)` and
+    `update_from_input`, now run k-means init and the EMA update as the JAX
+    module does from the same key (its row draw handed over as a
+    `VQDraws`): buffers within 1e-6 of their largest magnitude."""
+    from muse_maskgit_pytorch_tpu_torch.models.quantizers import VQDraws
+
+    kw = dict(dim=16, codebook_size=32, codebook_dim=8)
+    x = np.random.RandomState(3).randn(256, 16).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    draws = VQDraws(torch.from_numpy(np.array(jax.random.randint(key, (32,), 0, 256))))
+    for call in ("train", "update_stats", "update_from_input"):
+        jm = jq.VectorQuantizeEMA(**kw, rngs=nnx.Rngs(5))
+        pm = pq.VectorQuantizeEMA(device="cpu", **kw)
+        load_jax_state(pm, nnx.state(jm, (nnx.Param, nnx.BatchStat)).to_pure_dict())
+        if call == "update_from_input":
+            jm.update_from_input(jnp.asarray(x), rng=key)
+            pm.update_from_input(torch.from_numpy(x), rng=draws)
+        else:
+            jm(jnp.asarray(x), train=True, rng=key)
+            pm(torch.from_numpy(x), rng=draws, **{call: True})
+        assert bool(pm.initted) and bool(jm.initted[...])
+        for name in ("codebook", "cluster_size", "embed_avg"):
+            want = np.asarray(getattr(jm, name)[...])
+            err = np.abs(getattr(pm, name).numpy() - want).max()
+            assert err <= 1e-6 * max(1.0, np.abs(want).max()), (call, name, err)

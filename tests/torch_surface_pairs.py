@@ -48,7 +48,7 @@ def build_pair(
         image_size=image_size, transformer=jt, vae=jvae, token_critic=jcritic, self_token_critic=critic == "self",
         rngs=nnx.Rngs(seed + 3), **cond, **maskgit_kw,
     )
-    pvae = VQGanVAE(dim=16, layers=2, codebook_size=VOCAB, device="cpu") if vae else None
+    pvae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=VOCAB, device="cpu") if vae else None
     pcritic = TokenCritic(device="cpu", **transformer_kw(seq_len)) if critic == "token" else None
     pcond = dict(cond_image_size=cond_image_size, cond_vae=pvae) if cond_image_size else {}
     pm = MaskGit(
