@@ -182,6 +182,21 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / (3 * iters)
 
 
+def host_us(fn, iters: int = 50) -> float:
+    """Host microseconds a call of fn() takes to enqueue its work (no
+    synchronize inside the timed loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -239,6 +254,7 @@ def attend_bf16_rounded(*args, **kw):
 
 
 def phase_env(torch, ctx):
+    ctx["tf32_defaults"] = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -248,7 +264,8 @@ def phase_env(torch, ctx):
     ctx["smi"] = smi
     log(
         f"[env] torch {torch.__version__} cuda {torch.version.cuda} | {smi} | "
-        f"devices {torch.cuda.device_count()} | tf32 matmul/cudnn off"
+        f"devices {torch.cuda.device_count()} | tf32: torch's defaults matmul {ctx['tf32_defaults'][0]}, cudnn "
+        f"{ctx['tf32_defaults'][1]}; the run sets both off (`[tokenize]` turns cudnn's back on for its F5 check)"
     )
 
 
@@ -257,11 +274,13 @@ def phase_build(torch, ctx):
 
     from muse_maskgit_pytorch_tpu_torch.ops import _build, attention, sampling_kernel, vq
 
-    # each source with the flags its module loads it with, and the sampler's
-    # instrumented build that `[k1]` reads the clocks of a row's parts from
+    # each source with the flags its module loads it with, and the
+    # instrumented builds that `[k1]` and `[train]` read the clocks of the
+    # sampler's and K2 backward's parts from
     flags = {name: () for name in KERNEL_SOURCES}
     flags["sampling_kernel"] = sampling_kernel.FLAGS
-    jobs = [*flags.items(), ("sampling_kernel", sampling_kernel.TIMING_FLAGS)]
+    timing = [("sampling_kernel", sampling_kernel.TIMING_FLAGS), ("qknorm_attention_bwd", attention.BACKWARD_TIMING_FLAGS)]
+    jobs = [*flags.items(), *timing]
 
     def timed_build(job):
         t = time.perf_counter()
@@ -272,7 +291,7 @@ def phase_build(torch, ctx):
     with ThreadPoolExecutor(len(jobs)) as pool:
         times = list(pool.map(timed_build, jobs))
     secs = dict(zip(KERNEL_SOURCES, times))
-    secs["sampling_kernel (timing)"] = times[-1]
+    secs.update({f"{name} (timing)": t for (name, _), t in zip(timing, times[len(KERNEL_SOURCES):])})
     wall = time.perf_counter() - t0
     for lib in (sampling_kernel._lib, attention._lib, attention._bwd_lib, attention._flash_lib, vq._lib):
         lib()  # load each library and bind its entry points
@@ -855,6 +874,25 @@ def device_busy(prof, pattern=None):
     return busy / 1000, len(streams), repeats
 
 
+def backward_kernels(torch, call):
+    """The names of the device kernels that one `call` of K2's backward
+    launched, in launch order, as torch.profiler saw them (the
+    `qknorm_bwd_*` kernels; memsets and casts left out); None where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()  # warm: the library is loaded and each kernel's attribute set
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not kernels:
+        return None
+    kernels.sort(key=lambda e: e.time_range.start)
+    return [re.search(r"qknorm_bwd_\w+", e.name).group(0) for e in kernels if "qknorm_bwd_" in e.name]
+
+
 def busy_within(busy_ms, host_ms, what):
     require(busy_ms <= host_ms, f"{what}: the device was busy {busy_ms:.1f} ms in {host_ms:.1f} ms of wall time")
 
@@ -1061,12 +1099,20 @@ def profile_train_step(torch, ctx):
     device_ms, streams, repeats = device_busy(prof)
     busy_within(device_ms, host_ms, "the profiled train step")
     k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
-    # K2's backward kernels (`csrc/qknorm_attention_bwd.cu`): five launches a call
+    # K2's backward kernels (`csrc/qknorm_attention_bwd.cu`): at the step's
+    # n = 256 in bf16 the one-pass kernel, one launch a call (the split
+    # route's five where the library says so)
+    from muse_maskgit_pytorch_tpu_torch.ops import attention
+
     kb = [(ms, n, re.search(r"qknorm_bwd_\w+", name).group(0)) for ms, n, name in rows if "qknorm_bwd_" in name]
     kb_ms = sum(r[0] for r in kb)
+    want = (
+        ["qknorm_bwd_onepass_bf16"] if attention._backward_one_pass(SEQ, torch.bfloat16)
+        else ["qknorm_bwd_dkdv_bf16", "qknorm_bwd_dq_bf16", "qknorm_bwd_prep", "qknorm_bwd_reduce", "qknorm_bwd_sum_rows"]
+    )
     require(
-        len(kb) == 5 and all(n == 2 * DEPTH for _, n, _ in kb),
-        f"the profiled step's K2 backward kernels: {[(n, name) for _, n, name in kb]}, expected 5 x{2 * DEPTH}",
+        sorted(name for _, _, name in kb) == want and all(n == 2 * DEPTH for _, n, _ in kb),
+        f"the profiled step's K2 backward kernels: {[(n, name) for _, n, name in kb]}, expected {want} x{2 * DEPTH}",
     )
     kb_s = "; ".join(f"{ms:.2f} ms x{n} {name}" for ms, n, name in kb)
     # the autograd node's own rows (the engine's evaluate_function row holds
@@ -1289,6 +1335,7 @@ def phase_tokenize(torch, ctx):
 
     maskgit = ctx.get("maskgit")
     configs = {"lfq": maskgit.vae if maskgit is not None else build(), "ema_vq": build(lookup_free_quantization=False)}
+    conv_tf32_check(torch, configs["lfq"], ctx)
     parts = []
     for name, vae in configs.items():
         with torch.inference_mode():
@@ -1344,6 +1391,56 @@ def phase_tokenize(torch, ctx):
         del vae
     configs.clear()
     log(f"[tokenize] b{BATCH} {IMAGE}px dim {VAE_DIM} K {VOCAB}: " + " | ".join(parts) + f" | {ctx['smi']}")
+
+
+def conv_tf32_check(torch, vae, ctx):
+    """F5: the port's f32 convolutions run in IEEE f32 whatever cuDNN's TF32
+    flag says. With torch's default (`cudnn.allow_tf32` True) turned back on,
+    `decode_from_ids` of a b4 grid at the tokenizer's width and one
+    convolution's output, input and weight gradients (the backward run after
+    the forward's call, as a trainer's) equal the TF32-off results bit for
+    bit; cuDNN deterministic for both, so only TF32 could tell them apart,
+    and PyTorch's own convolution at this shape must show that it does."""
+    from muse_maskgit_pytorch_tpu_torch.models._layers import Conv2d
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32, cudnn.deterministic
+    g = torch.Generator(device="cuda").manual_seed(9)
+    grid = IMAGE >> VAE_LAYERS
+    ids = torch.randint(0, VOCAB, (4, grid, grid), generator=g, device="cuda")
+    conv = Conv2d(VAE_DIM, VAE_DIM, 3, padding=1, generator=torch.Generator().manual_seed(7)).cuda()
+    x = torch.randn(4, VAE_DIM, 64, 64, generator=g, device="cuda")
+    gy = torch.randn(4, VAE_DIM, 64, 64, generator=g, device="cuda")
+
+    def run(allow_tf32, layer=conv):
+        cudnn.allow_tf32, cudnn.deterministic = allow_tf32, True
+        with torch.inference_mode():
+            img = vae.decode_from_ids(ids) if layer is conv else None
+        conv.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        y = layer(xi)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        return img, y.detach(), xi.grad, conv.weight.grad
+
+    native = lambda xi: torch.nn.Conv2d.forward(conv, xi)  # noqa: E731 (PyTorch's own convolution)
+    try:
+        # the check can see TF32: PyTorch's convolution of the same weights
+        # changes its output and both gradients with it
+        seen = [not torch.equal(a, b) for a, b in zip(run(True, native)[1:], run(False, native)[1:])]
+        on, off = run(True), run(False)
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = saved
+    names = ("decode_from_ids", "conv output", "input gradient", "weight gradient")
+    require(all(seen), f"F5: TF32 leaves PyTorch's {[n for n, s in zip(names[1:], seen) if not s]} unchanged: the check cannot see it")
+    differ = [name for name, a, b in zip(names, on, off) if not torch.equal(a, b)]
+    require(not differ, f"F5: with cudnn.allow_tf32 on, {differ} differ from the TF32-off results")
+    require(bool(torch.isfinite(on[0]).all()), "F5: decode output")
+    log(
+        f"[tokenize] F5: with torch's cudnn.allow_tf32 True, decode_from_ids (4, {grid}, {grid}) and a "
+        f"{VAE_DIM}->{VAE_DIM} 3x3 conv's output, input and weight gradients are bit-equal to TF32 off "
+        f"(PyTorch's own conv of the same weights: all three differ with TF32 on)"
+    )
 
 
 def phase_t5(torch, ctx):
@@ -2056,8 +2153,19 @@ def phase_train(torch, ctx):
                 torch.autograd.grad(o, (qn, kn, vn), sdpa_cot)
 
             plain_iters = 3 if n > SEQ else 10
+            bwd_call = lambda: qknorm_attend_backward(cot, *args, fwd_out, lse, mask=mask)  # noqa: E731
+            one_pass = attention._backward_one_pass(n, dtype)
+            bwd_names = backward_kernels(torch, bwd_call)
+            if bwd_names is not None:
+                require(
+                    bwd_names == ["qknorm_bwd_onepass_bf16"] if one_pass else len(bwd_names) > 1,
+                    f"K2 backward {name} {dtype}: the profiler saw {bwd_names} in a call",
+                )
             grad_times[(name, dtype)] = dict(
-                bwd_ms=graph_ms(lambda: qknorm_attend_backward(cot, *args, fwd_out, lse, mask=mask)),
+                bwd_ms=graph_ms(bwd_call),
+                bwd_host_us=host_us(bwd_call),
+                bwd_kernels=None if bwd_names is None else len(bwd_names),
+                bwd_kernel_names=bwd_names,
                 bwd_plain_ms=cuda_ms(lambda: qknorm_attend_backward_plain(cot, *args, mask=mask), iters=plain_iters, warmup=1),
                 # SDPA's backward: its forward + backward less its forward,
                 # both by graph replay (a backward runs on its forward's stream,
@@ -2072,6 +2180,10 @@ def phase_train(torch, ctx):
                 library_ms=cuda_ms(sdpa_step, iters=20),
                 bound_ms=fb_bound[0], bound_by=fb_bound[1],
             )
+            t_now = grad_times[(name, dtype)]
+            t_now["bwd_vs_sdpa"] = t_now["bwd_ms"] / t_now["bwd_library_ms"]
+            if one_pass:  # the one-pass kernel: where a block's time goes
+                t_now["bwd_clocks"] = attention.backward_part_clocks(cot, *args, fwd_out, lse, mask=mask)
             del args, leaves, qn, kn, vn, out, got, fwd_out, lse
     bf = torch.bfloat16
 
@@ -2079,11 +2191,25 @@ def phase_train(torch, ctx):
         t, e = grad_times[(name, dtype)], grad_errs[(name, dtype)]
         errs = ", ".join(f"{k} {v:.2g}" for k, v in e.items())
         return (
-            f"{str(dtype)[6:]}: backward {t['bwd_ms']:.4f} ms (graph replay) vs plain {t['bwd_plain_ms']:.3f}, SDPA "
-            f"backward {t['bwd_library_ms']:.4f} (core only), bound {t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}, "
-            f"{t['bwd_bound_ms'] / t['bwd_ms']:.0%}); fwd+bwd {t['ms']:.4f} ms (eager) vs plain {t['plain_ms']:.3f}, "
+            f"{str(dtype)[6:]}: backward {t['bwd_ms']:.4f} ms (graph replay; kernels a call by the profiler: "
+            f"{'not measured' if t['bwd_kernels'] is None else ' + '.join(t['bwd_kernel_names'])}, "
+            f"{t['bwd_host_us']:.1f} us of host a call to enqueue) vs plain {t['bwd_plain_ms']:.3f}, SDPA "
+            f"backward {t['bwd_library_ms']:.4f} (core only; ours {t['bwd_vs_sdpa']:.2f}x its time), bound "
+            f"{t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}, {t['bwd_bound_ms'] / t['bwd_ms']:.0%}); fwd+bwd {t['ms']:.4f} ms (eager) vs plain {t['plain_ms']:.3f}, "
             f"SDPA {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}); forward alone {t['fwd_ms']:.4f} "
             f"ms (graph replay); {errs}"
+        )
+
+    def clocks_line(name):
+        c = grad_times[(name, bf)].get("bwd_clocks")
+        if c is None:
+            return ""
+        total = sum(c["parts"].values())
+        parts = ", ".join(f"{k} {v:.0f} ({v / total:.0%})" for k, v in c["parts"].items())
+        return (
+            f" [{labels[name]} bf16, the one-pass kernel's -DQKNORM_BWD_TIMING build: SM clocks a block by part, "
+            f"{parts}; a block {c['block_ns'] / 1000:.2f} us, {c['concurrent']} at once, the kernel's span "
+            f"{c['span_ns'] / 1000:.1f} us]"
         )
 
     labels = {
@@ -2097,6 +2223,7 @@ def phase_train(torch, ctx):
         f"against qknorm_attend_backward_plain; limits f32 1e-4, bf16 {K2_BWD_BF16_FROM_F32:g} vs f32 plain, "
         f"{K2_BWD_BF16_VS_ROUNDED:g} vs the rounding plain): "
         + " | ".join(f"{labels[nm]} {tline(nm, torch.float32)}; {tline(nm, bf)}" for nm in grad_shapes)
+        + "".join(clocks_line(nm) for nm in grad_shapes)
         + f" | {ctx['smi']}"
     )
 
@@ -2324,7 +2451,14 @@ def phase_train(torch, ctx):
         max_abs_err=grad_errs[("self", torch.bfloat16)]["bwd vs plain"],
         launches=train_bwd_launches, launches_per_train_step=bwd_steps,
         shapes={
-            f"{n}_{str(d)[6:]}": {k: grad_times[(n, d)][k] for k in ("bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by")}
+            f"{n}_{str(d)[6:]}": {
+                k: grad_times[(n, d)][k]
+                for k in (
+                    "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by", "bwd_vs_sdpa",
+                    "bwd_host_us", "bwd_kernels", "bwd_kernel_names", "bwd_clocks",
+                )
+                if k in grad_times[(n, d)]
+            }
             for n, d in grad_times
         },
     )

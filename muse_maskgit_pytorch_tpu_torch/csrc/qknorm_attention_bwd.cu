@@ -15,42 +15,56 @@
 //   gradient of t^ times its scale; d q_scale = scale sum dq^ u_q,
 //   d k_scale = sum dk^ u_k + sum_h d nk^ u_nk. The key bias gets none.
 //
-// What bounds it on the H100: the bytes, at the base stage's shapes. At d
-// 64 the backward does 10 n m d FLOP a head (S and dP recomputed, dV, dQ,
-// dK) against one read of q, k, v, out and g and one write of dq, dk and
-// dv: about 64 FLOP a byte at 64 keys and 160 at 256, under the 295 at
-// which the tensor cores would set the pace (at the super-res stage's 1024
-// keys, about 300, the two meet). So the design keeps every n x m tensor
-// (S, P, dP, dS) in registers and reads each input a few times at most:
-//   * `prep`: one pass over the rows normalises q and k once into q^ and k^
-//     (rounded to bf16 where the forward rounds them) and takes D from g and
-//     the saved output, so no tile loop redoes a norm.
-//   * `dkdv`: one block per (64 keys, head, batch), key-stationary: k^ and
-//     v stay in shared memory while the query tiles of q^, g, LSE and D
-//     stream past through a two-stage cp.async ring. S^T = k^ q^T and
-//     dP^T = v g^T are `wgmma` products from shared memory; P^T and dS^T are
-//     formed in the accumulator registers, rounded to bf16, and are the A
-//     fragments of dV += P^T g and dK^ += dS^T q^ (`wgmma` with A in
-//     registers, B read MN-major from the same tiles). Its epilogue applies
-//     the chain rule through k's norm and writes dk and dv, and a per-block
-//     partial of d k_scale.
-//   * `dq`: one block per (64 queries, head, batch), query-stationary, the
-//     mirror image over key tiles of k^, v and the key bias: dQ^ += dS k^.
-//     The null column is computed on CUDA cores in f32 (s0 from the rounded
-//     q^ as the forward does, P_0, dS_0); its epilogue applies the chain
-//     rule to dq, and writes per-block partials of d q_scale, d nk^ and d nv.
-//   * `sum_rows` and `reduce`: 128 blocks sum chunks of the partials' rows,
-//     then one block sums the chunks, each in a fixed order, and takes
-//     d nk^ through the null key's norm.
-// No float atomics anywhere: two launches on the same inputs give
-// bit-identical gradients. The tiles arrive by cp.async, not TMA: a block
-// loads two 8 KB tiles per step with all its threads and waits on its own
-// copy groups, so there is no producer warp and no mbarrier to hang on.
-// f32 inputs take CUDA-core kernels of the same structure (4 x 4 register
-// tiles, shared-memory operands in both layouts), simple and not tuned.
-// Rows past n or m are zero-filled and masked by LSE = +inf / bias = -inf;
-// a fully masked row (bias -1e30) or m = 0 gives P = 0 on every key, dq = 0
-// through the keys and all of g to null_v.
+// What bounds it on the H100. At d 64 the backward does 10 n m d FLOP a
+// head (S and dP, dV, dQ, dK) against one read of q, k, v, out and g and one
+// write of dq, dk and dv: about 64 FLOP a byte at 64 keys and 160 at 256,
+// under the 295 at which the tensor cores would set the pace, so at the
+// base stage's shapes the bytes bound it (0.040 ms at (64, 256, 8, 64) x
+// 256); at the super-res stage's 1024 keys, about 300, the two meet.
+//
+// bf16, n <= 256 (every base-stage train shape): `onepass`, one launch. A
+// block per (batch, head) holds the q side whole in 196 KiB of shared memory
+// (raw q, q^ and g, 96 KB at n = 256) and reads every input once: q, g and
+// out in the prologue (q^ rounded where the forward rounds it, D, the null
+// column and its d nv / d nk^ sums from values in hand), k and v as 64-key
+// tiles through a two-stage cp.async ring, k^ normalised as a tile lands.
+// Its two warpgroups take each key tile together, each over its own query
+// tiles: S^T and dP^T once per tile pair, P^T and dS^T in registers as the
+// A fragments of dV += P^T g and dK^ += dS^T q^, and dQ^ += dS k^ from dS^T
+// stored to shared memory (`wgmma` with both operands MN-major). Each
+// warpgroup keeps dQ^ of its two query tiles in registers for the whole
+// block, so nothing is recomputed and no q^ / k^ round trip through device
+// memory is left: the block's floor is the bytes bound itself. The
+// warpgroups swap their dK^ / dV halves through shared memory at the end of
+// each key tile; dv, dk (k's norm from the raw k tile still in the ring)
+// and at the end dq (q's norm) are staged in shared memory and written 16
+// bytes a thread. Each block writes one row of the scale and null
+// gradients' partial sums; the last block of each head sums that head's
+// rows, and the last of those the heads' (integer tickets, zeroed by a
+// memset before the launch). One block per SM (its shared memory and 249
+// registers a thread): 512 blocks at the base shapes, about 4 waves, each
+// block's loads, prologue and epilogue overlapping nothing; its clocks by
+// part come from the -DQKNORM_BWD_TIMING build.
+//
+// bf16, n > 256, and f32: the split route, the first design's kernels. `prep`
+// normalises q and k once into q^ and k^ in device memory (rounded to bf16
+// on the bf16 route) and takes D; `dkdv` (one block per 64 keys,
+// key-stationary: k^ and v resident, the query tiles streamed through a
+// two-stage cp.async ring) writes dk, dv and d k_scale rows; `dq` (per 64
+// queries, query-stationary over key tiles) recomputes S and dP, so 14 n m
+// d FLOP a head against the bound's 10, and writes dq and its rows of
+// d q_scale, d nk^, d nv; `sum_rows` and `reduce` sum the rows in two
+// fixed-order stages. Each waits on every `wgmma` group with one warpgroup
+// a block, so at the super-res stage's shapes it runs at 11-20% of its
+// bound. f32 takes CUDA-core kernels of the same structure (4 x 4 register
+// tiles), simple and not tuned.
+//
+// Every route: no float atomics, so two launches on the same inputs give
+// bit-identical gradients. Rows past n or m are zero-filled and masked by
+// LSE = +inf / bias = -inf; a fully masked row (bias -1e30) or m = 0 gives
+// P = 0 on every key, dq = 0 through the keys and all of g to null_v. The
+// tiles arrive by cp.async, each block waiting on its own copy groups and
+// barriers: no producer warp and no mbarrier to hang on.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -107,12 +121,13 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // a 64-row bf16 tile into the swizzled K-major layout `wgmma` reads: row r
-// from src + r * stride (elements), rows >= rows zero-filled
+// from src + r * stride (elements), rows >= rows zero-filled; NT threads
+template <int NT = NTH>
 __device__ __forceinline__ void tile_async(uint32_t dst, const __nv_bfloat16* src, long long stride, int rows,
                                            int tid) {
 #pragma unroll
-  for (int it = 0; it < T * 8 / NTH; ++it) {
-    const int c = tid + it * NTH, r = c >> 3, ch = c & 7;
+  for (int it = 0; it < T * 8 / NT; ++it) {
+    const int c = tid + it * NT, r = c >> 3, ch = c & 7;
     const bool ok = r < rows;
     cp16(dst + ac::swz<ROWB>(r, ch), ok ? src + r * stride + ch * 8 : src, ok);
   }
@@ -235,14 +250,673 @@ qknorm_bwd_prep(const TT* __restrict__ q, const TT* __restrict__ k, const TT* __
 // the arguments every main kernel takes
 template <typename TT>
 struct Bwd {
-  const TT *g, *q, *k, *v, *qh, *kh, *nk, *nv;
+  const TT *g, *q, *k, *v, *out, *qh, *kh, *nk, *nv;
   const float *lse, *delta, *q_scale, *k_scale, *bias;
-  TT *dq, *dk, *dv;
-  float *dqs_part, *dks_part, *dnk_part, *dnv_part;  // per block, (B, tiles, H, D)
+  TT *dq, *dk, *dv, *dnk, *dnv;
+  float *dqs, *dks;
+  // per-block partials, (blocks, H, D): d q_scale, d k_scale, d nk^, d nv;
+  // one-pass: each head's sums (H, 3, D) and H + 1 tickets, zero at the
+  // launch
+  float *dqs_part, *dks_part, *dnk_part, *dnv_part, *head_sums;
+  int* counter;
+  long long* clocks;  // -DQKNORM_BWD_TIMING: the one-pass kernel's clocks, 10 a block
   long long g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm;
   int n, m, H;
   float scale;
 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename TT>
+__device__ __forceinline__ TT from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+// -- the one-pass kernel's partials, summed in a fixed order ---------------------------
+
+// Every partial is (B, H, D) f32, one row a block. Each head's last block
+// to finish sums that head's rows over the batch: d nv and d nk^ (the
+// latter through the null key's norm) are then final, and d q_scale,
+// d k_scale and d nk^ u_nk go to the head's row of `head_sums`; the last
+// of those sums the H rows. An integer ticket a head and one more, zeroed
+// by a memset before the launch. At a ticket a block's threads meet at a
+// barrier, then its first thread fences (cumulative over the block's
+// writes, as the barrier orders them) and takes the ticket; the last
+// arrival's first thread fences again before the barrier that lets its
+// block read. Sums are read with ld.global.cg (L2): an earlier launch's
+// reducer may have left the same addresses in this SM's L1.
+__device__ __forceinline__ bool last_arrival(int* counter, int arrivals) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1) == arrivals - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  return last;
+}
+
+// Called by every block of head h when its partials are written;
+// `scratch`: (blockDim / 4 + 4) x D floats of shared memory.
+template <typename TT>
+__device__ void reduce_partials(const Bwd<TT>& p, int h, int B, float* scratch) {
+  const int H = p.H;
+  if (!last_arrival(p.counter + h, B)) return;
+  const int tid = threadIdx.x, parts = blockDim.x / 16, c4 = tid & 15, part = tid >> 4;
+  float4* sums = reinterpret_cast<float4*>(scratch);  // [4][parts][16]
+  const float* src[4] = {p.dqs_part, p.dks_part, p.dnv_part, p.dnk_part};
+  {  // a thread: four columns of each partial over one part of the batch, in order
+    const int per = (B + parts - 1) / parts, b0 = min(B, part * per), b1 = min(B, b0 + per);
+    float4 acc[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[a] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+    for (int b = b0; b < b1; ++b) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(src[a] + ((long long)b * H + h) * D) + c4);
+        acc[a].x += x.x, acc[a].y += x.y, acc[a].z += x.z, acc[a].w += x.w;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) sums[(a * parts + part) * 16 + c4] = acc[a];
+  }
+  __syncthreads();
+  float* tot = scratch + 4 * parts * 64;  // [4][D]: d q_scale, d k_scale, d nv, d nk^ of head h
+  for (int i = tid; i < 4 * D; i += blockDim.x) {
+    const int a = i / D, c = i % D;
+    float t = 0.0f;
+    for (int pp = 0; pp < parts; ++pp) t += reinterpret_cast<const float*>(sums + (a * parts + pp) * 16)[c];
+    tot[a * D + c] = t;
+  }
+  __syncthreads();
+  float* mine = p.head_sums + (long long)h * 3 * D;  // d q_scale, d k_scale, d nk^ u_nk of head h
+  if (tid < 32) {  // d nk^ through the null key's norm
+    float u[2], w[2], ss = 0.0f, uw = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      u[e] = to_f(p.nk[h * D + tid + 32 * e]);
+      ss += u[e] * u[e];
+    }
+    const float r = rsqrtf(warp_sum(ss) + 1e-12f);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = tid + 32 * e;
+      u[e] *= r;
+      w[e] = tot[3 * D + c] * p.k_scale[c];
+      uw += u[e] * w[e];
+    }
+    uw = warp_sum(uw);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = tid + 32 * e;
+      p.dnk[h * D + c] = from_f<TT>(r * (w[e] - u[e] * uw));
+      p.dnv[h * D + c] = from_f<TT>(tot[2 * D + c]);
+      mine[c] = tot[c];
+      mine[D + c] = tot[D + c];
+      mine[2 * D + c] = tot[3 * D + c] * u[e];
+    }
+  }
+  if (!last_arrival(p.counter + H, H)) return;
+  if (tid < D) {
+    float a = 0.0f, k = 0.0f, cn = 0.0f;
+    for (int hh = 0; hh < H; ++hh) {
+      a += __ldcg(p.head_sums + hh * 3 * D + tid);
+      k += __ldcg(p.head_sums + hh * 3 * D + D + tid);
+      cn += __ldcg(p.head_sums + hh * 3 * D + 2 * D + tid);
+    }
+    p.dqs[tid] = a;
+    p.dks[tid] = k + cn;
+  }
+}
+
+// -- bf16, one pass over each (batch, head): n <= 256 -------------------------------
+
+// Built with -DQKNORM_BWD_TIMING, the one-pass kernel leaves, for each block,
+// its start and end on the global timer (ns), its SM, and the SM clocks its
+// thread 0 (warpgroup 0) spent in each part: the q-side loads, the
+// prologue, each key tile's wait and k^, the tile pairs, the warpgroups'
+// exchange with dv and dk, dq's epilogue, the partials' reduction. A part
+// ends where thread 0 gets there, so one that ends at a barrier holds its
+// wait for the other threads.
+#ifdef QKNORM_BWD_TIMING
+constexpr int CLOCK_SLOTS = 10;  // as `ops/attention.py` reads them
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define BWD_TICK(part)                        \
+  do {                                        \
+    if (tid == 0) {                           \
+      const long long now = clock64();        \
+      clk[3 + (part)] += now - clk_t;         \
+      clk_t = now;                            \
+    }                                         \
+  } while (0)
+#else
+#define BWD_TICK(part) \
+  do {                 \
+  } while (0)
+#endif
+
+// d (64 x 64, f32) += A (64 x 16, smem, MN-major) B (16 x 64, smem, MN-major):
+// dQ^ += dS k^ with dS^T and k^ as they lie in shared memory
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Sums a[32] over the 16 lanes that share lane & 1 (partners lane ^ 2, 4,
+// 8, 16), scattering the result: afterwards a[0], a[1] hold the sums of
+// columns c, c + 1, c = 16 b4 + 8 b3 + 4 b2 + 2 b1 from the lane's bits.
+template <int LEN, int O>
+__device__ __forceinline__ void rs_step(float (&a)[32], int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int i = 0; i < LEN / 2; ++i) {
+    const float keep = upper ? a[i + LEN / 2] : a[i], send = upper ? a[i] : a[i + LEN / 2];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+__device__ __forceinline__ void reduce_scatter32(float (&a)[32], int lane) {
+  rs_step<32, 16>(a, lane);
+  rs_step<16, 8>(a, lane);
+  rs_step<8, 4>(a, lane);
+  rs_step<4, 2>(a, lane);
+}
+
+constexpr int OP_NQ = 4;           // query tiles a block holds: n <= 256
+constexpr int OP_N = OP_NQ * T;
+constexpr int OP_NTH = 256;        // two warpgroups
+
+struct OnePassSmem {
+  static constexpr int QH_OFF = 0;                     // [4] q^ tiles, rows past n zero
+  static constexpr int G_OFF = QH_OFF + OP_NQ * TILE;  // [4] g tiles
+  static constexpr int QR_OFF = G_OFF + OP_NQ * TILE;  // [4] raw q tiles
+  static constexpr int KR_OFF = QR_OFF + OP_NQ * TILE; // [2] raw k tiles, a ring
+  static constexpr int V_OFF = KR_OFF + 2 * TILE;      // [2] v tiles
+  static constexpr int KH_OFF = V_OFF + 2 * TILE;      // k^ of the key tile in hand
+  static constexpr int DS_OFF = KH_OFF + TILE;         // [2] dS^T, one a warpgroup
+  static constexpr int XCH_OFF = DS_OFF + 2 * TILE;    // [2][32][128] f32: the warpgroups' dK^ / dV halves
+  static constexpr int VEC_OFF = XCH_OFF + 2 * T * D * 4;
+  // f32: lse2, del, ds0, rq [OP_N]; kb, rk, nkh, nvs, qsc, ksc [64]; red_a, red_b, ks_acc [8][64]
+  static constexpr int BYTES = VEC_OFF + (4 * OP_N + 6 * D + 3 * 8 * D) * 4;
+  static constexpr int ALLOC = BYTES + 1024;
+  static_assert(2 * T * D * 4 >= (OP_NTH / 4 + 4) * D * 4, "the reduction's scratch fits the exchange");
+};
+
+// One block per (head, batch), two warpgroups. The block holds the raw q,
+// q^ and g of every query row (read once) and streams the key tiles once
+// through a two-stage cp.async ring of raw k and v; k^ is normalised as a
+// tile lands. Both warpgroups take the key tile in hand, each over its own
+// query tiles (wg, wg + 2): S^T, dP^T once per tile pair, then dV += P^T g,
+// dK^ += dS^T q^ (A in registers) and dQ^ += dS k^ (dS^T through shared
+// memory, `wgmma` with both operands MN-major), dQ^ in registers for the
+// whole kernel. At the end of a key tile the warpgroups swap halves: 0 sums
+// dv, 1 sums dK^ and applies k's norm, each staging its rows in its dS^T
+// tile for 16-byte stores. The null column, D and the d nv / d nk^ rows
+// come from the prologue, dq's norm and the d q_scale row from the
+// epilogue (dq staged in the g tiles); `reduce_partials` sums the rows.
+__global__ void __launch_bounds__(OP_NTH, 1) qknorm_bwd_onepass_bf16(const Bwd<__nv_bfloat16> p) {
+  using L = OnePassSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (ac::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = ac::smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2, wt = tid & 127;
+  const int h = blockIdx.x, b = blockIdx.y, n = p.n, m = p.m;
+  const int nqt = (n + T - 1) / T, nkt = (m + T - 1) / T;
+  const long long hd = (long long)p.H * D, bh = (long long)b * p.H + h;
+#ifdef QKNORM_BWD_TIMING
+  long long clk[CLOCK_SLOTS] = {}, clk_t = clock64();
+  if (tid == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    clk[0] = global_ns();
+    clk[2] = sm;
+  }
+#endif
+  float* lse2 = reinterpret_cast<float*>(smem + L::VEC_OFF);
+  float* del = lse2 + OP_N;
+  float* ds0 = del + OP_N;
+  float* rq = ds0 + OP_N;
+  float* kb = rq + OP_N;
+  float* rk = kb + D;
+  float* nkh = rk + D;
+  float* nvs = nkh + D;
+  float* qsc = nvs + D;
+  float* ksc = qsc + D;
+  float* red_a = ksc + D;
+  float* red_b = red_a + 8 * D;
+  float* ks_acc = red_b + 8 * D;
+
+  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * D;
+  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * D;
+  auto load_key_tile = [&](int j) {
+    const int s = j & 1, k0 = j * T, keys = min(T, m - k0);
+    tile_async<OP_NTH>(sbase + L::KR_OFF + s * TILE, kg + k0 * p.k_sm, p.k_sm, keys, tid);
+    tile_async<OP_NTH>(sbase + L::V_OFF + s * TILE, vg + k0 * p.v_sm, p.v_sm, keys, tid);
+  };
+  // raw q and g in two copy groups (rows 0-127, 128-255), then the first key tile
+  for (int i = 0; i < OP_NQ; ++i) {
+    const int q0 = i * T, rows = min(T, n - q0);
+    if (i < nqt) {
+      tile_async<OP_NTH>(sbase + L::QR_OFF + i * TILE, p.q + b * p.q_sb + q0 * p.q_sn + h * D, p.q_sn, rows, tid);
+      tile_async<OP_NTH>(sbase + L::G_OFF + i * TILE, p.g + b * p.g_sb + q0 * p.g_sn + h * D, p.g_sn, rows, tid);
+    }
+    if (i & 1) cp_commit();
+  }
+  if (nkt > 0) load_key_tile(0);
+  cp_commit();
+  // the forward's output for D, this thread's half of rows tid / 2 and
+  // tid / 2 + 128, into registers while the copies fly
+  const int half = tid & 1;
+  uint4 outv[2][4];
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const int r = (tid >> 1) + it * (OP_NTH / 2);
+    const uint4* o = reinterpret_cast<const uint4*>(p.out + ((long long)b * n + r) * hd + h * D + half * 32);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) outv[it][c] = r < n ? o[c] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (tid < D) {
+    qsc[tid] = p.q_scale[tid] * p.scale;
+    ksc[tid] = p.k_scale[tid];
+  }
+  for (int i = tid; i < 8 * D; i += OP_NTH) ks_acc[i] = 0.0f;
+  if (warp == 0) {  // the null key, normalised and scaled in f32, as the forward does
+    const float a0 = __bfloat162float(p.nk[h * D + lane]), a1 = __bfloat162float(p.nk[h * D + lane + 32]);
+    const float r = rsqrtf(warp_sum(a0 * a0 + a1 * a1) + 1e-12f);
+    nkh[lane] = a0 * r * p.k_scale[lane];
+    nkh[lane + 32] = a1 * r * p.k_scale[lane + 32];
+    nvs[lane] = __bfloat162float(p.nv[h * D + lane]);
+    nvs[lane + 32] = __bfloat162float(p.nv[h * D + lane + 32]);
+  }
+  cp_wait<2>();  // rows 0-127 of q and g
+  __syncthreads();
+  BWD_TICK(0);
+
+  // -- prologue, two threads a row: q^ (rounded as the forward rounds it),
+  // D = g . out, the null column (s0 from the rounded q^, P_0, dS_0) and
+  // this block's sums of P_0 g and dS_0 q^
+  {
+    const float* lse = p.lse + bh * n;
+    float anv[32], ank[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) anv[e] = ank[e] = 0.0f;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      if (it * (OP_NTH / 2) >= nqt * T) break;
+      if (it == 1) {  // rows 128-255 of q and g
+        cp_wait<1>();
+        __syncthreads();
+      }
+      const int r = (tid >> 1) + it * (OP_NTH / 2), ti = r >> 6, rr = r & (T - 1);
+      if (r >= nqt * T) continue;  // a tile never loaded (whole warps skip it)
+      const bool ok = r < n;
+      float x[32], gv[32], ov[32];
+      tile_row_half(smem + L::QR_OFF + ti * TILE, rr, half, x);
+      tile_row_half(smem + L::G_OFF + ti * TILE, rr, half, gv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ac::unpack8(outv[it][c], ov + 8 * c);
+      float ss = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) ss += x[e] * x[e];
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      const float rr_q = rsqrtf(ss + 1e-12f);
+      float s0 = 0.0f, dp0 = 0.0f, dd = 0.0f;
+      unsigned char* qh_t = smem + L::QH_OFF + ti * TILE;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float y[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) y[e] = x[8 * c + e] * rr_q * qsc[half * 32 + 8 * c + e];
+        const uint4 u = ac::pack8(y);
+        *reinterpret_cast<uint4*>(qh_t + ac::swz<ROWB>(rr, half * 4 + c)) = u;
+        ac::unpack8(u, x + 8 * c);  // x now holds the rounded q^
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s0 += x[8 * c + e] * nkh[half * 32 + 8 * c + e];
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        dp0 += gv[e] * nvs[half * 32 + e];
+        dd += gv[e] * ov[e];
+      }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      dp0 += __shfl_xor_sync(0xffffffffu, dp0, 1);
+      dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+      const float l2 = ok ? lse[r] * LOG2E : INFINITY;
+      const float p0 = ok ? exp2f(s0 * LOG2E - l2) : 0.0f;
+      const float d0 = ok ? p0 * (dp0 - dd) : 0.0f;
+      if (half == 0) {
+        lse2[r] = l2;
+        del[r] = ok ? dd : 0.0f;
+        ds0[r] = d0;
+        rq[r] = rr_q;
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        anv[e] = fmaf(p0, gv[e], anv[e]);
+        ank[e] = fmaf(d0, x[e], ank[e]);
+      }
+    }
+    // over the 16 lanes of one half (each lane keeps two columns' sums), then the warps in order
+    reduce_scatter32(anv, lane);
+    reduce_scatter32(ank, lane);
+    const int col = half * 32 + (lane & 30);
+    red_a[warp * D + col] = anv[0];
+    red_a[warp * D + col + 1] = anv[1];
+    red_b[warp * D + col] = ank[0];
+    red_b[warp * D + col + 1] = ank[1];
+    ac::fence_async_smem();  // q^ for wgmma
+    __syncthreads();
+    if (tid < 2 * D) {
+      const int c = tid & (D - 1);
+      const float* src = tid < D ? red_a : red_b;
+      float s = 0.0f;
+      for (int w = 0; w < OP_NTH / 32; ++w) s += src[w * D + c];
+      (tid < D ? p.dnv_part : p.dnk_part)[bh * D + c] = s;
+    }
+  }
+
+  BWD_TICK(1);
+
+  // -- the key tiles
+  const int gq = lane >> 2, t = lane & 3;
+  const int rw = (warp & 3) * 16 + gq;  // accumulator rows rw, rw + 8 of the warpgroup's 64
+  float dq[2][32];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[u][e] = 0.0f;
+  const uint32_t kh_a = sbase + L::KH_OFF, ds_a = sbase + L::DS_OFF + wg * TILE;
+  unsigned char* ds_t = smem + L::DS_OFF + wg * TILE;
+  float* xch = reinterpret_cast<float*>(smem + L::XCH_OFF);
+  for (int j = 0; j < nkt; ++j) {
+    const int s = j & 1, k0 = j * T, keys = min(T, m - k0);
+    cp_wait<0>();
+    __syncthreads();  // tile j is in; every thread is done with tile j - 1
+    if (j + 1 < nkt) {
+      load_key_tile(j + 1);
+      cp_commit();
+    }
+    {  // k^ = k / |k| k_scale, rounded to bf16 as the forward rounds it: four threads a row
+      const int r = tid >> 2, part = tid & 3;
+      const unsigned char* kr_t = smem + L::KR_OFF + s * TILE;
+      unsigned char* kh_t = smem + L::KH_OFF;
+      float x[16];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        ac::unpack8(*reinterpret_cast<const uint4*>(kr_t + ac::swz<ROWB>(r, part * 2 + c)), x + 8 * c);
+      float ss = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) ss += x[e] * x[e];
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+      const float rr_k = rsqrtf(ss + 1e-12f);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[8 * c + e] = x[8 * c + e] * rr_k * ksc[(part * 2 + c) * 8 + e];
+        *reinterpret_cast<uint4*>(kh_t + ac::swz<ROWB>(r, part * 2 + c)) = ac::pack8(x + 8 * c);
+      }
+      if (part == 0) rk[r] = rr_k;
+      if (tid < T) kb[tid] = tid < keys ? (p.bias ? p.bias[(long long)b * m + k0 + tid] : 0.0f) * LOG2E : -INFINITY;
+    }
+    ac::fence_async_smem();
+    __syncthreads();
+    BWD_TICK(2);
+    const float kb2[2] = {kb[rw], kb[rw + 8]};
+    const uint32_t va = sbase + L::V_OFF + s * TILE;
+    float dv[32], dk[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dv[e] = dk[e] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = wg + 2 * u;
+      if (i < nqt) {
+        const uint32_t qa = sbase + L::QH_OFF + i * TILE, ga = sbase + L::G_OFF + i * TILE;
+        // S^T = k^ q^T and dP^T = v g^T (64 keys x 64 queries)
+        float sc[32], dp[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
+        ac::fence_operands(sc);
+        ac::fence_operands(dp);
+        ac::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ac::wgmma_ss_n64(sc, ac::desc_kmajor<ROWB>(kh_a + kk * 32), ac::desc_kmajor<ROWB>(qa + kk * 32), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ac::wgmma_ss_n64(dp, ac::desc_kmajor<ROWB>(va + kk * 32), ac::desc_kmajor<ROWB>(ga + kk * 32), kk > 0);
+        ac::wgmma_commit();
+        ac::wgmma_wait_all();
+        ac::fence_operands(sc);
+        ac::fence_operands(dp);
+        // P^T = exp(S^T + bias - LSE), dS^T = P^T (dP^T - D)
+        const float* ls = lse2 + i * T;
+        const float* dl = del + i * T;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * jj + 2 * t + (e & 1);
+            const float pe = exp2f(fmaf(sc[4 * jj + e], LOG2E, kb2[e >> 1]) - ls[col]);
+            sc[4 * jj + e] = pe;
+            dp[4 * jj + e] = pe * (dp[4 * jj + e] - dl[col]);
+          }
+        }
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pa[kc][e] = ac::pack_bf16(sc[8 * kc + 2 * e], sc[8 * kc + 2 * e + 1]);
+            da[kc][e] = ac::pack_bf16(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1]);
+          }
+        }
+        // dS^T (bf16) into this warpgroup's tile, once its last dQ product has read it
+        ac::named_barrier(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii)
+            *reinterpret_cast<uint32_t*>(ds_t + ac::swz<ROWB>(rw + 8 * ii, jj) + 4 * t) =
+                da[jj >> 1][(jj & 1) * 2 + ii];
+        }
+        ac::fence_async_smem();
+        ac::named_barrier(1 + wg, 128);
+        // dV += P^T g, dK^ += dS^T q^ (B MN-major), dQ^ += dS k^ (A and B MN-major)
+        ac::fence_operands(dv);
+        ac::fence_operands(dk);
+        ac::fence_operands(dq[u]);
+        ac::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) ac::wgmma_rs(dv, pa[kc], ac::desc_mnmajor<ROWB>(ga + kc * 16 * ROWB));
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) ac::wgmma_rs(dk, da[kc], ac::desc_mnmajor<ROWB>(qa + kc * 16 * ROWB));
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          wgmma_ss_tt(dq[u], ac::desc_mnmajor<ROWB>(ds_a + kc * 16 * ROWB),
+                      ac::desc_mnmajor<ROWB>(kh_a + kc * 16 * ROWB));
+        ac::wgmma_commit();
+        ac::wgmma_wait_all();
+        ac::fence_operands(dv);
+        ac::fence_operands(dk);
+        ac::fence_operands(dq[u]);
+      }
+    }
+    BWD_TICK(3);
+    // the warpgroups' halves: 0 hands over dK^ and finishes dv, 1 hands over
+    // dV and takes dK^ through k's norm (each sum is warpgroup 0's + 1's);
+    // each stages its bf16 rows in its dS^T tile, then writes them 16 bytes
+    // a thread
+    {
+      float* mine = xch + wg * 32 * 128;
+      const float* other = xch + (wg ^ 1) * 32 * 128;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mine[e * 128 + wt] = wg == 0 ? dk[e] : dv[e];
+      __syncthreads();
+      if (wg == 0) {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int e0 = 4 * jj + 2 * ii;
+            *reinterpret_cast<uint32_t*>(ds_t + ac::swz<ROWB>(rw + 8 * ii, jj) + 4 * t) =
+                ac::pack_bf16(dv[e0] + other[e0 * 128 + wt], dv[e0 + 1] + other[(e0 + 1) * 128 + wt]);
+          }
+        }
+      } else {
+        const unsigned char* kr_t = smem + L::KR_OFF + s * TILE;
+        float cs[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) cs[e] = 0.0f;
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int r = rw + 8 * ii;
+          const float rr_k = rk[r];
+          float u[16], w[16], uw = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 kv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(kr_t + ac::swz<ROWB>(r, jj) + 4 * t));
+            const int e0 = 4 * jj + 2 * ii, c = 8 * jj + 2 * t;
+            const float g0 = other[e0 * 128 + wt] + dk[e0], g1 = other[(e0 + 1) * 128 + wt] + dk[e0 + 1];
+            u[2 * jj] = kv.x * rr_k;
+            u[2 * jj + 1] = kv.y * rr_k;
+            w[2 * jj] = g0 * ksc[c];
+            w[2 * jj + 1] = g1 * ksc[c + 1];
+            uw += u[2 * jj] * w[2 * jj] + u[2 * jj + 1] * w[2 * jj + 1];
+            cs[2 * jj] = fmaf(g0, u[2 * jj], cs[2 * jj]);
+            cs[2 * jj + 1] = fmaf(g1, u[2 * jj + 1], cs[2 * jj + 1]);
+          }
+          uw += __shfl_xor_sync(0xffffffffu, uw, 1);
+          uw += __shfl_xor_sync(0xffffffffu, uw, 2);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            *reinterpret_cast<uint32_t*>(ds_t + ac::swz<ROWB>(r, jj) + 4 * t) =
+                ac::pack_bf16(rr_k * (w[2 * jj] - u[2 * jj] * uw), rr_k * (w[2 * jj + 1] - u[2 * jj + 1] * uw));
+        }
+        // this warp's rows of d k_scale = sum dk^ u_k, into its running sums
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
+        }
+        if (lane < 4) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            ks_acc[(warp & 3) * D + 8 * jj + 2 * t] += cs[2 * jj];
+            ks_acc[(warp & 3) * D + 8 * jj + 2 * t + 1] += cs[2 * jj + 1];
+          }
+        }
+      }
+      ac::named_barrier(1 + wg, 128);
+      __nv_bfloat16* dst = (wg == 0 ? p.dv : p.dk) + ((long long)b * m + k0) * hd + h * D;
+#pragma unroll
+      for (int it = 0; it < T * 8 / 128; ++it) {
+        const int c = wt + it * 128, r = c >> 3, ch = c & 7;
+        if (r < keys)
+          *reinterpret_cast<uint4*>(dst + r * hd + ch * 8) =
+              *reinterpret_cast<const uint4*>(ds_t + ac::swz<ROWB>(r, ch));
+      }
+    }
+    BWD_TICK(4);
+  }
+  __syncthreads();
+
+  // -- epilogue: dq^ += dS_0 nk^, q's norm, and this block's d q_scale rows
+  {
+    float cs[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) cs[e] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = wg + 2 * u;
+      if (i >= nqt) continue;
+      const unsigned char* qr_t = smem + L::QR_OFF + i * TILE;
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int rr = rw + 8 * ii, r = i * T + rr;
+        const float d0 = ds0[r], rr_q = rq[r];
+        float uq[16], w[16], uw = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float2 qv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(qr_t + ac::swz<ROWB>(rr, jj) + 4 * t));
+          const int e0 = 4 * jj + 2 * ii, c = 8 * jj + 2 * t;
+          const float g0 = fmaf(d0, nkh[c], dq[u][e0]), g1 = fmaf(d0, nkh[c + 1], dq[u][e0 + 1]);
+          uq[2 * jj] = qv.x * rr_q;
+          uq[2 * jj + 1] = qv.y * rr_q;
+          w[2 * jj] = g0 * qsc[c];
+          w[2 * jj + 1] = g1 * qsc[c + 1];
+          uw += uq[2 * jj] * w[2 * jj] + uq[2 * jj + 1] * w[2 * jj + 1];
+          cs[2 * jj] = fmaf(g0, uq[2 * jj], cs[2 * jj]);
+          cs[2 * jj + 1] = fmaf(g1, uq[2 * jj + 1], cs[2 * jj + 1]);
+        }
+        uw += __shfl_xor_sync(0xffffffffu, uw, 1);
+        uw += __shfl_xor_sync(0xffffffffu, uw, 2);
+        unsigned char* st = smem + L::G_OFF + i * TILE;  // g is done with: dq's bf16 rows
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          *reinterpret_cast<uint32_t*>(st + ac::swz<ROWB>(rr, jj) + 4 * t) =
+              ac::pack_bf16(rr_q * (w[2 * jj] - uq[2 * jj] * uw), rr_q * (w[2 * jj + 1] - uq[2 * jj + 1] * uw));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
+    }
+    if (lane < 4) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        red_a[warp * D + 8 * jj + 2 * t] = cs[2 * jj];
+        red_a[warp * D + 8 * jj + 2 * t + 1] = cs[2 * jj + 1];
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < nqt * T * 8; c += OP_NTH) {
+    const int r = c >> 3, ch = c & 7;
+    if (r < n)
+      *reinterpret_cast<uint4*>(p.dq + ((long long)b * n + r) * hd + h * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(smem + L::G_OFF + (r >> 6) * TILE + ac::swz<ROWB>(r & (T - 1), ch));
+  }
+  if (tid < 2 * D) {
+    const int c = tid & (D - 1);
+    float sum = 0.0f;
+    if (tid < D) {
+      for (int w = 0; w < OP_NTH / 32; ++w) sum += red_a[w * D + c];
+      p.dqs_part[bh * D + c] = sum * p.scale;
+    } else {
+      for (int w = 0; w < 4; ++w) sum += ks_acc[w * D + c];
+      p.dks_part[bh * D + c] = sum;
+    }
+  }
+  BWD_TICK(5);
+  reduce_partials(p, h, gridDim.y, xch);
+  BWD_TICK(6);
+#ifdef QKNORM_BWD_TIMING
+  if (tid == 0) {
+    clk[1] = global_ns();
+    for (int i = 0; i < CLOCK_SLOTS; ++i) p.clocks[bh * CLOCK_SLOTS + i] = clk[i];
+  }
+#endif
+}
 
 // -- bf16: dK and dV, key-stationary ------------------------------------------------
 
@@ -807,13 +1481,11 @@ __global__ void __launch_bounds__(FT) qknorm_bwd_dq_f32(const Bwd<float> p) {
   column_sums(acc, p.dqs_part + (((long long)b * gridDim.x + qt) * p.H + h) * D, p.scale, tid);
 }
 
-// -- the partials, in a fixed order -------------------------------------------------------
+
+// -- the split route's partials, in a fixed order -------------------------------------
 
 constexpr int CH = 32;          // row chunks of the first stage
 constexpr int RT = 512;         // threads of the second stage
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // First stage, grid (CH, 4): block (c, a) sums chunk c of the rows of
 // partial a in row order into stage[a][c]. The partials are f32 (tiles, H,
@@ -843,8 +1515,7 @@ qknorm_bwd_sum_rows(const float* __restrict__ dqs_part, const float* __restrict_
 template <typename TT>
 __global__ void __launch_bounds__(RT)
 qknorm_bwd_reduce(const float* __restrict__ stage, const TT* __restrict__ nk, const float* __restrict__ k_scale,
-                  float* __restrict__ dqs, float* __restrict__ dks, float* __restrict__ dnk, float* __restrict__ dnv,
-                  int H) {
+                  float* __restrict__ dqs, float* __restrict__ dks, TT* __restrict__ dnk, TT* __restrict__ dnv, int H) {
   extern __shared__ float rs[];
   float* dnkh = rs;             // [H][D] d nk^
   float* contrib = rs + H * D;  // [H][D] d nk^ u_nk
@@ -856,7 +1527,7 @@ qknorm_bwd_reduce(const float* __restrict__ stage, const TT* __restrict__ nk, co
       a += stage[2 * plane + c * hd + idx];
       b += stage[3 * plane + c * hd + idx];
     }
-    dnv[idx] = a;
+    dnv[idx] = from_f<TT>(a);
     dnkh[idx] = b;
   }
   __syncthreads();
@@ -878,7 +1549,7 @@ qknorm_bwd_reduce(const float* __restrict__ stage, const TT* __restrict__ nk, co
     }
     uw = warp_sum(uw);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) dnk[h * D + lane + 32 * e] = r * (w[e] - u[e] * uw);
+    for (int e = 0; e < 2; ++e) dnk[h * D + lane + 32 * e] = from_f<TT>(r * (w[e] - u[e] * uw));
   }
   __syncthreads();
   if (tid < D) {
@@ -897,39 +1568,65 @@ qknorm_bwd_reduce(const float* __restrict__ stage, const TT* __restrict__ nk, co
 
 inline size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
 
+inline bool takes_one_pass(int n, int esize) { return esize == 2 && n <= OP_N; }
+
 struct Workspace {
-  size_t qh, kh, delta, dqs_part, dks_part, dnk_part, dnv_part, stage, bytes;
+  size_t counter, head_sums, stage, qh, kh, delta, dqs_part, dks_part, dnk_part, dnv_part, clocks, bytes;
 };
 
+// one-pass: the tickets and the heads' sums; split route: the chunk sums,
+// q^, k^ and D; then the partials, a row a block and head
 inline Workspace workspace(int B, int n, int m, int H, int esize) {
   const size_t nqt = (n + T - 1) / T, nkt = (m + T - 1) / T;
-  Workspace w;
+  Workspace w = {};
   size_t at = 0;
   auto take = [&](size_t bytes) {
     const size_t here = at;
     at += align256(bytes);
     return here;
   };
-  w.qh = take((size_t)B * n * H * D * esize);
-  w.kh = take((size_t)B * m * H * D * esize);
-  w.delta = take((size_t)B * H * n * 4);
-  w.dqs_part = take((size_t)B * nqt * H * D * 4);
-  w.dks_part = take((size_t)B * nkt * H * D * 4);
-  w.dnk_part = take((size_t)B * nqt * H * D * 4);
-  w.dnv_part = take((size_t)B * nqt * H * D * 4);
-  w.stage = take((size_t)4 * CH * H * D * 4);
+  size_t q_blocks = B, k_blocks = B;  // one-pass: a block a (batch, head)
+  if (takes_one_pass(n, esize)) {
+    w.counter = take((H + 1) * sizeof(int));
+    w.head_sums = take((size_t)H * 3 * D * 4);
+  } else {
+    w.stage = take((size_t)4 * CH * H * D * 4);
+    w.qh = take((size_t)B * n * H * D * esize);
+    w.kh = take((size_t)B * m * H * D * esize);
+    w.delta = take((size_t)B * H * n * 4);
+    q_blocks = B * nqt, k_blocks = B * nkt;
+  }
+  w.dqs_part = take(q_blocks * H * D * 4);
+  w.dks_part = take(k_blocks * H * D * 4);
+  w.dnk_part = take(q_blocks * H * D * 4);
+  w.dnv_part = take(q_blocks * H * D * 4);
+#ifdef QKNORM_BWD_TIMING
+  w.clocks = take((size_t)B * H * CLOCK_SLOTS * 8);
+#endif
   w.bytes = at;
   return w;
+}
+
+// the dynamic shared memory limit of a kernel (`slot`, one a kernel),
+// raised once per device
+inline cudaError_t allow_smem(const void* fn, int bytes, int slot) {
+  static bool done[5][32] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 32 && done[slot][dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < 32) done[slot][dev] = true;
+  return e;
 }
 
 template <typename TT>
 cudaError_t launch_all(const void* g, const void* q, const void* k, const void* v, const void* out, const float* lse,
                        const void* nk, const void* nv, const float* qs, const float* ks, const float* bias, void* dq,
-                       void* dk, void* dv, float* dnk, float* dnv, float* dqs, float* dks, unsigned char* ws, int B,
+                       void* dk, void* dv, void* dnk, void* dnv, float* dqs, float* dks, unsigned char* ws, int B,
                        int n, int m, int H, long long g_sb, long long g_sn, long long q_sb, long long q_sn,
                        long long k_sb, long long k_sm, long long v_sb, long long v_sm, float scale,
                        cudaStream_t stream) {
-  constexpr bool BF16 = sizeof(TT) == 2;
   const Workspace w = workspace(B, n, m, H, sizeof(TT));
   const int nqt = (n + T - 1) / T, nkt = (m + T - 1) / T;
   Bwd<TT> p = {};
@@ -937,6 +1634,7 @@ cudaError_t launch_all(const void* g, const void* q, const void* k, const void* 
   p.q = static_cast<const TT*>(q);
   p.k = static_cast<const TT*>(k);
   p.v = static_cast<const TT*>(v);
+  p.out = static_cast<const TT*>(out);
   p.qh = reinterpret_cast<const TT*>(ws + w.qh);
   p.kh = reinterpret_cast<const TT*>(ws + w.kh);
   p.nk = static_cast<const TT*>(nk);
@@ -949,52 +1647,65 @@ cudaError_t launch_all(const void* g, const void* q, const void* k, const void* 
   p.dq = static_cast<TT*>(dq);
   p.dk = static_cast<TT*>(dk);
   p.dv = static_cast<TT*>(dv);
+  p.dnk = static_cast<TT*>(dnk);
+  p.dnv = static_cast<TT*>(dnv);
+  p.dqs = dqs;
+  p.dks = dks;
   p.dqs_part = reinterpret_cast<float*>(ws + w.dqs_part);
   p.dks_part = reinterpret_cast<float*>(ws + w.dks_part);
   p.dnk_part = reinterpret_cast<float*>(ws + w.dnk_part);
   p.dnv_part = reinterpret_cast<float*>(ws + w.dnv_part);
+  p.head_sums = reinterpret_cast<float*>(ws + w.head_sums);
+  p.counter = reinterpret_cast<int*>(ws + w.counter);
+  p.clocks = reinterpret_cast<long long*>(ws + w.clocks);
   p.g_sb = g_sb, p.g_sn = g_sn, p.q_sb = q_sb, p.q_sn = q_sn;
   p.k_sb = k_sb, p.k_sm = k_sm, p.v_sb = v_sb, p.v_sm = v_sm;
   p.n = n, p.m = m, p.H = H, p.scale = scale;
 
+  cudaError_t e;
+  if constexpr (sizeof(TT) == 2) {
+    if (takes_one_pass(n, 2)) {
+      if ((e = cudaMemsetAsync(p.counter, 0, (H + 1) * sizeof(int), stream)) != cudaSuccess) return e;
+      if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_onepass_bf16), OnePassSmem::ALLOC, 0)) !=
+          cudaSuccess)
+        return e;
+      qknorm_bwd_onepass_bf16<<<dim3(H, B), OP_NTH, OnePassSmem::ALLOC, stream>>>(p);
+      return cudaGetLastError();
+    }
+  }
+
+  // the split route: prep, key-stationary dK / dV, query-stationary dQ, then the partials in two stages
   const long long rows = (long long)B * (n + m) * H;
   qknorm_bwd_prep<TT><<<(unsigned)((rows + 31) / 32), 256, 0, stream>>>(
-      p.q, p.k, p.g, static_cast<const TT*>(out), qs, ks, const_cast<TT*>(p.qh), const_cast<TT*>(p.kh),
-      const_cast<float*>(p.delta), B, n, m, H, q_sb, q_sn, k_sb, k_sm, g_sb, g_sn, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
-  if constexpr (BF16) {
+      p.q, p.k, p.g, p.out, qs, ks, const_cast<TT*>(p.qh), const_cast<TT*>(p.kh), const_cast<float*>(p.delta), B, n,
+      m, H, q_sb, q_sn, k_sb, k_sm, g_sb, g_sn, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (sizeof(TT) == 2) {
     if (nkt > 0) {
-      e = cudaFuncSetAttribute(qknorm_bwd_dkdv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, DkdvSmem::ALLOC);
-      if (e != cudaSuccess) return e;
+      if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dkdv_bf16), DkdvSmem::ALLOC, 1)) != cudaSuccess)
+        return e;
       qknorm_bwd_dkdv_bf16<<<dim3(nkt, H, B), NTH, DkdvSmem::ALLOC, stream>>>(p);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
-    e = cudaFuncSetAttribute(qknorm_bwd_dq_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, DqSmem::ALLOC);
-    if (e != cudaSuccess) return e;
+    if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dq_bf16), DqSmem::ALLOC, 2)) != cudaSuccess) return e;
     qknorm_bwd_dq_bf16<<<dim3(nqt, H, B), NTH, DqSmem::ALLOC, stream>>>(p);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
   } else {
     constexpr int KV_SMEM = (8 * FTILE + 3 * T) * 4;
     constexpr int Q_SMEM = (6 * FTILE + 5 * T + 3 * D) * 4;
     if (nkt > 0) {
-      e = cudaFuncSetAttribute(qknorm_bwd_dkdv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM);
-      if (e != cudaSuccess) return e;
+      if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dkdv_f32), KV_SMEM, 3)) != cudaSuccess) return e;
       qknorm_bwd_dkdv_f32<<<dim3(nkt, H, B), FT, KV_SMEM, stream>>>(p);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
-    e = cudaFuncSetAttribute(qknorm_bwd_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM);
-    if (e != cudaSuccess) return e;
+    if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dq_f32), Q_SMEM, 4)) != cudaSuccess) return e;
     qknorm_bwd_dq_f32<<<dim3(nqt, H, B), FT, Q_SMEM, stream>>>(p);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   float* stage = reinterpret_cast<float*>(ws + w.stage);
   qknorm_bwd_sum_rows<<<dim3(CH, 4), 256, 0, stream>>>(p.dqs_part, p.dks_part, p.dnv_part, p.dnk_part, stage,
                                                        B * nqt, B * nkt, H);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  qknorm_bwd_reduce<TT><<<1, RT, 2 * H * D * 4, stream>>>(stage, p.nk, ks, dqs, dks, dnk, dnv, H);
+  qknorm_bwd_reduce<TT><<<1, RT, 2 * H * D * 4, stream>>>(stage, p.nk, ks, dqs, dks, p.dnk, p.dnv, H);
   return cudaGetLastError();
 }
 
@@ -1007,14 +1718,27 @@ long long muse_qknorm_attn_bwd_workspace(int B, int n, int m, int H, int dtype) 
   return static_cast<long long>(workspace(B, n, m, H, dtype == 1 ? 2 : 4).bytes);
 }
 
+// Where the one-pass kernel's clocks lie in the workspace (bytes from its
+// start; B x H x 10 int64), or -1 without -DQKNORM_BWD_TIMING.
+long long muse_qknorm_attn_bwd_clocks(int B, int n, int m, int H, int dtype) {
+#ifdef QKNORM_BWD_TIMING
+  return static_cast<long long>(workspace(B, n, m, H, dtype == 1 ? 2 : 4).clocks);
+#else
+  return -1;
+#endif
+}
+
+// 1 where the call takes the one-pass kernel, 0 where the split route.
+int muse_qknorm_attn_bwd_one_pass(int n, int dtype) { return takes_one_pass(n, dtype == 1 ? 2 : 4) ? 1 : 0; }
+
 // g (B, n, H, 64), q (B, n, H, 64), k/v (B, m, H, 64): unit stride over
 // (H, 64), the given element strides over batch and sequence; out (B, n, H,
 // 64) contiguous, the forward's output; lse (B, H, n) f32, the forward's row
 // logsumexp; nk/nv (H, 64) in the inputs' dtype; q_scale/k_scale (64,) f32;
 // bias (B, m) f32 or null. Writes dq (B, n, H, 64), dk/dv (B, m, H, 64)
-// contiguous in the inputs' dtype and d nk, d nv (H, 64), d q_scale,
+// contiguous and d nk, d nv (H, 64) in the inputs' dtype, d q_scale,
 // d k_scale (64,) in f32. dtype 0 = f32, 1 = bf16 (bf16: 16-byte aligned
-// rows). Returns the first cudaGetLastError() that is not cudaSuccess.
+// rows). B, n >= 1 and H <= 64. Returns the first CUDA error, else 0.
 int muse_qknorm_attn_bwd_launch(const void* g, const void* q, const void* k, const void* v, const void* out,
                                 const void* lse, const void* nk, const void* nv, const void* q_scale,
                                 const void* k_scale, const void* bias, void* dq, void* dk, void* dv, void* dnk,
@@ -1022,7 +1746,7 @@ int muse_qknorm_attn_bwd_launch(const void* g, const void* q, const void* k, con
                                 long long g_sb, long long g_sn, long long q_sb, long long q_sn, long long k_sb,
                                 long long k_sm, long long v_sb, long long v_sm, float scale, int dtype,
                                 void* stream) {
-  if (B <= 0 || n <= 0) return 0;
+  if (B <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* ws = static_cast<unsigned char*>(workspace_);
   const auto* lf = static_cast<const float*>(lse);
@@ -1031,10 +1755,10 @@ int muse_qknorm_attn_bwd_launch(const void* g, const void* q, const void* k, con
   const auto* bf = static_cast<const float*>(bias);
   auto f = [](void* x) { return static_cast<float*>(x); };
   if (dtype == 1)
-    return launch_all<__nv_bfloat16>(g, q, k, v, out, lf, nk, nv, qs, ks, bf, dq, dk, dv, f(dnk), f(dnv), f(dqs),
-                                     f(dks), ws, B, n, m, H, g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm, scale, s);
-  return launch_all<float>(g, q, k, v, out, lf, nk, nv, qs, ks, bf, dq, dk, dv, f(dnk), f(dnv), f(dqs), f(dks), ws,
-                           B, n, m, H, g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm, scale, s);
+    return launch_all<__nv_bfloat16>(g, q, k, v, out, lf, nk, nv, qs, ks, bf, dq, dk, dv, dnk, dnv, f(dqs), f(dks),
+                                     ws, B, n, m, H, g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm, scale, s);
+  return launch_all<float>(g, q, k, v, out, lf, nk, nv, qs, ks, bf, dq, dk, dv, dnk, dnv, f(dqs), f(dks), ws, B, n,
+                           m, H, g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm, scale, s);
 }
 
 const char* muse_qknorm_attn_bwd_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -8,10 +8,19 @@ with std 1/sqrt(features) for embeddings, zeros for biases. `Linear`,
 layers with `dtype=...`, cast the input, weight and bias to their compute
 dtype on each call; a convolution without one computes in the promoted type
 of its input and weight (flax's `dtype=None`: f32 for f32 weights).
+
+An f32 convolution on the card runs in IEEE f32, as JAX's f32 convolutions
+do, whatever `torch.backends.cudnn.allow_tf32` says (PyTorch's default lets
+cuDNN use TF32, 10-bit mantissas): `conv_ieee` turns TF32 off around the
+forward and, through hooks on PyTorch's own autograd nodes, around its
+backward and the backward's own backward (a discriminator's R1 penalty
+differentiates a convolution's gradient).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -67,6 +76,72 @@ def _compute_dtype(layer, x: torch.Tensor) -> torch.dtype:
     return layer.compute_dtype or torch.promote_types(x.dtype, layer.weight.dtype)
 
 
+_tf32_lock = threading.Lock()
+_tf32_users = 0
+_tf32_saved: Optional[bool] = None
+
+
+def _ieee_enter(*_):
+    """cuDNN's TF32 off while any thread is between an enter and its exit
+    (the flag is global to the process; the last exit restores the caller's
+    setting)."""
+    global _tf32_users, _tf32_saved
+    with _tf32_lock:
+        if _tf32_users == 0:
+            _tf32_saved = torch.backends.cudnn.allow_tf32
+            if _tf32_saved:
+                torch.backends.cudnn.allow_tf32 = False
+        _tf32_users += 1
+
+
+def _ieee_exit():
+    global _tf32_users
+    with _tf32_lock:
+        _tf32_users -= 1
+        if _tf32_users == 0 and _tf32_saved:
+            torch.backends.cudnn.allow_tf32 = True
+
+
+@contextlib.contextmanager
+def _cudnn_ieee():
+    _ieee_enter()
+    try:
+        yield
+    finally:
+        _ieee_exit()
+
+
+def _hold_ieee(node) -> None:
+    """Run autograd node `node` (a convolution's backward) with cuDNN's TF32
+    off. The node stays PyTorch's own, so the engine still asks it for only
+    the gradients this backward needs. Under `create_graph` its gradients'
+    nodes (the convolution's double backward) are held the same way when it
+    has run."""
+
+    def after(grad_inputs, _):
+        _ieee_exit()
+        for nxt in {t.grad_fn for t in grad_inputs if t is not None and t.grad_fn is not None}:
+            if nxt.name().startswith("ConvolutionBackward"):
+                _hold_ieee(nxt)
+
+    node.register_prehook(_ieee_enter)
+    node.register_hook(after)
+
+
+def conv_ieee(x, w, b, stride, padding, transposed: bool = False, output_padding=(0, 0)) -> torch.Tensor:
+    """A 2-D convolution (transposed: its transpose), dilation 1, one group.
+    f32 on the card: in IEEE f32, its forward here and its backward through
+    `_hold_ieee`; else PyTorch's op alone, which has no TF32 to avoid."""
+    args = (x, w, b, list(stride), list(padding), [1, 1], transposed, list(output_padding), 1)
+    if not (x.dtype == torch.float32 and x.is_cuda):
+        return torch.ops.aten.convolution(*args)
+    with _cudnn_ieee():
+        y = torch.ops.aten.convolution(*args)
+    if y.grad_fn is not None:
+        _hold_ieee(y.grad_fn)
+    return y
+
+
 class Conv2d(nn.Conv2d):
     """NCHW convolution with flax's lecun-normal kernel and zero bias.
 
@@ -87,7 +162,7 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self, x)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return conv_ieee(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -109,7 +184,6 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self, x)
-        return F.conv_transpose2d(
-            x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding, self.output_padding,
-            self.groups, self.dilation,
+        return conv_ieee(
+            x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding, True, self.output_padding
         )

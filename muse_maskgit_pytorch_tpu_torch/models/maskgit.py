@@ -273,6 +273,7 @@ class MaskGit(nn.Module):
         cond_drop_prob: Optional[float] = None,
         train_only_generator: bool = False,
         sample_temperature: Optional[float] = None,
+        attn_impl: str = "auto",
         *,
         generator: Optional[torch.Generator] = None,
         draws: Optional[TrainDraws] = None,
@@ -297,7 +298,9 @@ class MaskGit(nn.Module):
         dropout of the text, the self-conditioning coin (the embedding of a
         forward without dropout and without a gradient, with probability
         `self_cond_prob`), and for the critic the sampling temperature, the
-        Gumbel noise and its own dropout."""
+        Gumbel noise and its own dropout. `attn_impl` is accepted for the
+        JAX signature and ignored: every attention is K2."""
+        del attn_impl
         if images_or_ids.dim() not in (2, 3, 4):
             raise ValueError(f"images or ids of rank 2, 3 or 4, got shape {tuple(images_or_ids.shape)}")
         if text_embeds is not None and text_embeds.dim() != 3:

@@ -32,6 +32,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models._layers import Embedding, Linear
@@ -163,7 +164,12 @@ class Attention(nn.Module):
 
 
 class TransformerBlocks(nn.Module):
-    """depth x (self-attn -> cross-attn -> FF), final LayerNorm."""
+    """depth x (self-attn -> cross-attn -> FF), final LayerNorm.
+
+    `remat` recomputes each block's activations in the backward
+    (`torch.utils.checkpoint`, as JAX's `jax.checkpoint` a block) when
+    gradients are on. `flash` is JAX's choice of attention kernel: accepted
+    and ignored, since every attention here is K2."""
 
     def __init__(
         self,
@@ -173,10 +179,14 @@ class TransformerBlocks(nn.Module):
         dim_head: int = 64,
         heads: int = 8,
         ff_mult: float = 4,
+        flash: bool = True,
         dtype=torch.float32,
+        remat: bool = False,
         generator=None,
     ):
         super().__init__()
+        del flash
+        self.remat = remat
         kw = dict(dim_head=dim_head, heads=heads, dtype=dtype, generator=generator)
         self.layers = nn.ModuleList(
             nn.ModuleList(
@@ -202,25 +212,34 @@ class TransformerBlocks(nn.Module):
         CFG null half): their cross-attention is the constant
         `Attention.null_out`, so cross-attention runs on the leading rows only."""
         nr = int(null_rows)
-        for i, (attn, cross_attn, ff) in enumerate(self.layers):
+        remat = self.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
             kv_i = context_kv[i] if context_kv is not None else None
-            x = attn(x) + x
-            if nr:
-                b = x.shape[0] - nr
-                xc = cross_attn(
-                    x[:b],
-                    context=context[:b] if context is not None else None,
-                    context_mask=context_mask[:b] if context_mask is not None else None,
-                    cached_kv=(kv_i[0][:b], kv_i[1][:b]) if kv_i is not None else None,
-                ) + x[:b]
-                xn = x[b:] + cross_attn.null_out().to(x.dtype)
-                x = torch.cat([xc, xn], dim=0)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._block, layer, x, context, context_mask, kv_i, nr, use_reentrant=False
+                )
             else:
-                x = cross_attn(
-                    x, context=context, context_mask=context_mask, cached_kv=kv_i
-                ) + x
-            x = ff(x) + x
+                x = self._block(layer, x, context, context_mask, kv_i, nr)
         return self.norm(x)
+
+    @staticmethod
+    def _block(layer, x, context, context_mask, kv_i, nr: int) -> torch.Tensor:
+        attn, cross_attn, ff = layer
+        x = attn(x) + x
+        if nr:
+            b = x.shape[0] - nr
+            xc = cross_attn(
+                x[:b],
+                context=context[:b] if context is not None else None,
+                context_mask=context_mask[:b] if context_mask is not None else None,
+                cached_kv=(kv_i[0][:b], kv_i[1][:b]) if kv_i is not None else None,
+            ) + x[:b]
+            xn = x[b:] + cross_attn.null_out().to(x.dtype)
+            x = torch.cat([xc, xn], dim=0)
+        else:
+            x = cross_attn(x, context=context, context_mask=context_mask, cached_kv=kv_i) + x
+        return ff(x) + x
 
     def compute_context_kv(self, context: torch.Tensor) -> List[KV]:
         return [layer[1].compute_kv(context) for layer in self.layers]

@@ -158,7 +158,9 @@ def qknorm_attend_backward_plain(
     `round_to` (e.g. torch.bfloat16) rounds where the kernel rounds: q^ and
     k^ after the f32 norm and scale, P before P^T g, and dS before dS k^ and
     dS^T q^, with the row terms, the null column and every sum in f32, and
-    D = g . out taken from the output the bf16 forward returns. Only the
+    D = g . out taken from the output the bf16 forward returns; the null
+    key's and value's gradients come out in `round_to` (the kernel writes
+    them in the inputs' dtype) before the cast to their own dtype. Only the
     checks use it."""
     bias = key_mask_bias(mask, k.shape[0], k.shape[1], q.device)
     return _qknorm_backward_plain(g, q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, round_to)
@@ -218,6 +220,7 @@ def _qknorm_backward_plain(g, q, k, v, null_k, null_v, q_scale, k_scale, bias, s
     dq = through_norm(dqn, uq, rq, qsc)
     dk = through_norm(dkn, uk, rk, ksc)
     dnk = through_norm(dnkn, unk, rnk, ksc)
+    dnk, dnv = rnd(dnk), rnd(dnv)
     dqs = scale * (dqn * uq).sum(dim=(0, 1, 2))
     dks = (dkn * uk).sum(dim=(0, 1, 2)) + (dnkn * unk).sum(dim=0)
     grads = (dq, dk, dv, dnk, dnv, dqs, dks)
@@ -282,24 +285,43 @@ def _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale: float
     return (out, lse) if with_lse else out
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("qknorm_attention_bwd")
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.muse_qknorm_attn_bwd_launch
     if fn.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         fn.argtypes = [p] * 19 + [i] * 4 + [ll] * 8 + [f, i, p]
         fn.restype = ctypes.c_int
-        lib.muse_qknorm_attn_bwd_workspace.argtypes = [i] * 5
-        lib.muse_qknorm_attn_bwd_workspace.restype = ll
+        for name in ("muse_qknorm_attn_bwd_workspace", "muse_qknorm_attn_bwd_clocks"):
+            getattr(lib, name).argtypes = [i] * 5
+            getattr(lib, name).restype = ll
+        lib.muse_qknorm_attn_bwd_one_pass.argtypes = [i, i]
+        lib.muse_qknorm_attn_bwd_one_pass.restype = i
         lib.muse_qknorm_attn_bwd_error_string.argtypes = [i]
         lib.muse_qknorm_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    return _bind_bwd(_build.load("qknorm_attention_bwd"))
+
+
+def _align256(x: int) -> int:
+    return (x + 255) & ~255
 
 
 def _qknorm_backward_launch(g, q, k, v, null_k, null_v, q_scale, k_scale, bias, out, lse, scale: float):
     """Launch K2's backward on CUDA tensors: `out` and `lse` are what the
     forward returned with `with_lse`. Returns the seven gradients, each in
     its input's dtype."""
+    return _backward_call(_bwd_lib(), g, q, k, v, null_k, null_v, q_scale, k_scale, bias, out, lse, scale)
+
+
+def _backward_call(lib, g, q, k, v, null_k, null_v, q_scale, k_scale, bias, out, lse, scale: float, workspace=None):
+    """The gradients from one launch of `lib`'s backward. Two allocations:
+    dq, dk, dv and the kernel's workspace share one buffer (`workspace`,
+    where given, is the workspace instead); the four small gradients have
+    their own, so that a parameter's `.grad` does not keep the large one
+    alive."""
     b, n, h, d = q.shape
     m = k.shape[1]
     if q.device.type != "cuda":
@@ -313,34 +335,90 @@ def _qknorm_backward_launch(g, q, k, v, null_k, null_v, q_scale, k_scale, bias, 
     for t in (g, k, v, null_k, null_v, q_scale, k_scale, out, lse):
         if t.device != q.device:
             raise ValueError("K2's backward: all inputs must be on one device")
-    g, q, k, v = (_heads_contiguous(t.to(q.dtype)) for t in (g, q, k, v))
+    if b * n == 0:  # no query: every gradient is zero, and nothing is launched
+        return tuple(torch.zeros_like(x) for x in (q, k, v, null_k, null_v, q_scale, k_scale))
+    dt, dev, es = q.dtype, q.device, q.element_size()
+    small = torch.empty(2 * h * d * es + 2 * d * 4, dtype=torch.uint8, device=dev)
+    dnk = small[: h * d * es].view(dt).view(h, d)
+    dnv = small[h * d * es : 2 * h * d * es].view(dt).view(h, d)
+    dqs, dks = small[2 * h * d * es :].view(torch.float32).view(2, d)
+    nq, nkv = _align256(b * n * h * d * es), _align256(b * m * h * d * es)
+    g, q, k, v = (_heads_contiguous(t.to(dt)) for t in (g, q, k, v))
     out, lse = _aligned(out.contiguous()), lse.contiguous()
-    nk = null_k.to(q.dtype).contiguous()
-    nv = null_v.to(q.dtype).contiguous()
+    nk = null_k.to(dt).contiguous()
+    nv = null_v.to(dt).contiguous()
     qs = q_scale.to(torch.float32).contiguous()
     ks = k_scale.to(torch.float32).contiguous()
     if bias is not None:
         bias = bias.contiguous()
-    dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
-    small = torch.empty((2 * h + 2, d), dtype=torch.float32, device=q.device)  # d nk, d nv, d q_scale, d k_scale
-    dnk, dnv, dqs, dks = small[:h], small[h : 2 * h], small[2 * h], small[2 * h + 1]
-    lib = _bwd_lib()
-    dtype = 1 if q.dtype == torch.bfloat16 else 0
-    ws = torch.empty(lib.muse_qknorm_attn_bwd_workspace(b, n, m, h, dtype), dtype=torch.uint8, device=q.device)
+    dtype = 1 if dt == torch.bfloat16 else 0
+    ws = nq + 2 * nkv
+    extra = lib.muse_qknorm_attn_bwd_workspace(b, n, m, h, dtype) if workspace is None else 0
+    buf = torch.empty(ws + extra, dtype=torch.uint8, device=dev)
+    dq = buf[: b * n * h * d * es].view(dt).view(b, n, h, d)
+    dk = buf[nq : nq + b * m * h * d * es].view(dt).view(b, m, h, d)
+    dv = buf[nq + nkv : nq + nkv + b * m * h * d * es].view(dt).view(b, m, h, d)
     err = lib.muse_qknorm_attn_bwd_launch(
         g.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         nk.data_ptr(), nv.data_ptr(), qs.data_ptr(), ks.data_ptr(), bias.data_ptr() if bias is not None else None,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dnk.data_ptr(), dnv.data_ptr(), dqs.data_ptr(), dks.data_ptr(),
-        ws.data_ptr(), b, n, m, h,
+        buf.data_ptr() + ws if workspace is None else workspace.data_ptr(), b, n, m, h,
         g.stride(0), g.stride(1), q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        float(scale), dtype, torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), dtype, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib.muse_qknorm_attn_bwd_error_string, err, "qknorm_attend_backward")
     qknorm_attend_backward.launches += 1
-    return (
-        dq, dk, dv, dnk.to(null_k.dtype), dnv.to(null_v.dtype), dqs.to(q_scale.dtype), dks.to(k_scale.dtype),
+    return (dq, dk, dv, dnk.to(null_k.dtype), dnv.to(null_v.dtype), dqs.to(q_scale.dtype), dks.to(k_scale.dtype))
+
+
+def _backward_one_pass(n: int, dtype: torch.dtype) -> bool:
+    """Whether K2's backward takes its one-pass kernel for n queries of
+    this dtype (else the split route); the kernel's library decides."""
+    return bool(_bwd_lib().muse_qknorm_attn_bwd_one_pass(n, 1 if dtype == torch.bfloat16 else 0))
+
+
+BACKWARD_PARTS = (
+    "q-side loads", "prologue", "key tile wait + k^", "tile pairs", "halves, dv, dk", "dq epilogue", "reduction",
+)
+BACKWARD_TIMING_FLAGS = ("-DQKNORM_BWD_TIMING",)
+_CLOCK_SLOTS = 10  # a block's int64 clock slots in that build: start, end, SM, the parts
+_timing_bwd_lib = None
+
+
+def backward_part_clocks(g, q, k, v, null_k, null_v, q_scale, k_scale, out, lse, mask=None, scale: float = 8.0):
+    """Diagnostic: where the one-pass backward kernel's time goes. Runs its
+    `-DQKNORM_BWD_TIMING` build once on bf16 CUDA inputs that take it (n <=
+    256; arguments as `qknorm_attend_backward`) and returns, averaged over
+    the blocks, the SM clocks of each part of `BACKWARD_PARTS` as each
+    block's thread 0 saw them (`parts`), and from the global timer the mean
+    block's ns (`block_ns`), the kernel's span (`span_ns`) and the most
+    blocks resident at once (`concurrent`). The instrumented build is
+    slower than the kernel by its clock reads, and counts as a launch of
+    the backward."""
+    global _timing_bwd_lib
+    if q.dtype != torch.bfloat16 or not _backward_one_pass(q.shape[1], q.dtype):
+        raise ValueError("backward_part_clocks times the one-pass kernel: bf16 with n <= 256")
+    if _timing_bwd_lib is None:
+        _timing_bwd_lib = _bind_bwd(ctypes.CDLL(str(_build.build("qknorm_attention_bwd", BACKWARD_TIMING_FLAGS))))
+    lib = _timing_bwd_lib
+    b, n, h, _ = q.shape
+    m = k.shape[1]
+    bias = key_mask_bias(mask, b, m, q.device)
+    ws = torch.empty(lib.muse_qknorm_attn_bwd_workspace(b, n, m, h, 1), dtype=torch.uint8, device=q.device)
+    _backward_call(lib, g, q, k, v, null_k, null_v, q_scale, k_scale, bias, out, lse, scale, workspace=ws)
+    at = lib.muse_qknorm_attn_bwd_clocks(b, n, m, h, 1)
+    clocks = ws[at : at + b * h * _CLOCK_SLOTS * 8].view(torch.int64).view(b * h, _CLOCK_SLOTS).cpu()
+    start, end = clocks[:, 0], clocks[:, 1]
+    events = sorted([(int(t), 1) for t in start] + [(int(t), -1) for t in end])
+    live = most = 0
+    for _, step in events:
+        live += step
+        most = max(most, live)
+    return dict(
+        parts={name: clocks[:, 3 + i].double().mean().item() for i, name in enumerate(BACKWARD_PARTS)},
+        block_ns=(end - start).double().mean().item(),
+        span_ns=int(end.max() - start.min()),
+        concurrent=most,
     )
 
 

@@ -11,6 +11,8 @@ machine need not have; `-o addopts=""` drops the suite's xdist options).
 `chip_smoke.py` checks the same kernels at the main path's shapes.
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -238,12 +240,23 @@ def test_qknorm_gradients_match_plain(dev, dtype):
 
 # K2's backward kernel against its plain version: ragged n and m with a
 # partial mask and a dropped row, no keys, a cross-attention with a dropped
-# row, and n = m = 1024 (the super-res self-attention's length)
+# row, and n = m = 1024 (the super-res self-attention's length); then the
+# one-pass route's edges (bf16 takes it at n <= 256, any m, and the split
+# route above): m = 256 and 257 (a full and a ragged last key tile), n = 1,
+# n = 200 over 64 keys, a batch mixing a fully masked row with ragged and
+# partial ones, and n = 256 / 257 on either side of the route's limit
 BACKWARD_SHAPES = {
     "ragged": (3, 70, 200, 2, "partial"),
     "m0": (2, 70, 0, 2, None),
     "cross_dropped": (4, 256, 64, 8, "dropped"),
     "n1024": (1, 1024, 1024, 2, None),
+    "m256": (2, 130, 256, 2, "partial"),
+    "m257": (2, 130, 257, 2, "partial"),
+    "n1": (3, 1, 70, 2, "partial"),
+    "n200_m64": (2, 200, 64, 2, "dropped"),
+    "mixed_rows": (4, 96, 150, 2, "mixed"),
+    "n256": (2, 256, 100, 2, "partial"),
+    "n257": (2, 257, 100, 2, "partial"),
 }
 
 
@@ -259,7 +272,9 @@ def test_qknorm_backward_matches_plain(dev, dtype, shape):
     qs, ks = (1 + 0.1 * torch.randn(64, generator=g, device=dev) for _ in range(2))
     mask = None
     if mask_kind is not None:
-        mask = torch.rand(b, m, generator=g, device=dev) > (0.3 if mask_kind == "partial" else -1.0)
+        mask = torch.rand(b, m, generator=g, device=dev) > (-1.0 if mask_kind == "dropped" else 0.3)
+        if mask_kind == "mixed":
+            mask[0] = torch.arange(m, device=dev) < m // 3  # a ragged text: keys on up to its length
         mask[b - 1] = False  # a CFG-dropped row: the null position only
     cot = torch.randn(b, n, h, 64, generator=g, device=dev).to(dtype)
     args = [q, k, v, nk, nv, qs, ks]
@@ -271,6 +286,7 @@ def test_qknorm_backward_matches_plain(dev, dtype, shape):
     before = attention.qknorm_attend_backward.launches
     got = kernel()
     assert attention.qknorm_attend_backward.launches == before + 1
+    assert attention._backward_one_pass(n, dtype) == (dtype == torch.bfloat16 and n <= 256)
     again = kernel()
     assert all(torch.equal(a, c) for a, c in zip(got, again)), "two launches gave different gradients"
     # the public wrapper from the forward's output and logsumexp: the same kernel
@@ -294,6 +310,22 @@ def test_qknorm_backward_matches_plain(dev, dtype, shape):
         _leaves_close(got, want, K2_BWD_BF16_FROM_F32)
         rounded = attention.qknorm_attend_backward_plain(cot, *args, mask=mask, round_to=torch.bfloat16)
         _leaves_close(got, rounded, K2_BWD_BF16_VS_ROUNDED)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_qknorm_backward_without_queries_launches_nothing(dev, dtype):
+    # n = 0: every gradient is zero, and no kernel is launched or counted
+    h = 2
+    q = torch.randn(2, 0, h, 64, device=dev).to(dtype)
+    k, v = (torch.randn(2, 5, h, 64, device=dev).to(dtype) for _ in range(2))
+    nk, nv = (torch.randn(h, 64, device=dev).to(dtype) for _ in range(2))
+    qs, ks = torch.ones(64, device=dev), torch.ones(64, device=dev)
+    out, lse = torch.empty_like(q), torch.empty(2, h, 0, device=dev)
+    before = attention.qknorm_attend_backward.launches
+    grads = attention.qknorm_attend_backward(torch.empty_like(q), q, k, v, nk, nv, qs, ks, out, lse)
+    assert attention.qknorm_attend_backward.launches == before
+    for got, x in zip(grads, (q, k, v, nk, nv, qs, ks)):
+        assert got.shape == x.shape and got.dtype == x.dtype and not got.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -623,3 +655,67 @@ def test_public_modules_default_to_the_card(dev):
         # weights are drawn from the CPU generator first, then placed
         for a, b in zip(on_card.state_dict().values(), on_cpu.state_dict().values()):
             assert torch.equal(a.cpu(), b)
+
+
+@contextlib.contextmanager
+def _cudnn_flags(allow_tf32):
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    # deterministic: both runs pick the same cuDNN algorithms, so any
+    # difference is TF32's
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = allow_tf32, True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
+
+
+def test_f32_vae_decode_ignores_cudnn_tf32(dev):
+    # PyTorch lets cuDNN run f32 convolutions in TF32 by default; the port's
+    # f32 convolutions stay IEEE f32 (as JAX's do): the decode with the
+    # default equals the decode with TF32 off, bit for bit
+    vae = VQGanVAE(dim=64, layers=2, codebook_size=1024, generator=torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 1024, (2, 16, 16), generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad():
+        with _cudnn_flags(True):
+            default = vae.decode_from_ids(ids)
+            assert torch.backends.cudnn.allow_tf32, "the caller's setting is restored"
+        with _cudnn_flags(False):
+            ieee = vae.decode_from_ids(ids)
+    assert default.dtype == torch.float32 and torch.isfinite(ieee).all()
+    assert torch.equal(default, ieee)
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["conv", "transposed"])
+def test_f32_conv_gradients_ignore_cudnn_tf32(dev, transposed):
+    from muse_maskgit_pytorch_tpu_torch.models._layers import Conv2d, ConvTranspose2d
+
+    gen = torch.Generator().manual_seed(2)
+    # shapes whose cuDNN algorithms all use TF32 when let (at 128 -> 64 over
+    # 32 x 32 the plain conv's weight gradient takes an IEEE one either way)
+    if transposed:
+        conv, shape = ConvTranspose2d(128, 64, generator=gen), (4, 128, 32, 32)
+    else:
+        conv, shape = Conv2d(256, 256, 3, padding=1, generator=gen), (4, 256, 64, 64)
+    conv = conv.to(dev)
+    x = torch.randn(*shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+
+    def grads(allow_tf32, layer):
+        conv.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        with _cudnn_flags(allow_tf32):
+            y = layer(xi)
+        # the backward runs later, outside the forward's call, as a trainer's does
+        gy = torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
+        with _cudnn_flags(allow_tf32):
+            y.backward(gy)
+        return y.detach(), xi.grad, conv.weight.grad, conv.bias.grad
+
+    names = ("output", "input grad", "weight grad", "bias grad")
+    # the check can see TF32: PyTorch's own convolution of the same weights
+    # changes its output and both products' gradients with it
+    native = lambda xi: (torch.nn.ConvTranspose2d if transposed else torch.nn.Conv2d).forward(conv, xi)  # noqa: E731
+    seen = [not torch.equal(a, b) for a, b in zip(grads(True, native), grads(False, native))]
+    assert seen[:3] == [True] * 3, dict(zip(names, seen))
+    default, ieee = grads(True, conv), grads(False, conv)
+    for name, a, b in zip(names, default, ieee):
+        assert torch.equal(a, b), name
