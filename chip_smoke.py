@@ -132,6 +132,14 @@ PEAK_BF16_TC = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_TF32_TC = 495e12   # dense TF32 tensor-core FLOP/s
 PEAK_F32 = 67e12        # f32 FMA outside the tensor cores
 
+# K2's backward kernels a call, in launch order, on its two multi-kernel
+# routes (`csrc/qknorm_attention_bwd.cu`): f32 at any n, and bf16 above 256
+# queries
+BWD_F32_KERNELS = ["qknorm_bwd_keys_f32", "qknorm_bwd_queries_f32", "qknorm_bwd_sum_rows", "qknorm_bwd_reduce"]
+BWD_BF16_SPLIT_KERNELS = [
+    "qknorm_bwd_prep", "qknorm_bwd_dkdv_bf16", "qknorm_bwd_dq_bf16", "qknorm_bwd_sum_rows", "qknorm_bwd_reduce",
+]
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1108,7 +1116,7 @@ def profile_train_step(torch, ctx):
     kb_ms = sum(r[0] for r in kb)
     want = (
         ["qknorm_bwd_onepass_bf16"] if attention._backward_one_pass(SEQ, torch.bfloat16)
-        else ["qknorm_bwd_dkdv_bf16", "qknorm_bwd_dq_bf16", "qknorm_bwd_prep", "qknorm_bwd_reduce", "qknorm_bwd_sum_rows"]
+        else sorted(BWD_BF16_SPLIT_KERNELS)
     )
     require(
         sorted(name for _, _, name in kb) == want and all(n == 2 * DEPTH for _, n, _ in kb),
@@ -2157,10 +2165,19 @@ def phase_train(torch, ctx):
             one_pass = attention._backward_one_pass(n, dtype)
             bwd_names = backward_kernels(torch, bwd_call)
             if bwd_names is not None:
-                require(
-                    bwd_names == ["qknorm_bwd_onepass_bf16"] if one_pass else len(bwd_names) > 1,
-                    f"K2 backward {name} {dtype}: the profiler saw {bwd_names} in a call",
+                # the f32 route: the key-stationary kernel and the query side,
+                # then the two fixed-order sums; bf16 one pass, or the split route
+                want_names = (
+                    BWD_F32_KERNELS if f32 else ["qknorm_bwd_onepass_bf16"] if one_pass else BWD_BF16_SPLIT_KERNELS
                 )
+                require(bwd_names == want_names, f"K2 backward {name} {dtype}: the profiler saw {bwd_names} in a call")
+            sdpa_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(qn, kn, vn, scale=1.0)  # noqa: E731
+            sdpa_fwd_ms = graph_ms(sdpa_fwd)  # under autograd, as the pair it is taken from
+            qd, kd, vd = qn.detach(), kn.detach(), vn.detach()
+            # the forward alone beside K2's, both with no gradient: QK^T and PV
+            # over the keys left on, 4 n m d a head; q, k, v, mask in and out out
+            sdpa_fwd_alone_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, scale=1.0))
+            fwd_bound = bound(4.0 * HEADS * n * keys_on * DIM_HEAD, nbytes(*args, mask) + nbytes(args[0]), peak)
             grad_times[(name, dtype)] = dict(
                 bwd_ms=graph_ms(bwd_call),
                 bwd_host_us=host_us(bwd_call),
@@ -2170,12 +2187,11 @@ def phase_train(torch, ctx):
                 # SDPA's backward: its forward + backward less its forward,
                 # both by graph replay (a backward runs on its forward's stream,
                 # so the pair is captured together)
-                bwd_library_ms=graph_ms(sdpa_step) - graph_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(qn, kn, vn, scale=1.0)
-                ),
+                bwd_library_ms=graph_ms(sdpa_step) - sdpa_fwd_ms,
                 bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
                 ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend(*leaves, mask=mask), leaves, cot), iters=20),
                 fwd_ms=graph_ms(lambda: qknorm_attend(*args, mask=mask)),
+                fwd_library_ms=sdpa_fwd_alone_ms, fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
                 plain_ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend_plain(*leaves, mask=mask), leaves, cot), iters=plain_iters, warmup=1),
                 library_ms=cuda_ms(sdpa_step, iters=20),
                 bound_ms=fb_bound[0], bound_by=fb_bound[1],
@@ -2184,7 +2200,7 @@ def phase_train(torch, ctx):
             t_now["bwd_vs_sdpa"] = t_now["bwd_ms"] / t_now["bwd_library_ms"]
             if one_pass:  # the one-pass kernel: where a block's time goes
                 t_now["bwd_clocks"] = attention.backward_part_clocks(cot, *args, fwd_out, lse, mask=mask)
-            del args, leaves, qn, kn, vn, out, got, fwd_out, lse
+            del args, leaves, qn, kn, vn, qd, kd, vd, out, got, fwd_out, lse
     bf = torch.bfloat16
 
     def tline(name, dtype):
@@ -2197,7 +2213,9 @@ def phase_train(torch, ctx):
             f"backward {t['bwd_library_ms']:.4f} (core only; ours {t['bwd_vs_sdpa']:.2f}x its time), bound "
             f"{t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}, {t['bwd_bound_ms'] / t['bwd_ms']:.0%}); fwd+bwd {t['ms']:.4f} ms (eager) vs plain {t['plain_ms']:.3f}, "
             f"SDPA {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}); forward alone {t['fwd_ms']:.4f} "
-            f"ms (graph replay); {errs}"
+            f"ms (graph replay) vs SDPA's forward {t['fwd_library_ms']:.4f} (core only; ours "
+            f"{t['fwd_ms'] / t['fwd_library_ms']:.2f}x its time), bound {t['fwd_bound_ms']:.4f} ({t['fwd_bound_by']}, "
+            f"{t['fwd_bound_ms'] / t['fwd_ms']:.0%}); {errs}"
         )
 
     def clocks_line(name):
@@ -2455,7 +2473,8 @@ def phase_train(torch, ctx):
                 k: grad_times[(n, d)][k]
                 for k in (
                     "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by", "bwd_vs_sdpa",
-                    "bwd_host_us", "bwd_kernels", "bwd_kernel_names", "bwd_clocks",
+                    "bwd_host_us", "bwd_kernels", "bwd_kernel_names", "bwd_clocks", "fwd_ms", "fwd_library_ms",
+                    "fwd_bound_ms", "fwd_bound_by",
                 )
                 if k in grad_times[(n, d)]
             }

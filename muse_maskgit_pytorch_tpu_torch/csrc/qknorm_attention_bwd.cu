@@ -46,18 +46,36 @@
 // block's loads, prologue and epilogue overlapping nothing; its clocks by
 // part come from the -DQKNORM_BWD_TIMING build.
 //
-// bf16, n > 256, and f32: the split route, the first design's kernels. `prep`
-// normalises q and k once into q^ and k^ in device memory (rounded to bf16
-// on the bf16 route) and takes D; `dkdv` (one block per 64 keys,
-// key-stationary: k^ and v resident, the query tiles streamed through a
-// two-stage cp.async ring) writes dk, dv and d k_scale rows; `dq` (per 64
-// queries, query-stationary over key tiles) recomputes S and dP, so 14 n m
-// d FLOP a head against the bound's 10, and writes dq and its rows of
-// d q_scale, d nk^, d nv; `sum_rows` and `reduce` sum the rows in two
-// fixed-order stages. Each waits on every `wgmma` group with one warpgroup
-// a block, so at the super-res stage's shapes it runs at 11-20% of its
-// bound. f32 takes CUDA-core kernels of the same structure (4 x 4 register
-// tiles), simple and not tuned.
+// bf16, n > 256: the split route, the first design's kernels. `prep`
+// normalises q and k once into q^ and k^ in device memory (rounded to
+// bf16) and takes D; `dkdv` (one block per 64 keys, key-stationary: k^
+// and v resident, the query tiles streamed through a two-stage cp.async
+// ring) writes dk, dv and d k_scale rows; `dq` (per 64 queries,
+// query-stationary over key tiles) recomputes S and dP, so 14 n m d FLOP a
+// head against the bound's 10, and writes dq and its rows of d q_scale,
+// d nk^, d nv. Each waits on every `wgmma` group with one warpgroup a
+// block, so at the super-res stage's shapes it runs at 11-20% of its
+// bound.
+//
+// f32, every n: IEEE f32 on the CUDA cores (no TF32), whose 67 TFLOP/s
+// set the pace: 10 n m d FLOP a head at d 64 is 0.321 ms at (64, 256, 8,
+// 64) x 256 against 0.040 ms of bytes. Two kernels, then the sums.
+// `keys_f32`, a block per (64 keys, head, batch), holds k^ and v in shared
+// memory and streams the query tiles through a two-stage cp.async ring; as
+// a tile lands it takes the rows' |q|^2 and D = g . out (so no `prep` and
+// no q^ / k^ round trip through device memory) and transposes q and g.
+// S^T and dP^T are computed once per tile pair, and dV and dK^ stay in
+// registers, so the products are the bound's 10 n m d: the tile's dQ^
+// goes out as a part, r_q dQ^ = (dS r_q) k^ for its 64 keys, in place of
+// the recompute. Its register tiles are 4 x 4 with a warp's lanes 8 x 4
+// over each product, so every operand read is one shared-memory
+// wavefront, and the loops are unrolled; one block an SM (202 KiB).
+// `queries_f32`, a block per
+// 64 queries, sums each row's parts in key order with the null column and
+// q's norm (memory-bound: the parts are 4 n D bytes a key tile, 537 MB at
+// the super-res self shape). Then `sum_rows` and `reduce` sum the rows of
+// the scale and null gradients in two fixed-order stages, as on the bf16
+// split route: four launches a call.
 //
 // Every route: no float atomics, so two launches on the same inputs give
 // bit-identical gradients. Rows past n or m are zero-filled and masked by
@@ -251,13 +269,15 @@ qknorm_bwd_prep(const TT* __restrict__ q, const TT* __restrict__ k, const TT* __
 template <typename TT>
 struct Bwd {
   const TT *g, *q, *k, *v, *out, *qh, *kh, *nk, *nv;
-  const float *lse, *delta, *q_scale, *k_scale, *bias;
+  const float *lse, *q_scale, *k_scale, *bias;
+  float* delta;  // D (B, H, n): the split routes' first kernel writes it
   TT *dq, *dk, *dv, *dnk, *dnv;
   float *dqs, *dks;
   // per-block partials, (blocks, H, D): d q_scale, d k_scale, d nk^, d nv;
   // one-pass: each head's sums (H, 3, D) and H + 1 tickets, zero at the
   // launch
   float *dqs_part, *dks_part, *dnk_part, *dnv_part, *head_sums;
+  float* dpart;  // f32: the key tiles' r_q dQ^ (B, H, key tiles, n, D)
   int* counter;
   long long* clocks;  // -DQKNORM_BWD_TIMING: the one-pass kernel's clocks, 10 a block
   long long g_sb, g_sn, q_sb, q_sn, k_sb, k_sm, v_sb, v_sm;
@@ -1256,231 +1276,356 @@ __global__ void __launch_bounds__(NTH, 2) qknorm_bwd_dq_bf16(const Bwd<__nv_bflo
   column_sums(acc, p.dqs_part + (((long long)b * gridDim.x + qt) * p.H + h) * D, p.scale, tid);
 }
 
-// -- f32: the same two kernels on CUDA cores ------------------------------------------
+// -- f32: one key-stationary pass, then the query side, on CUDA cores ---------------
 
-constexpr int FT = 256;     // threads: 16 x 16, each a 4 x 4 tile
-constexpr int TP = T + 4;   // padded row of the f32 operand tiles
-constexpr int FTILE = T * TP;
+constexpr int FT = 256;        // threads of the f32 kernels
+constexpr int RP = D + 4;      // padded row of the f32 tiles that a warp reads a row a lane
+constexpr int RTILE = T * RP;
+static_assert(RP == EP, "the keys kernel stages dK^ in its output tile");
 
-// acc[i][j] = sum_c A[c][ty 4 + i] B[c][tx 4 + j] over 64 c; A, B [64][TP]
-__device__ __forceinline__ void mm_4x4(float (&acc)[4][4], const float* A, const float* B, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < T; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(A + c * TP + ty * 4);
-    const float4 bb = *reinterpret_cast<const float4*>(B + c * TP + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
-__device__ __forceinline__ void mm_4x4_add(float (&acc)[4][4], const float* A, const float* B, int ty, int tx) {
-  float part[4][4];
-  mm_4x4(part, A, B, ty, tx);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+// the sum over the 16 lanes of a half warp
+__device__ __forceinline__ float sum16(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-// 64 rows of an f32 (rows, 64) view into a row-major tile [r][c] and/or a
-// transposed one [c][r] (either may be null); rows >= rows are zero
-__device__ __forceinline__ void f32_tile(const float* src, long long stride, int rows, float* straight, float* tr,
-                                         int tid) {
-  for (int idx = tid; idx < T * D / 4; idx += FT) {
-    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < rows) x = *reinterpret_cast<const float4*>(src + r * stride + c);
-    if (straight) *reinterpret_cast<float4*>(straight + r * TP + c) = x;
-    if (tr) {
-      tr[(c + 0) * TP + r] = x.x;
-      tr[(c + 1) * TP + r] = x.y;
-      tr[(c + 2) * TP + r] = x.z;
-      tr[(c + 3) * TP + r] = x.w;
-    }
-  }
-}
+// shared memory of `qknorm_bwd_keys_f32`, in floats, each region 16-byte aligned
+struct KeysSmem {
+  static constexpr int KQT = 0;                 // [c][key] k^ q_scale scale log2e
+  static constexpr int VT = KQT + D * T;        // [c][key] v
+  static constexpr int KS = VT + D * T;         // [key][RP] k^
+  static constexpr int QT = KS + RTILE;         // [c][q] the query tile's raw q
+  static constexpr int GT = QT + D * T;         // [c][q] g
+  static constexpr int PS = GT + D * T;         // [q][key] P
+  static constexpr int DS = PS + T * T;         // [q][RP] dS r_q
+  static constexpr int RING = DS + RTILE;       // two stages: raw q [q][RP], g [q][RP], lse [T]
+  static constexpr int STAGE = 2 * RTILE + T;
+  static constexpr int OUT = RING + 2 * STAGE;  // [q][RP] the forward's output, one stage; dK^ at the end
+  static constexpr int RED = OUT + RTILE;       // [8][T] q's sum of squares and g . out by column quarter
+  static constexpr int KB = RED + 8 * T;        // [T] key bias log2e, -inf past m
+  static constexpr int QSC = KB + T;            // [D] q_scale scale
+  static constexpr int BYTES = (QSC + D) * 4;
+};
 
-__global__ void __launch_bounds__(FT) qknorm_bwd_dkdv_f32(const Bwd<float> p) {
-  extern __shared__ __align__(16) float fs[];
-  float* Kt = fs;              // [c][key] k^
-  float* Vt = Kt + FTILE;      // [c][key] v
-  float* Qt = Vt + FTILE;      // [c][q] q^
-  float* Gt = Qt + FTILE;      // [c][q] g
-  float* Qs = Gt + FTILE;      // [q][c] q^
-  float* Gs = Qs + FTILE;      // [q][c] g
-  float* Pt = Gs + FTILE;      // [q][key] P
-  float* St = Pt + FTILE;      // [q][key] dS
-  float* lse_s = St + FTILE;   // [T]
-  float* del_s = lse_s + T;    // [T]
-  float* kb_s = del_s + T;     // [T]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int key0 = kt * T, keys = min(T, p.m - key0);
-  const long long hd = (long long)p.H * D;
-  const float* lse = p.lse + ((long long)b * p.H + h) * p.n;
-  const float* del = p.delta + ((long long)b * p.H + h) * p.n;
-
-  f32_tile(p.kh + ((long long)b * p.m + key0) * hd + h * D, hd, keys, nullptr, Kt, tid);
-  f32_tile(p.v + b * p.v_sb + key0 * p.v_sm + h * D, p.v_sm, keys, nullptr, Vt, tid);
-  if (tid < T) {
-    const int key = key0 + tid;
-    kb_s[tid] = key < p.m ? (p.bias ? p.bias[(long long)b * p.m + key] : 0.0f) : -INFINITY;
-  }
-  float dv[4][4] = {}, dk[4][4] = {};
-  for (int q0 = 0; q0 < p.n; q0 += T) {
-    const int rows = min(T, p.n - q0);
-    __syncthreads();
-    f32_tile(p.qh + ((long long)b * p.n + q0) * hd + h * D, hd, rows, Qs, Qt, tid);
-    f32_tile(p.g + b * p.g_sb + q0 * p.g_sn + h * D, p.g_sn, rows, Gs, Gt, tid);
-    if (tid < T) {
-      lse_s[tid] = tid < rows ? lse[q0 + tid] : INFINITY;
-      del_s[tid] = tid < rows ? del[q0 + tid] : 0.0f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    mm_4x4(s, Kt, Qt, ty, tx);
-    mm_4x4(dp, Vt, Gt, ty, tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qc = tx * 4 + j;
-      float pv[4], sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = expf(s[i][j] + kb_s[ty * 4 + i] - lse_s[qc]);
-        sv[i] = pv[i] * (dp[i][j] - del_s[qc]);
-      }
-      *reinterpret_cast<float4*>(Pt + qc * TP + ty * 4) = make_float4(pv[0], pv[1], pv[2], pv[3]);
-      *reinterpret_cast<float4*>(St + qc * TP + ty * 4) = make_float4(sv[0], sv[1], sv[2], sv[3]);
-    }
-    __syncthreads();
-    mm_4x4_add(dv, Pt, Gs, ty, tx);
-    mm_4x4_add(dk, St, Qs, ty, tx);
-  }
-  __syncthreads();
-  float* acc = Qt;  // [key][c], EP == TP
-  float* dvp = p.dv + ((long long)b * p.m + key0) * hd + h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r * EP + tx * 4 + j] = dk[i][j];
-    if (r < keys)
-      *reinterpret_cast<float4*>(dvp + r * hd + tx * 4) = make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]);
-  }
-  __syncthreads();
-  norm_chain_rows(acc, p.k + b * p.k_sb + key0 * p.k_sm + h * D, p.k_sm, keys, p.k_scale,
-                  p.dk + ((long long)b * p.m + key0) * hd + h * D, hd, tid, FT);
-  __syncthreads();
-  column_sums(acc, p.dks_part + (((long long)b * gridDim.x + kt) * p.H + h) * D, 1.0f, tid);
-}
-
-__global__ void __launch_bounds__(FT) qknorm_bwd_dq_f32(const Bwd<float> p) {
-  extern __shared__ __align__(16) float fs[];
-  float* Qt = fs;              // [c][q] q^
-  float* Gt = Qt + FTILE;      // [c][q] g
-  float* Kt = Gt + FTILE;      // [c][key] k^
-  float* Vt = Kt + FTILE;      // [c][key] v
-  float* Ks = Vt + FTILE;      // [key][c] k^
-  float* St = Ks + FTILE;      // [key][q] dS
-  float* kb_s = St + FTILE;    // [T]
-  float* lse_s = kb_s + T;     // [T]
-  float* del_s = lse_s + T;    // [T]
-  float* p0s = del_s + T;      // [T]
-  float* ds0s = p0s + T;       // [T]
-  float* nkh = ds0s + T;       // [D]
-  float* nvs = nkh + D;        // [D]
-  float* qsc = nvs + D;        // [D]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ty = tid >> 4, tx = tid & 15;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * T, rows = min(T, p.n - q0);
-  const long long hd = (long long)p.H * D;
-  const float* lse = p.lse + ((long long)b * p.H + h) * p.n + q0;
-  const float* del = p.delta + ((long long)b * p.H + h) * p.n + q0;
-
-  f32_tile(p.qh + ((long long)b * p.n + q0) * hd + h * D, hd, rows, nullptr, Qt, tid);
-  f32_tile(p.g + b * p.g_sb + q0 * p.g_sn + h * D, p.g_sn, rows, nullptr, Gt, tid);
-  if (tid < T) {
-    lse_s[tid] = tid < rows ? lse[tid] : INFINITY;
-    del_s[tid] = tid < rows ? del[tid] : 0.0f;
-  }
-  if (tid < D) qsc[tid] = p.q_scale[tid] * p.scale;
-  if (warp == 0) {
+// The f32 route's second kernel, the query side: a block per (64 queries,
+// head, batch), 16 lanes a row (4 columns each), 16 rows at a time. A row
+// sums its key tiles' parts r_q dQ^ in key order, adds the null column's
+// dS_0 nk^, and goes through q's norm: with w' = r_q dQ^ q_scale scale,
+// dq = w' - u_q (u_q . w'). Each block writes a row of d q_scale, d nv and
+// d nk^ sums, each over its rows in order. D comes from the keys kernel,
+// or from g . out where there is no key (nkt = 0).
+__global__ void __launch_bounds__(FT) qknorm_bwd_queries_f32(const Bwd<float> p, int nkt) {
+  __shared__ __align__(16) float nkh[D], nvs[D], qsc[D];
+  __shared__ float4 sums[3][16][16];  // [d q_scale, d nv, d nk^][row slot][column group]
+  const int tid = threadIdx.x, l = tid & 15, slot = tid >> 4, lane = tid & 31;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, n = p.n, q0 = qt * T;
+  const long long hd = (long long)p.H * D, bh = (long long)b * p.H + h;
+  if (tid < 32) {  // the null key's norm
     const float a0 = p.nk[h * D + lane], a1 = p.nk[h * D + lane + 32];
-    const float r = rsqrtf(warp_sum(a0 * a0 + a1 * a1) + 1e-12f);
-    nkh[lane] = a0 * r * p.k_scale[lane];
-    nkh[lane + 32] = a1 * r * p.k_scale[lane + 32];
+    const float rn = rsqrtf(warp_sum(a0 * a0 + a1 * a1) + 1e-12f);
+    nkh[lane] = a0 * rn * p.k_scale[lane];
+    nkh[lane + 32] = a1 * rn * p.k_scale[lane + 32];
     nvs[lane] = p.nv[h * D + lane];
     nvs[lane + 32] = p.nv[h * D + lane + 32];
   }
+  if (tid < D) qsc[tid] = p.q_scale[tid] * p.scale;
   __syncthreads();
-  for (int r = warp; r < T; r += FT / 32) {  // the null column: one warp a row
-    const float s0 = warp_sum(Qt[lane * TP + r] * nkh[lane] + Qt[(lane + 32) * TP + r] * nkh[lane + 32]);
-    const float dp0 = warp_sum(Gt[lane * TP + r] * nvs[lane] + Gt[(lane + 32) * TP + r] * nvs[lane + 32]);
-    if (lane == 0) {
-      const float p0 = r < rows ? expf(s0 - lse_s[r]) : 0.0f;
-      p0s[r] = p0;
-      ds0s[r] = r < rows ? p0 * (dp0 - del_s[r]) : 0.0f;
-    }
-  }
-  __syncthreads();
-  if (tid < 2 * D) {
-    const int c = tid & (D - 1);
-    const bool is_nv = tid < D;
-    const float* w = is_nv ? p0s : ds0s;
-    const float* tile = is_nv ? Gt : Qt;
-    float s = 0.0f;
-    for (int r = 0; r < T; ++r) s += w[r] * tile[c * TP + r];
-    float* dst = is_nv ? p.dnv_part : p.dnk_part;
-    dst[(((long long)b * gridDim.x + qt) * p.H + h) * D + c] = s;
-  }
-
-  float dq[4][4] = {};
-  const float* brow = p.bias ? p.bias + (long long)b * p.m : nullptr;
-  for (int k0 = 0; k0 < p.m; k0 += T) {
-    const int keys = min(T, p.m - k0);
-    __syncthreads();
-    f32_tile(p.kh + ((long long)b * p.m + k0) * hd + h * D, hd, keys, Ks, Kt, tid);
-    f32_tile(p.v + b * p.v_sb + k0 * p.v_sm + h * D, p.v_sm, keys, nullptr, Vt, tid);
-    if (tid < T) kb_s[tid] = tid < keys ? (brow ? brow[k0 + tid] : 0.0f) : -INFINITY;
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    mm_4x4(s, Qt, Kt, ty, tx);
-    mm_4x4(dp, Gt, Vt, ty, tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kc = tx * 4 + j;
-      float sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pe = expf(s[i][j] + kb_s[kc] - lse_s[ty * 4 + i]);
-        sv[i] = pe * (dp[i][j] - del_s[ty * 4 + i]);
+  const float4 nk4 = ld4(nkh + 4 * l), nv4 = ld4(nvs + 4 * l), qs4 = ld4(qsc + 4 * l);
+  float4 aq = make_float4(0.0f, 0.0f, 0.0f, 0.0f), av = aq, ak = aq;
+  for (int rr = slot; rr < T; rr += 16) {  // every lane of a warp takes each step: the sums shuffle
+    const int q = q0 + rr;
+    const bool ok = q < n;
+    float4 qv = make_float4(0.0f, 0.0f, 0.0f, 0.0f), gv = qv, acc = qv, ov = qv;
+    float dd = 0.0f;
+    if (ok) {
+      qv = ld4(p.q + b * p.q_sb + q * p.q_sn + h * D + 4 * l);
+      gv = ld4(p.g + b * p.g_sb + q * p.g_sn + h * D + 4 * l);
+      if (nkt == 0) ov = ld4(p.out + ((long long)b * n + q) * hd + h * D + 4 * l);
+      else dd = p.delta[bh * n + q];
+      const float* part = p.dpart + (bh * nkt * n + q) * D + 4 * l;
+#pragma unroll 8
+      for (int kt = 0; kt < nkt; ++kt) {
+        const float4 x = ld4(part + (long long)kt * n * D);
+        acc.x += x.x, acc.y += x.y, acc.z += x.z, acc.w += x.w;
       }
-      *reinterpret_cast<float4*>(St + kc * TP + ty * 4) = make_float4(sv[0], sv[1], sv[2], sv[3]);
     }
-    __syncthreads();
-    mm_4x4_add(dq, St, Ks, ty, tx);
+    const float rq = rsqrtf(sum16(qv.x * qv.x + qv.y * qv.y + qv.z * qv.z + qv.w * qv.w) + 1e-12f);
+    const float4 u = make_float4(qv.x * rq, qv.y * rq, qv.z * rq, qv.w * rq);
+    const float4 qh = make_float4(u.x * qs4.x, u.y * qs4.y, u.z * qs4.z, u.w * qs4.w);  // q^
+    const float s0 = sum16(qh.x * nk4.x + qh.y * nk4.y + qh.z * nk4.z + qh.w * nk4.w);
+    const float dp0 = sum16(gv.x * nv4.x + gv.y * nv4.y + gv.z * nv4.z + gv.w * nv4.w);
+    const float dgo = sum16(gv.x * ov.x + gv.y * ov.y + gv.z * ov.z + gv.w * ov.w);
+    if (nkt == 0) dd = dgo;
+    const float p0 = ok ? expf(s0 - p.lse[bh * n + q]) : 0.0f;
+    const float ds0 = p0 * (dp0 - dd), c0 = rq * ds0;
+    // r_q dQ^ and w' = r_q dQ^ q_scale scale
+    const float4 w2 = make_float4(fmaf(c0, nk4.x, acc.x), fmaf(c0, nk4.y, acc.y), fmaf(c0, nk4.z, acc.z),
+                                  fmaf(c0, nk4.w, acc.w));
+    const float4 w1 = make_float4(w2.x * qs4.x, w2.y * qs4.y, w2.z * qs4.z, w2.w * qs4.w);
+    const float uw = sum16(u.x * w1.x + u.y * w1.y + u.z * w1.z + u.w * w1.w);
+    if (ok)
+      st4(p.dq + ((long long)b * n + q) * hd + h * D + 4 * l, w1.x - u.x * uw, w1.y - u.y * uw, w1.z - u.z * uw,
+          w1.w - u.w * uw);
+    // d q_scale / scale: dQ^ u_q = (r_q dQ^) q; d nv: P_0 g; d nk^: dS_0 q^
+    aq.x = fmaf(w2.x, qv.x, aq.x), aq.y = fmaf(w2.y, qv.y, aq.y), aq.z = fmaf(w2.z, qv.z, aq.z), aq.w = fmaf(w2.w, qv.w, aq.w);
+    av.x = fmaf(p0, gv.x, av.x), av.y = fmaf(p0, gv.y, av.y), av.z = fmaf(p0, gv.z, av.z), av.w = fmaf(p0, gv.w, av.w);
+    ak.x = fmaf(ds0, qh.x, ak.x), ak.y = fmaf(ds0, qh.y, ak.y), ak.z = fmaf(ds0, qh.z, ak.z), ak.w = fmaf(ds0, qh.w, ak.w);
   }
+  sums[0][slot][l] = aq;
+  sums[1][slot][l] = av;
+  sums[2][slot][l] = ak;
   __syncthreads();
-  float* acc = Kt;  // [q][c]
+  if (tid < 48) {
+    const int a = tid >> 4, c = tid & 15;
+    float4 t = sums[a][0][c];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r * EP + tx * 4 + j] = fmaf(ds0s[r], nkh[tx * 4 + j], dq[i][j]);
+    for (int i = 1; i < 16; ++i) {
+      const float4 x = sums[a][i][c];
+      t.x += x.x, t.y += x.y, t.z += x.z, t.w += x.w;
+    }
+    const float mul = a == 0 ? p.scale : 1.0f;
+    float* dst = a == 0 ? p.dqs_part : a == 1 ? p.dnv_part : p.dnk_part;
+    st4(dst + (((long long)b * gridDim.x + qt) * p.H + h) * D + 4 * c, t.x * mul, t.y * mul, t.z * mul, t.w * mul);
   }
-  __syncthreads();
-  norm_chain_rows(acc, p.q + b * p.q_sb + q0 * p.q_sn + h * D, p.q_sn, rows, qsc,
-                  p.dq + ((long long)b * p.n + q0) * hd + h * D, hd, tid, FT);
-  __syncthreads();
-  column_sums(acc, p.dqs_part + (((long long)b * gridDim.x + qt) * p.H + h) * D, p.scale, tid);
 }
 
+// The f32 route's main kernel: a block per (64 keys, head, batch), 256
+// threads, one block an SM (202 KiB of shared memory). k^ (normalised as
+// the raw tile lands) and v stay in shared memory; the query tiles stream
+// through a two-stage cp.async ring (raw q, g, out, lse), and as each lands
+// its rows' |q|^2 and D = g . out are taken and raw q and g transposed. A
+// thread holds a 4 x 4 tile of each product, a warp's lanes 8 lo x 4 hi:
+// S^T and dP^T (keys 4 lo + i, queries 4 hi + j) once per tile pair, then
+// dV += P^T g and dK^ / (q_scale scale) += (dS r_q)^T q (keys 4 hi + i,
+// columns 4 lo + j) and the tile's part of r_q dQ^ = (dS r_q) k^ (queries
+// hi + 16 i), which goes to `dpart` (B, H, key tiles, n, D). q^ = u_q
+// q_scale scale is never formed: S = r_q (q . k^ q_scale scale), with
+// log2e folded into that k^ copy, and r_q rides on dS. The block with the
+// first key tile writes D for the query side.
+__global__ void __launch_bounds__(FT, 1) qknorm_bwd_keys_f32(const Bwd<float> p) {
+  extern __shared__ __align__(16) float fs[];
+  float* kqt = fs + KeysSmem::KQT;
+  float* vt = fs + KeysSmem::VT;
+  float* ks = fs + KeysSmem::KS;
+  float* qt = fs + KeysSmem::QT;
+  float* gt = fs + KeysSmem::GT;
+  float* ps = fs + KeysSmem::PS;
+  float* dsm = fs + KeysSmem::DS;
+  float* ring = fs + KeysSmem::RING;
+  float* outb = fs + KeysSmem::OUT;
+  float* red = fs + KeysSmem::RED;
+  float* kb = fs + KeysSmem::KB;
+  float* qsc = fs + KeysSmem::QSC;
+  // a warp takes 8 lo x 4 hi groups of four: 8 float4 of one operand row and 4 of the other, a
+  // wavefront each
+  const int tid = threadIdx.x, w = tid >> 5, lo = (tid & 7) + 8 * (w & 1), hi = ((tid >> 3) & 3) + 4 * (w >> 1);
+  const int r = tid & (T - 1), qtr = tid >> 6;  // a row a lane, a quarter of its columns a warp pair
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nkt = gridDim.x;
+  const int n = p.n, m = p.m, key0 = kt * T, keys = min(T, m - key0), nqt = (n + T - 1) / T;
+  const long long hd = (long long)p.H * D, bh = (long long)b * p.H + h;
+  const float* lse = p.lse + bh * n;
+
+  // 64 rows of D floats from src (row stride `stride`) into dst [T][RP]; rows >= rows zero
+  auto rows_async = [&](float* dst, const float* src, long long stride, int rows) {
+    const uint32_t s = ac::smem_u32(dst);
+#pragma unroll
+    for (int it = 0; it < T * D / 4 / FT; ++it) {
+      const int c = tid + it * FT, rr = c >> 4, ch = c & 15;
+      const bool ok = rr < rows;
+      cp16(s + (rr * RP + ch * 4) * 4, src + (ok ? rr : 0) * stride + ch * 4, ok);
+    }
+  };
+  auto load_query_tile = [&](int j) {
+    const int q0 = j * T, rows = min(T, n - q0);
+    float* st = ring + (j & 1) * KeysSmem::STAGE;
+    rows_async(st, p.q + b * p.q_sb + q0 * p.q_sn + h * D, p.q_sn, rows);
+    rows_async(st + RTILE, p.g + b * p.g_sb + q0 * p.g_sn + h * D, p.g_sn, rows);
+    rows_async(outb, p.out + ((long long)b * n + q0) * hd + h * D, hd, rows);
+    if (tid < T) cp4(ac::smem_u32(st + 2 * RTILE + tid), lse + q0 + min(tid, rows - 1), tid < rows);
+  };
+
+  // the raw k and v tiles land in stage 1, free until query tile 1's loads
+  float* kraw = ring + KeysSmem::STAGE;
+  float* vraw = kraw + RTILE;
+  rows_async(kraw, p.k + b * p.k_sb + key0 * p.k_sm + h * D, p.k_sm, keys);
+  rows_async(vraw, p.v + b * p.v_sb + key0 * p.v_sm + h * D, p.v_sm, keys);
+  cp_commit();
+  load_query_tile(0);
+  cp_commit();
+  if (tid < T) {
+    const int key = key0 + tid;
+    kb[tid] = key < m ? (p.bias ? p.bias[(long long)b * m + key] * LOG2E : 0.0f) : -INFINITY;
+  }
+  if (tid < D) qsc[tid] = p.q_scale[tid] * p.scale;
+  cp_wait<1>();
+  __syncthreads();
+  {  // k's sums of squares by quarter; v transposed
+    float ss = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = qtr * 16 + e * 4;
+      const float4 x = ld4(kraw + r * RP + c), y = ld4(vraw + r * RP + c);
+      ss = fmaf(x.x, x.x, fmaf(x.y, x.y, fmaf(x.z, x.z, fmaf(x.w, x.w, ss))));
+      vt[(c + 0) * T + r] = y.x;
+      vt[(c + 1) * T + r] = y.y;
+      vt[(c + 2) * T + r] = y.z;
+      vt[(c + 3) * T + r] = y.w;
+    }
+    red[qtr * T + r] = ss;
+  }
+  __syncthreads();
+  {  // k^ into both layouts
+    const float rk = rsqrtf(((red[r] + red[T + r]) + red[2 * T + r]) + red[3 * T + r] + 1e-12f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = qtr * 16 + e * 4;
+      const float4 x = ld4(kraw + r * RP + c);
+      const float y[4] = {x.x * rk * p.k_scale[c], x.y * rk * p.k_scale[c + 1], x.z * rk * p.k_scale[c + 2],
+                          x.w * rk * p.k_scale[c + 3]};
+      st4(ks + r * RP + c, y[0], y[1], y[2], y[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) kqt[(c + i) * T + r] = y[i] * qsc[c + i] * LOG2E;
+    }
+  }
+
+  float dv[4][4] = {}, dk[4][4] = {};
+  for (int j = 0; j < nqt; ++j) {
+    const int q0 = j * T, rows = min(T, n - q0);
+    const float* qr = ring + (j & 1) * KeysSmem::STAGE;
+    const float* gs = qr + RTILE;
+    const float* ls = gs + RTILE;
+    cp_wait<0>();
+    __syncthreads();
+    {  // q's sums of squares and g . out by quarter; raw q and g transposed
+      float ss = 0.0f, dd = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = qtr * 16 + e * 4;
+        const float4 x = ld4(qr + r * RP + c), y = ld4(gs + r * RP + c), o = ld4(outb + r * RP + c);
+        ss = fmaf(x.x, x.x, fmaf(x.y, x.y, fmaf(x.z, x.z, fmaf(x.w, x.w, ss))));
+        dd = fmaf(y.x, o.x, fmaf(y.y, o.y, fmaf(y.z, o.z, fmaf(y.w, o.w, dd))));
+        qt[(c + 0) * T + r] = x.x;
+        qt[(c + 1) * T + r] = x.y;
+        qt[(c + 2) * T + r] = x.z;
+        qt[(c + 3) * T + r] = x.w;
+        gt[(c + 0) * T + r] = y.x;
+        gt[(c + 1) * T + r] = y.y;
+        gt[(c + 2) * T + r] = y.z;
+        gt[(c + 3) * T + r] = y.w;
+      }
+      red[qtr * T + r] = ss;
+      red[(4 + qtr) * T + r] = dd;
+    }
+    __syncthreads();
+    if (j + 1 < nqt) load_query_tile(j + 1);  // into the other stage and `outb`, both read for the last time above
+    cp_commit();
+    if (kt == 0 && tid < rows)
+      p.delta[bh * n + q0 + tid] = ((red[4 * T + tid] + red[5 * T + tid]) + red[6 * T + tid]) + red[7 * T + tid];
+
+    float s[4][4] = {}, dp[4][4] = {};  // S^T log2e / r_q and dP^T: keys 4 lo + i, queries 4 hi + jj
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      const float4 ka = ld4(kqt + c * T + 4 * lo), va = ld4(vt + c * T + 4 * lo);
+      const float4 qb = ld4(qt + c * T + 4 * hi), gb = ld4(gt + c * T + 4 * hi);
+      const float kv[4] = {ka.x, ka.y, ka.z, ka.w}, vv[4] = {va.x, va.y, va.z, va.w};
+      const float qv[4] = {qb.x, qb.y, qb.z, qb.w}, gv[4] = {gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          s[i][jj] = fmaf(kv[i], qv[jj], s[i][jj]);
+          dp[i][jj] = fmaf(vv[i], gv[jj], dp[i][jj]);
+        }
+    }
+    {  // P = exp2(S log2e + bias log2e - lse log2e) and dS r_q = P (dP - D) r_q, both [q][key]
+      float sq[4] = {}, dq4[4] = {};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float4 x = ld4(red + a * T + 4 * hi), y = ld4(red + (4 + a) * T + 4 * hi);
+        sq[0] += x.x, sq[1] += x.y, sq[2] += x.z, sq[3] += x.w;
+        dq4[0] += y.x, dq4[1] += y.y, dq4[2] += y.z, dq4[3] += y.w;
+      }
+      const float4 l4 = ld4(ls + 4 * hi), k4 = ld4(kb + 4 * lo);
+      const float lv[4] = {l4.x, l4.y, l4.z, l4.w}, kv[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int q = 4 * hi + jj;
+        const float rq = rsqrtf(sq[jj] + 1e-12f), lq = q < rows ? lv[jj] * LOG2E : INFINITY;
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = exp2f(fmaf(s[i][jj], rq, kv[i] - lq));
+          dsv[i] = pv[i] * (dp[i][jj] - dq4[jj]) * rq;
+        }
+        st4(ps + q * T + 4 * lo, pv[0], pv[1], pv[2], pv[3]);
+        st4(dsm + q * RP + 4 * lo, dsv[0], dsv[1], dsv[2], dsv[3]);
+      }
+    }
+    __syncthreads();
+    // dV += P^T g and dK^ / (q_scale scale) += (dS r_q)^T q (keys 4 hi + i, columns 4 lo + jj);
+    // this tile's r_q dQ^ = (dS r_q) k^ (queries hi + 16 i, columns 4 lo + jj)
+    float dqp[4][4] = {};
+#pragma unroll 4
+    for (int x = 0; x < T; x += 4) {
+#pragma unroll
+      for (int xx = 0; xx < 4; ++xx) {
+        const int qq = x + xx;
+        const float4 pa = ld4(ps + qq * T + 4 * hi), da = ld4(dsm + qq * RP + 4 * hi);
+        const float4 ga = ld4(gs + qq * RP + 4 * lo), qa = ld4(qr + qq * RP + 4 * lo);
+        const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, sv[4] = {da.x, da.y, da.z, da.w};
+        const float gv[4] = {ga.x, ga.y, ga.z, ga.w}, qv[4] = {qa.x, qa.y, qa.z, qa.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            dv[i][jj] = fmaf(pv[i], gv[jj], dv[i][jj]);
+            dk[i][jj] = fmaf(sv[i], qv[jj], dk[i][jj]);
+          }
+      }
+      float dr[4][4], kr[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 a = ld4(dsm + (hi + 16 * i) * RP + x), c = ld4(ks + (x + i) * RP + 4 * lo);
+        dr[i][0] = a.x, dr[i][1] = a.y, dr[i][2] = a.z, dr[i][3] = a.w;
+        kr[i][0] = c.x, kr[i][1] = c.y, kr[i][2] = c.z, kr[i][3] = c.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int xx = 0; xx < 4; ++xx)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) dqp[i][jj] = fmaf(dr[i][xx], kr[xx][jj], dqp[i][jj]);
+    }
+    float* dst = p.dpart + ((bh * nkt + kt) * n + q0) * D;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (hi + 16 * i < rows) st4(dst + (hi + 16 * i) * D + 4 * lo, dqp[i][0], dqp[i][1], dqp[i][2], dqp[i][3]);
+  }
+
+  __syncthreads();
+  float* acc = outb;  // [key][EP] dK^
+  float* dvp = p.dv + ((long long)b * m + key0) * hd + h * D;
+  const float4 q4 = ld4(qsc + 4 * lo);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = 4 * hi + i;
+    st4(acc + rr * EP + 4 * lo, dk[i][0] * q4.x, dk[i][1] * q4.y, dk[i][2] * q4.z, dk[i][3] * q4.w);
+    if (rr < keys) st4(dvp + rr * hd + 4 * lo, dv[i][0], dv[i][1], dv[i][2], dv[i][3]);
+  }
+  __syncthreads();
+  norm_chain_rows(acc, p.k + b * p.k_sb + key0 * p.k_sm + h * D, p.k_sm, keys, p.k_scale,
+                  p.dk + ((long long)b * m + key0) * hd + h * D, hd, tid, FT);
+  __syncthreads();
+  column_sums(acc, p.dks_part + (((long long)b * nkt + kt) * p.H + h) * D, 1.0f, tid);
+}
 
 // -- the split route's partials, in a fixed order -------------------------------------
 
@@ -1571,11 +1716,12 @@ inline size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
 inline bool takes_one_pass(int n, int esize) { return esize == 2 && n <= OP_N; }
 
 struct Workspace {
-  size_t counter, head_sums, stage, qh, kh, delta, dqs_part, dks_part, dnk_part, dnv_part, clocks, bytes;
+  size_t counter, head_sums, stage, qh, kh, dpart, delta, dqs_part, dks_part, dnk_part, dnv_part, clocks, bytes;
 };
 
-// one-pass: the tickets and the heads' sums; split route: the chunk sums,
-// q^, k^ and D; then the partials, a row a block and head
+// one-pass: the tickets and the heads' sums; bf16 split route: the chunk
+// sums, q^, k^ and D; f32: the chunk sums, the key tiles' dQ^ parts and D;
+// then the partials, a row a block and head
 inline Workspace workspace(int B, int n, int m, int H, int esize) {
   const size_t nqt = (n + T - 1) / T, nkt = (m + T - 1) / T;
   Workspace w = {};
@@ -1591,8 +1737,12 @@ inline Workspace workspace(int B, int n, int m, int H, int esize) {
     w.head_sums = take((size_t)H * 3 * D * 4);
   } else {
     w.stage = take((size_t)4 * CH * H * D * 4);
-    w.qh = take((size_t)B * n * H * D * esize);
-    w.kh = take((size_t)B * m * H * D * esize);
+    if (esize == 2) {
+      w.qh = take((size_t)B * n * H * D * esize);
+      w.kh = take((size_t)B * m * H * D * esize);
+    } else {
+      w.dpart = take((size_t)B * H * nkt * n * D * 4);
+    }
     w.delta = take((size_t)B * H * n * 4);
     q_blocks = B * nqt, k_blocks = B * nkt;
   }
@@ -1610,7 +1760,7 @@ inline Workspace workspace(int B, int n, int m, int H, int esize) {
 // the dynamic shared memory limit of a kernel (`slot`, one a kernel),
 // raised once per device
 inline cudaError_t allow_smem(const void* fn, int bytes, int slot) {
-  static bool done[5][32] = {};
+  static bool done[4][32] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -1640,7 +1790,8 @@ cudaError_t launch_all(const void* g, const void* q, const void* k, const void* 
   p.nk = static_cast<const TT*>(nk);
   p.nv = static_cast<const TT*>(nv);
   p.lse = lse;
-  p.delta = reinterpret_cast<const float*>(ws + w.delta);
+  p.delta = reinterpret_cast<float*>(ws + w.delta);
+  p.dpart = reinterpret_cast<float*>(ws + w.dpart);
   p.q_scale = qs;
   p.k_scale = ks;
   p.bias = bias;
@@ -1674,13 +1825,13 @@ cudaError_t launch_all(const void* g, const void* q, const void* k, const void* 
     }
   }
 
-  // the split route: prep, key-stationary dK / dV, query-stationary dQ, then the partials in two stages
-  const long long rows = (long long)B * (n + m) * H;
-  qknorm_bwd_prep<TT><<<(unsigned)((rows + 31) / 32), 256, 0, stream>>>(
-      p.q, p.k, p.g, p.out, qs, ks, const_cast<TT*>(p.qh), const_cast<TT*>(p.kh), const_cast<float*>(p.delta), B, n,
-      m, H, q_sb, q_sn, k_sb, k_sm, g_sb, g_sn, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if constexpr (sizeof(TT) == 2) {
+    // the bf16 split route: prep, key-stationary dK / dV, query-stationary dQ
+    const long long rows = (long long)B * (n + m) * H;
+    qknorm_bwd_prep<TT><<<(unsigned)((rows + 31) / 32), 256, 0, stream>>>(
+        p.q, p.k, p.g, p.out, qs, ks, const_cast<TT*>(p.qh), const_cast<TT*>(p.kh), p.delta, B,
+        n, m, H, q_sb, q_sn, k_sb, k_sm, g_sb, g_sn, scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if (nkt > 0) {
       if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dkdv_bf16), DkdvSmem::ALLOC, 1)) != cudaSuccess)
         return e;
@@ -1690,17 +1841,17 @@ cudaError_t launch_all(const void* g, const void* q, const void* k, const void* 
     if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dq_bf16), DqSmem::ALLOC, 2)) != cudaSuccess) return e;
     qknorm_bwd_dq_bf16<<<dim3(nqt, H, B), NTH, DqSmem::ALLOC, stream>>>(p);
   } else {
-    constexpr int KV_SMEM = (8 * FTILE + 3 * T) * 4;
-    constexpr int Q_SMEM = (6 * FTILE + 5 * T + 3 * D) * 4;
+    // f32: the key-stationary pass, then the query side
     if (nkt > 0) {
-      if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dkdv_f32), KV_SMEM, 3)) != cudaSuccess) return e;
-      qknorm_bwd_dkdv_f32<<<dim3(nkt, H, B), FT, KV_SMEM, stream>>>(p);
+      if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_keys_f32), KeysSmem::BYTES, 3)) != cudaSuccess)
+        return e;
+      qknorm_bwd_keys_f32<<<dim3(nkt, H, B), FT, KeysSmem::BYTES, stream>>>(p);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
-    if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dq_f32), Q_SMEM, 4)) != cudaSuccess) return e;
-    qknorm_bwd_dq_f32<<<dim3(nqt, H, B), FT, Q_SMEM, stream>>>(p);
+    qknorm_bwd_queries_f32<<<dim3(nqt, H, B), FT, 0, stream>>>(p, nkt);
   }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // the partials in two fixed-order stages
   float* stage = reinterpret_cast<float*>(ws + w.stage);
   qknorm_bwd_sum_rows<<<dim3(CH, 4), 256, 0, stream>>>(p.dqs_part, p.dks_part, p.dnv_part, p.dnk_part, stage,
                                                        B * nqt, B * nkt, H);

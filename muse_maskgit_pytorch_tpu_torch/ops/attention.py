@@ -373,7 +373,8 @@ def _backward_call(lib, g, q, k, v, null_k, null_v, q_scale, k_scale, bias, out,
 
 def _backward_one_pass(n: int, dtype: torch.dtype) -> bool:
     """Whether K2's backward takes its one-pass kernel for n queries of
-    this dtype (else the split route); the kernel's library decides."""
+    this dtype (else the bf16 split route, or the f32 route's key-stationary
+    kernel and query side); the kernel's library decides."""
     return bool(_bwd_lib().muse_qknorm_attn_bwd_one_pass(n, 1 if dtype == torch.bfloat16 else 0))
 
 

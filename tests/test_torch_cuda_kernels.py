@@ -244,7 +244,10 @@ def test_qknorm_gradients_match_plain(dev, dtype):
 # one-pass route's edges (bf16 takes it at n <= 256, any m, and the split
 # route above): m = 256 and 257 (a full and a ragged last key tile), n = 1,
 # n = 200 over 64 keys, a batch mixing a fully masked row with ragged and
-# partial ones, and n = 256 / 257 on either side of the route's limit
+# partial ones, and n = 256 / 257 on either side of the route's limit; then
+# the f32 keys kernel's edges: m = 63, 64 and 65 (a partial, a full and an
+# extra key tile), n = 65 (a second query tile of one row), and 640 blocks
+# of (key tile, head, batch), more than four waves of 132
 BACKWARD_SHAPES = {
     "ragged": (3, 70, 200, 2, "partial"),
     "m0": (2, 70, 0, 2, None),
@@ -257,6 +260,11 @@ BACKWARD_SHAPES = {
     "mixed_rows": (4, 96, 150, 2, "mixed"),
     "n256": (2, 256, 100, 2, "partial"),
     "n257": (2, 257, 100, 2, "partial"),
+    "m63": (2, 70, 63, 2, "partial"),
+    "m64": (2, 70, 64, 2, "partial"),
+    "m65": (2, 70, 65, 2, "partial"),
+    "n65": (3, 65, 130, 2, "mixed"),
+    "waves": (8, 65, 640, 8, "partial"),
 }
 
 

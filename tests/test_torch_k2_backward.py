@@ -37,8 +37,8 @@ CASES = {
 }
 
 
-def _inputs(case, d=16, seed=0):
-    b, n, m, h, mask_kind = CASES[case]
+def _inputs(case, d=16, seed=0, cases=CASES):
+    b, n, m, h, mask_kind = cases[case]
     rs = np.random.RandomState(seed + 13 * len(case))
     f = lambda *s: rs.randn(*s).astype(np.float32)  # noqa: E731
     arrays = [f(b, n, h, d), f(b, m, h, d), f(b, m, h, d), f(h, d), f(h, d), 1 + 0.1 * f(d), 1 + 0.1 * f(d)]
@@ -59,13 +59,13 @@ def _jax_vjp(xs, bias, cot):
     return jax.vjp(lambda *a: _qknorm_xla(*a, bias, 8.0), *xs)[1](cot)
 
 
-def _assert_leaves_close(got, want, frac, case):
+def _assert_leaves_close(got, want, frac, case, cases=CASES):
     for name, a, w in zip(NAMES, got, want):
         a, w = np.asarray(a, np.float64), np.asarray(w, np.float64)
         assert a.shape == w.shape, name
         if a.size == 0:
             continue
-        if CASES[case][2] == 0 and name in ZERO_WITHOUT_KEYS:
+        if cases[case][2] == 0 and name in ZERO_WITHOUT_KEYS:
             np.testing.assert_allclose(a, 0.0, rtol=0, atol=1e-5, err_msg=name)
             np.testing.assert_allclose(w, 0.0, rtol=0, atol=1e-5, err_msg=name)
             continue
@@ -142,3 +142,69 @@ def test_backward_wrapper_on_cpu_is_the_plain_version():
     assert port_attention.qknorm_attend_backward.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         port_attention.qknorm_attend_with_lse(*ts, mask=tmask)
+
+
+# The f32 backward kernels' split (`qknorm_bwd_keys_f32` then
+# `qknorm_bwd_queries_f32`), restated in plain PyTorch: ragged n and m across
+# the 64-key tiles, a fully masked row, no keys
+SPLIT_CASES = {
+    "ragged": (2, 70, 130, 2, "partial"),
+    "row-masked": (3, 65, 64, 2, "row"),
+    "m0": (2, 9, 0, 2, None),
+}
+
+
+def _unit(t):
+    r = torch.rsqrt((t * t).sum(-1, keepdim=True) + 1e-12)
+    return t * r, r
+
+
+def _split_backward(g, q, k, v, nk, nv, qs, ks, bias, scale=8.0, tile=64):
+    """Per 64-key tile: S and dP once, dV and dK^ from P and dS, and the
+    tile's r_q dQ^ = (dS r_q) k^ as a partial; on the query side only: the
+    partials summed in key order, D = rowsum(g out), the null column, and
+    q's norm as dq = w' - u (u . w') with w' = r_q dQ^ q_scale scale."""
+    qsc, (uq, rq), (uk, rk), (unk, rnk) = qs * scale, _unit(q), _unit(k), _unit(nk)
+    kh, nkh = uk * ks, unk * ks
+    s_full = torch.einsum("bnhd,bmhd->bhnm", uq * qsc, kh) + bias[:, None, None, :]
+    s0 = torch.einsum("bnhd,hd->bhn", uq * qsc, nkh)
+    lse = torch.logsumexp(torch.cat([s0[..., None], s_full], -1), -1)  # the forward's
+    out = torch.einsum("bhnm,bmhd->bnhd", torch.exp(s_full - lse[..., None]), v)
+    out = out + torch.exp(s0 - lse).transpose(1, 2)[..., None] * nv
+    dd = torch.einsum("bnhd,bnhd->bhn", g, out)
+    r_q = rq[..., 0].transpose(1, 2)  # (b, h, n)
+    dv, dk_u, parts = torch.zeros_like(v), torch.zeros_like(k), []
+    for k0 in range(0, k.shape[1], tile):
+        sl = slice(k0, k0 + tile)
+        s = r_q[..., None] * torch.einsum("bnhd,bmhd->bhnm", q, kh[:, sl] * qsc) + bias[:, None, None, sl]
+        p = torch.exp(s - lse[..., None])
+        ds_r = p * (torch.einsum("bnhd,bmhd->bhnm", g, v[:, sl]) - dd[..., None]) * r_q[..., None]
+        dv[:, sl] = torch.einsum("bhnm,bnhd->bmhd", p, g)
+        dk_u[:, sl] = torch.einsum("bhnm,bnhd->bmhd", ds_r, q)
+        parts.append(torch.einsum("bhnm,bmhd->bnhd", ds_r, kh[:, sl]))
+    acc = torch.zeros_like(q)
+    for part in parts:
+        acc = acc + part
+    p0 = torch.exp(s0 - lse)
+    ds0 = p0 * (torch.einsum("bnhd,hd->bhn", g, nv) - dd)
+    w2 = acc + (rq[..., 0] * ds0.transpose(1, 2))[..., None] * nkh
+    w1 = w2 * qsc
+    dq = w1 - uq * (uq * w1).sum(-1, keepdim=True)
+    dkh, dnkh = dk_u * qsc, torch.einsum("bhn,bnhd->hd", ds0, uq * qsc)
+    wk, wn = dkh * ks, dnkh * ks
+    dk = rk * (wk - uk * (uk * wk).sum(-1, keepdim=True))
+    dnk = rnk * (wn - unk * (unk * wn).sum(-1, keepdim=True))
+    dqs = scale * (w2 * q).sum((0, 1, 2))
+    dks = (dkh * uk).sum((0, 1, 2)) + (dnkh * unk).sum(0)
+    return dq, dk, dv, dnk, torch.einsum("bhn,bnhd->hd", p0, g), dqs, dks
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_f32_kernel_split_matches_jax_vjp(case):
+    b, _, m, _, _ = SPLIT_CASES[case]
+    arrays, mask, cot = _inputs(case, d=64, seed=3, cases=SPLIT_CASES)
+    bias = _bias(mask, b, m)
+    want = _jax_vjp(tuple(jnp.asarray(a) for a in arrays), jnp.asarray(bias), jnp.asarray(cot))
+    ts = [torch.from_numpy(a) for a in arrays]
+    got = _split_backward(torch.from_numpy(cot), *ts, torch.from_numpy(bias))
+    _assert_leaves_close([t.numpy() for t in got], [np.asarray(w) for w in want], GRAD_FRAC, case, SPLIT_CASES)
