@@ -97,6 +97,8 @@ SERVE_BATCH, SERVE_CAS_BATCH, BURST_REQUESTS, BURST_CLIENTS = 16, 8, 48, 16
 # warm-up, the learning rate and its warmup; the memorisation and resume
 # checks' depth and rate
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM, TRAIN_LR, TRAIN_WARMUP = 64, 10, 2, 1e-4, 2
+# the super-res stage's step (batch CAS_BATCH at seq SR_SEQ): warm-up and timed steps
+SR_TRAIN_WARM, SR_TRAIN_STEPS = 2, 5
 SMALL_DEPTH, SMALL_LR = 2, 1e-3
 # the VQ-GAN step (`bench_sweep.py`'s exp_gan_step: the tokenizer's width,
 # micro-batch 8, accumulation 1, EMA) with the reference EMA-VQ settings
@@ -136,9 +138,7 @@ PEAK_F32 = 67e12        # f32 FMA outside the tensor cores
 # routes (`csrc/qknorm_attention_bwd.cu`): f32 at any n, and bf16 above 256
 # queries
 BWD_F32_KERNELS = ["qknorm_bwd_keys_f32", "qknorm_bwd_queries_f32", "qknorm_bwd_sum_rows", "qknorm_bwd_reduce"]
-BWD_BF16_SPLIT_KERNELS = [
-    "qknorm_bwd_prep", "qknorm_bwd_dkdv_bf16", "qknorm_bwd_dq_bf16", "qknorm_bwd_sum_rows", "qknorm_bwd_reduce",
-]
+BWD_BF16_SPLIT_KERNELS = ["qknorm_bwd_queries_bf16", "qknorm_bwd_keys_bf16", "qknorm_bwd_sum_rows", "qknorm_bwd_reduce"]
 
 
 def log(msg: str) -> None:
@@ -1012,6 +1012,8 @@ def phase_profile(torch, ctx):
     )
     if "trainer" in ctx:
         profile_train_step(torch, ctx)
+    if "sr_trainer" in ctx:
+        profile_train_step(torch, ctx, superres=True)
     if "gan_trainer" in ctx:
         profile_gan_step(torch, ctx)
 
@@ -1085,37 +1087,40 @@ def profile_gan_step(torch, ctx):
     )
 
 
-def profile_train_step(torch, ctx):
-    """One bf16 train step of `[train]`'s trainer under torch.profiler:
-    device time in all, by kernel, K2's backward kernels by name and share,
-    and the kernels under the autograd node of K2's backward."""
+def profile_train_step(torch, ctx, superres=False):
+    """One bf16 train step of `[train]`'s trainer (or, with `superres`, of
+    its super-res stage's trainer) under torch.profiler: device time in all,
+    by kernel, K2's backward kernels by name and share, and the kernels under
+    the autograd node of K2's backward."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer, batch = ctx["trainer"], ctx["train_batch"]
-    trainer.train_step_arrays(*batch)  # warm
+    key = "sr_train" if superres else "train"
+    trainer, (batch, kw) = ctx[f"{key}er"], ctx[f"{key}_batch"]
+    seq, label = (SR_SEQ, f"super-res train step b{CAS_BATCH}") if superres else (SEQ, f"train step b{TRAIN_BATCH}")
+    trainer.train_step_arrays(*batch, **kw)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        trainer.train_step_arrays(*batch)
+        trainer.train_step_arrays(*batch, **kw)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1000
     averages = prof.key_averages()
     rows = profile_rows(prof)
     if not rows:
-        log(f"[profile] train step: the profiler saw no device time: not measured | {ctx['smi']}")
+        log(f"[profile] {label}: the profiler saw no device time: not measured | {ctx['smi']}")
         return
     device_ms, streams, repeats = device_busy(prof)
-    busy_within(device_ms, host_ms, "the profiled train step")
+    busy_within(device_ms, host_ms, f"the profiled {label}")
     k2_ms, k2_n = kernel_total(rows, "flash_core_kernel<64, true>")
-    # K2's backward kernels (`csrc/qknorm_attention_bwd.cu`): at the step's
-    # n = 256 in bf16 the one-pass kernel, one launch a call (the split
-    # route's five where the library says so)
+    # K2's backward kernels (`csrc/qknorm_attention_bwd.cu`): at the base
+    # step's n = 256 in bf16 the one-pass kernel, one launch a call; at the
+    # super-res step's n = 1024 the split route's four
     from muse_maskgit_pytorch_tpu_torch.ops import attention
 
     kb = [(ms, n, re.search(r"qknorm_bwd_\w+", name).group(0)) for ms, n, name in rows if "qknorm_bwd_" in name]
     kb_ms = sum(r[0] for r in kb)
     want = (
-        ["qknorm_bwd_onepass_bf16"] if attention._backward_one_pass(SEQ, torch.bfloat16)
+        ["qknorm_bwd_onepass_bf16"] if attention._backward_one_pass(seq, torch.bfloat16)
         else sorted(BWD_BF16_SPLIT_KERNELS)
     )
     require(
@@ -1138,11 +1143,12 @@ def profile_train_step(torch, ctx):
         stack.extend(e.cpu_children)
     under_s = "; ".join(f"{ms:.2f} ms {name[:60]}" for name, ms in sorted(under.items(), key=lambda kv: -kv[1])[:8])
     top = "; ".join(f"{ms:.2f} ms x{n} {name[:70]}" for ms, n, name in rows[:12])
-    ctx["train"]["profile"] = dict(
-        device_ms=device_ms, host_ms=host_ms, k2_fwd_ms=k2_ms, attn_bwd_ms=bwd_us / 1000, k2_bwd_kernels_ms=kb_ms
+    ctx["train"]["superres_profile" if superres else "profile"] = dict(
+        device_ms=device_ms, host_ms=host_ms, k2_fwd_ms=k2_ms, attn_bwd_ms=bwd_us / 1000, k2_bwd_kernels_ms=kb_ms,
+        k2_bwd_kernels={name: ms for ms, _, name in kb},
     )
     log(
-        f"[profile] train step b{TRAIN_BATCH}: device busy {device_ms:.1f} ms (kernels' sum "
+        f"[profile] {label}: device busy {device_ms:.1f} ms (kernels' sum "
         f"{sum(r[0] for r in rows):.1f} ms, {streams} stream(s), {repeats} repeated records) in a step of "
         f"{host_ms:.1f} ms ({device_ms / host_ms:.1%} busy); K2 forward {k2_ms:.2f} ms x{k2_n}; K2's backward "
         f"kernels {kb_ms:.2f} ms ({kb_ms / device_ms:.1%} of the step): {kb_s}; K2's backward autograd node "
@@ -2020,7 +2026,11 @@ def phase_train(torch, ctx):
         img/s, MFU (`maskgit_train_flops` / step / 989e12), peak memory; the
         step in turns with the backward kernel and with the plain backward
         patched in here (kernel, plain, plain, kernel, 5 steps each); then a
-        memorisation check at depth 2, lr 1e-3, one batch for 8 steps.
+        memorisation check at depth 2, lr 1e-3, one batch for 8 steps. The
+        super-res stage's trainer at the same width (b16, seq 1024, 256
+        conditioning ids, text 64 x 768, no self-conditioning): 2 warm-up and
+        5 timed steps, ms/step, img/s, peak memory, K2 16 a step and its
+        backward 16, every backward call on the bf16 split route.
     (d) resume on the card at depth 2: 2 steps, save, a new trainer with
         `auto_resume`, 2 steps, against 4 straight steps; then the EMA model
         through `save_module` -> `load_module` into a fresh MaskGit gives
@@ -2198,7 +2208,7 @@ def phase_train(torch, ctx):
             )
             t_now = grad_times[(name, dtype)]
             t_now["bwd_vs_sdpa"] = t_now["bwd_ms"] / t_now["bwd_library_ms"]
-            if one_pass:  # the one-pass kernel: where a block's time goes
+            if not f32:  # the bf16 kernels: where a block's time goes
                 t_now["bwd_clocks"] = attention.backward_part_clocks(cot, *args, fwd_out, lse, mask=mask)
             del args, leaves, qn, kn, vn, qd, kd, vd, out, got, fwd_out, lse
     bf = torch.bfloat16
@@ -2219,16 +2229,16 @@ def phase_train(torch, ctx):
         )
 
     def clocks_line(name):
-        c = grad_times[(name, bf)].get("bwd_clocks")
-        if c is None:
-            return ""
-        total = sum(c["parts"].values())
-        parts = ", ".join(f"{k} {v:.0f} ({v / total:.0%})" for k, v in c["parts"].items())
-        return (
-            f" [{labels[name]} bf16, the one-pass kernel's -DQKNORM_BWD_TIMING build: SM clocks a block by part, "
-            f"{parts}; a block {c['block_ns'] / 1000:.2f} us, {c['concurrent']} at once, the kernel's span "
-            f"{c['span_ns'] / 1000:.1f} us]"
-        )
+        out = []
+        for kernel, c in grad_times[(name, bf)].get("bwd_clocks", {}).items():
+            total = sum(c["parts"].values())
+            parts = ", ".join(f"{k} {v:.0f} ({v / total:.0%})" for k, v in c["parts"].items())
+            out.append(
+                f" [{labels[name]} bf16, {kernel}'s -DQKNORM_BWD_TIMING build: SM clocks a block by part, "
+                f"{parts}; a block {c['block_ns'] / 1000:.2f} us, {c['concurrent']} at once, the kernel's span "
+                f"{c['span_ns'] / 1000:.1f} us]"
+            )
+        return "".join(out)
 
     labels = {
         "self": "self (64,256,8,64)x256", "cross": "cross (64,256|64) with a dropped row (null_v)",
@@ -2365,6 +2375,42 @@ def phase_train(torch, ctx):
         f"{lrs}, ... | {ctx['smi']} | built {t_build:.1f}s"
     )
 
+    # the super-res stage's bf16 step at the same width (seq 1024, 256
+    # conditioning ids, no self-conditioning): K2 at n = 1024, so every
+    # backward call takes the split route
+    sr_trainer = MaskGitTrainer(
+        build_superres(torch, None), num_train_steps=10**6, batch_size=CAS_BATCH, lr=TRAIN_LR,
+        warmup_steps=TRAIN_WARMUP, results_folder=str(tmp / "superres"), save_model_every=10**9,
+    )
+    sr_ids = torch.randint(0, VOCAB, (CAS_BATCH, SR_SEQ), generator=g, device=dev)
+    sr_cond = torch.randint(0, VOCAB, (1, CAS_BATCH, COND_TOKENS), generator=g, device=dev)
+    sr_batch = (sr_ids[None], te[None, :CAS_BATCH], tm[None, :CAS_BATCH])
+    sr_logs = [sr_trainer.train_step_arrays(*sr_batch, cond_token_ids=sr_cond) for _ in range(SR_TRAIN_WARM)]
+    sr_k2, sr_bwd = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(SR_TRAIN_STEPS):
+        before = qknorm_attend.launches, qknorm_attend_backward.launches
+        sr_logs.append(sr_trainer.train_step_arrays(*sr_batch, cond_token_ids=sr_cond))
+        sr_k2.append(qknorm_attend.launches - before[0])
+        sr_bwd.append(qknorm_attend_backward.launches - before[1])
+    torch.cuda.synchronize()
+    sr_step_s = (time.perf_counter() - t0) / SR_TRAIN_STEPS
+    sr_peak = torch.cuda.max_memory_allocated() / 2**30
+    sr_losses = [l["loss"] for l in sr_logs]
+    require(not attention._backward_one_pass(SR_SEQ, torch.bfloat16), "the super-res step's backward is not on the split route")
+    require(all(x == 2 * DEPTH for x in sr_k2) and all(x == 2 * DEPTH for x in sr_bwd),
+            f"super-res step: K2 launches {sr_k2}, K2 backward {sr_bwd}, expected {2 * DEPTH} each")
+    require(all(math.isfinite(x) for x in sr_losses + [l["grad_norm"] for l in sr_logs]), f"super-res losses {sr_losses}")
+    log(
+        f"[train] MaskGitTrainer bf16 super-res b{CAS_BATCH} seq {SR_SEQ} cond ids {COND_TOKENS} text {TEXT_LEN}x{TEXT_DIM} "
+        f"dim {DIM} depth {DEPTH} vocab {VOCAB}, EMA: {sr_step_s * 1000:.2f} ms/step over {SR_TRAIN_STEPS} steps after "
+        f"{SR_TRAIN_WARM}, {CAS_BATCH / sr_step_s:.2f} img/s, peak {sr_peak:.2f} GiB | launches per step K2 {sr_k2}, "
+        f"K2 backward {sr_bwd} (the split route: {' + '.join(BWD_BF16_SPLIT_KERNELS)} a call) | loss "
+        f"{', '.join(f'{x:.4f}' for x in sr_losses)} | {ctx['smi']}"
+    )
+
     # memorisation: one fixed batch at depth 2, lr 1e-3
     small = MaskGitTrainer(
         build_models(torch, with_vae=False, seed=2, self_cond=True, depth=SMALL_DEPTH), num_train_steps=10**6,
@@ -2485,11 +2531,14 @@ def phase_train(torch, ctx):
         ms_per_step=step_s * 1000, img_s=TRAIN_BATCH / step_s, mfu=mfu, flops_per_step=flops, peak_gib=peak_gib,
         losses=losses, grad_norms=norms, k2_launches_per_step=k2_steps, k2_backward_launches_per_step=bwd_steps,
         ab_ms_per_step=ab,
+        superres=dict(ms_per_step=sr_step_s * 1000, img_s=CAS_BATCH / sr_step_s, peak_gib=sr_peak, losses=sr_losses,
+                      k2_launches_per_step=sr_k2, k2_backward_launches_per_step=sr_bwd),
         k2_grad={f"{n}_{str(d)[6:]}": dict(grad_times[(n, d)], errs=grad_errs[(n, d)]) for n, d in grad_times},
         f32_step=dict(loss_rel=loss_rel, leaf_err=leaf_err), resume=dict(loss_rel=loss_diff, max_diff=max_diff),
         memorisation=mem, shard_losses=shard_losses,
     )
-    ctx["trainer"], ctx["train_batch"] = trainer, batch
+    ctx["trainer"], ctx["train_batch"] = trainer, (batch, {})
+    ctx["sr_trainer"], ctx["sr_train_batch"] = sr_trainer, (sr_batch, dict(cond_token_ids=sr_cond))
 
 
 def phase_gan(torch, ctx):

@@ -46,16 +46,25 @@
 // block's loads, prologue and epilogue overlapping nothing; its clocks by
 // part come from the -DQKNORM_BWD_TIMING build.
 //
-// bf16, n > 256: the split route, the first design's kernels. `prep`
-// normalises q and k once into q^ and k^ in device memory (rounded to
-// bf16) and takes D; `dkdv` (one block per 64 keys, key-stationary: k^
-// and v resident, the query tiles streamed through a two-stage cp.async
-// ring) writes dk, dv and d k_scale rows; `dq` (per 64 queries,
-// query-stationary over key tiles) recomputes S and dP, so 14 n m d FLOP a
-// head against the bound's 10, and writes dq and its rows of d q_scale,
-// d nk^, d nv. Each waits on every `wgmma` group with one warpgroup a
-// block, so at the super-res stage's shapes it runs at 11-20% of its
-// bound.
+// bf16, n > 256 (the super-res stage's shapes): two TMA pipelines, four
+// launches. `queries_bf16` (a block per 128 queries: q^ and g resident,
+// k^ / v tiles streamed) takes q's norm, D = rowsum(g out), which it writes
+// for the next kernel, the null column and dQ^ with S and dP recomputed, so
+// 14 n m d FLOP a head against the bound's 10 (dQ^ parts in f32 would move
+// 537 MB each way at the super-res self shape). `keys_bf16` (a block per
+// 128 keys: k^ and v resident, q^ / g tiles streamed with LSE and D) takes
+// dK^ and dV. In each, two consumer warpgroups own 64 rows apiece and a
+// producer warpgroup feeds them by TMA through a four-stage ring with full
+// / ready / empty mbarriers a stage; each streamed tile is normalised in
+// place in shared memory (so no q^ / k^ round trip through device memory).
+// The consumers leave a `wgmma` group in flight: a tile's exponentials run
+// under its dP product, its dS under the dV product. `setmaxnreg` gives
+// the consumers 216 registers a thread. Then `sum_rows` and `reduce`. At
+// the super-res shapes it takes 0.94x / 0.82x the time of PR 9's route
+// (self / cross) but 1.35-1.38x SDPA's backward: the exponentials (twice,
+// with the recompute) and the S and dP products, which read both operands
+// from shared memory, leave the tensor cores idle about 70% of the time
+// (PERF.md, PR 13).
 //
 // f32, every n: IEEE f32 on the CUDA cores (no TF32), whose 67 TFLOP/s
 // set the pace: 10 n m d FLOP a head at d 64 is 0.321 ms at (64, 256, 8,
@@ -81,9 +90,12 @@
 // bit-identical gradients. Rows past n or m are zero-filled and masked by
 // LSE = +inf / bias = -inf; a fully masked row (bias -1e30) or m = 0 gives
 // P = 0 on every key, dq = 0 through the keys and all of g to null_v. The
-// tiles arrive by cp.async, each block waiting on its own copy groups and
-// barriers: no producer warp and no mbarrier to hang on.
+// one-pass and f32 kernels' tiles arrive by cp.async, each block waiting on
+// its own copy groups and barriers; the bf16 split route's rings wait
+// through `mbar_wait` (attention_core.cuh), which a build with
+// -DATTENTION_CORE_WATCHDOG turns into a trap after about ten seconds.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -104,24 +116,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // -- small helpers ------------------------------------------------------------
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
-  ac::unpack8(*reinterpret_cast<const uint4*>(p), x);
-}
 __device__ __forceinline__ void load8(const float* p, float* x) {
   const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
   x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* x) {
-  *reinterpret_cast<uint4*>(p) = ac::pack8(x);
 }
 __device__ __forceinline__ void store8(float* p, const float* x) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = ac::pack_bf16(a, b);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -156,12 +158,7 @@ __device__ __forceinline__ void tile_row_half(const unsigned char* tile, int r, 
 #pragma unroll
   for (int c = 0; c < 4; ++c) ac::unpack8(*reinterpret_cast<const uint4*>(tile + ac::swz<ROWB>(r, half * 4 + c)), x + 8 * c);
 }
-__device__ __forceinline__ float tile_at(const unsigned char* tile, int r, int c) {
-  const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(tile + ac::swz<ROWB>(r, c >> 3));
-  return __bfloat162float(p[c & 7]);
-}
-
-// The shared epilogue of `dkdv` and `dq`: acc (rows x 64, f32, two threads
+// The f32 keys kernel's epilogue: acc (rows x 64, f32, two threads
 // a row, half a row each) holds dt^ of `rows` rows starting at row0 of the
 // raw input t (strides t_s). Writes dt = r (w - u (u . w)), w = dt^ * sc,
 // into dst (row stride H * D), and leaves dt^ u in acc for the scale's sum.
@@ -214,61 +211,10 @@ __device__ __forceinline__ void column_sums(const float* acc, float* dst, float 
   }
 }
 
-// -- prep: q^, k^ and D ---------------------------------------------------------
-
-// eight threads a row, eight values each; rows 0 .. B n H - 1 are query
-// rows (q^ and D), the rest key rows (k^)
-template <typename TT>
-__global__ void __launch_bounds__(256)
-qknorm_bwd_prep(const TT* __restrict__ q, const TT* __restrict__ k, const TT* __restrict__ g,
-                const TT* __restrict__ out, const float* __restrict__ q_scale, const float* __restrict__ k_scale,
-                TT* __restrict__ qh, TT* __restrict__ kh, float* __restrict__ delta, int B, int n, int m, int H,
-                long long q_sb, long long q_sn, long long k_sb, long long k_sm, long long g_sb, long long g_sn,
-                float scale) {
-  const long long rows_q = (long long)B * n * H, rows = rows_q + (long long)B * m * H;
-  const long long row = blockIdx.x * 32ll + (threadIdx.x >> 3);
-  const int part = threadIdx.x & 7, lane = threadIdx.x & 31;
-  const unsigned mask = 0xffu << (lane & 24);
-  if (row >= rows) return;  // the eight lanes of a row leave together
-  float x[8], ss = 0.0f;
-  const bool is_q = row < rows_q;
-  const long long rr_ = is_q ? row : row - rows_q;
-  const int h = rr_ % H;
-  const long long bi = rr_ / H;  // b * len + i
-  const int len = is_q ? n : m;
-  const int b = bi / len, i = bi % len;
-  if (is_q)
-    load8(q + b * q_sb + i * q_sn + h * D + part * 8, x);
-  else
-    load8(k + b * k_sb + i * k_sm + h * D + part * 8, x);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) ss += x[e] * x[e];
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) ss += __shfl_xor_sync(mask, ss, o);
-  const float r = rsqrtf(ss + 1e-12f);
-  if (is_q) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = x[e] * r * (q_scale[part * 8 + e] * scale);
-    store8(qh + row * D + part * 8, x);
-    float gv[8], ov[8], dd = 0.0f;
-    load8(g + b * g_sb + i * g_sn + h * D + part * 8, gv);
-    load8(out + row * D + part * 8, ov);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dd += gv[e] * ov[e];
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) dd += __shfl_xor_sync(mask, dd, o);
-    if (part == 0) delta[((long long)b * H + h) * n + i] = dd;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = x[e] * r * k_scale[part * 8 + e];
-    store8(kh + rr_ * D + part * 8, x);
-  }
-}
-
 // the arguments every main kernel takes
 template <typename TT>
 struct Bwd {
-  const TT *g, *q, *k, *v, *out, *qh, *kh, *nk, *nv;
+  const TT *g, *q, *k, *v, *out, *nk, *nv;
   const float *lse, *q_scale, *k_scale, *bias;
   float* delta;  // D (B, H, n): the split routes' first kernel writes it
   TT *dq, *dk, *dv, *dnk, *dnv;
@@ -402,8 +348,8 @@ __device__ void reduce_partials(const Bwd<TT>& p, int h, int B, float* scratch) 
 // exchange with dv and dk, dq's epilogue, the partials' reduction. A part
 // ends where thread 0 gets there, so one that ends at a barrier holds its
 // wait for the other threads.
-#ifdef QKNORM_BWD_TIMING
 constexpr int CLOCK_SLOTS = 10;  // as `ops/attention.py` reads them
+#ifdef QKNORM_BWD_TIMING
 __device__ __forceinline__ long long global_ns() {
   long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -938,205 +884,287 @@ __global__ void __launch_bounds__(OP_NTH, 1) qknorm_bwd_onepass_bf16(const Bwd<_
 #endif
 }
 
-// -- bf16: dK and dV, key-stationary ------------------------------------------------
+// -- bf16, n > 256: two TMA pipelines, query-stationary then key-stationary --------------
 
-struct DkdvSmem {
-  static constexpr int K_OFF = 0, V_OFF = TILE;      // k^, v: resident
-  static constexpr int Q_OFF = 2 * TILE;             // [2] q^ tiles
-  static constexpr int G_OFF = 4 * TILE;             // [2] g tiles
-  static constexpr int LSE_OFF = 6 * TILE;           // [2][T] f32, LSE * log2(e)
-  static constexpr int DEL_OFF = LSE_OFF + 2 * T * 4;  // [2][T] f32
-  static constexpr int BYTES = DEL_OFF + 2 * T * 4;
+// Both kernels: a block owns 128 rows of one (batch, head), 64 to each of two
+// consumer warpgroups, and the first warp of a producer warpgroup streams
+// the other side's 64-row tiles through a four-stage ring by TMA (tensor
+// maps over the callers' strides; rows past n or m are zero-filled),
+// writing each tile's row terms beside it. Each streamed tile's first
+// operand is normalised in place (f32, rounded to bf16 into the swizzled
+// layout `wgmma` reads, as the forward does): in the keys kernel by the
+// producer warpgroup's next two warps, a row a thread, as the tile lands; in
+// the queries kernel by the consumers, four threads a row, while the last
+// tile's dQ^ product runs (measured faster that way round for each kernel,
+// PERF.md). Stage s has three mbarriers: full (the copies and the row
+// terms), ready (normalised) and empty (both warpgroups done with it), so a
+// warpgroup waits for the other only through the ring. The consumers read
+// S and dP from shared memory and keep one `wgmma` group in flight: a
+// tile's exponentials run under its dP product, its dS under the dV
+// product.
+constexpr int SP_WGS = 2;                      // consumer warpgroups
+constexpr int SP_ROWS = 64 * SP_WGS;           // rows (queries or keys) a block owns
+constexpr int SP_STAGES = 4;                   // ring depth
+constexpr int SP_CONSUMERS = 128 * SP_WGS;
+constexpr int SP_THREADS = SP_CONSUMERS + 128;  // and the producer warpgroup
+// `setmaxnreg` hands the producers' registers to the consumers: 168 a
+// thread at launch (each SM sub-partition's 16384 registers over its three
+// warps), 72 for the producers and 216 for the consumers after
+constexpr int SP_PRODUCER_REGS = 72, SP_CONSUMER_REGS = 216;
+constexpr int SP_NORM = T;  // the keys kernel's normalising threads (producer warps 1 and 2): a row each
+static_assert(SP_CONSUMERS * SP_CONSUMER_REGS + 128 * SP_PRODUCER_REGS <= 168 * SP_THREADS, "the register file");
+
+struct SplitSmem {
+  static constexpr int RAW_OFF = 0;                          // [2] the block's rows as given: raw q or raw k
+  static constexpr int HAT_OFF = RAW_OFF + SP_WGS * TILE;    // [2] the same normalised: q^ or k^
+  static constexpr int SEC_OFF = HAT_OFF + SP_WGS * TILE;    // [2] g or v
+  static constexpr int RING_OFF = SEC_OFF + SP_WGS * TILE;   // [stage] the streamed tile pair
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int SVEC_OFF = RING_OFF + SP_STAGES * STAGE;  // [stage][2][T] f32: the tile's row terms
+  static constexpr int VEC_OFF = SVEC_OFF + SP_STAGES * 2 * T * 4;
+  // f32: four vectors of the block's rows, qsc, ksc, nkh, nvs [D], three [8][D] reduction rows
+  static constexpr int NVEC = 4 * SP_ROWS + 4 * D + 3 * 8 * D;
+  static constexpr int BAR_OFF = VEC_OFF + NVEC * 4;  // full, ready, empty [stage]; the resident tiles
+  static constexpr int BYTES = BAR_OFF + (3 * SP_STAGES + 1) * 8;
   static constexpr int ALLOC = BYTES + 1024;
-  static_assert(2 * TILE * 2 >= T * EP * 4, "the epilogue tile reuses the q^ and g stages");
 };
 
-__global__ void __launch_bounds__(NTH, 2) qknorm_bwd_dkdv_bf16(const Bwd<__nv_bfloat16> p) {
-  using L = DkdvSmem;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (ac::smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t sbase = ac::smem_u32(smem);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int key0 = kt * T, keys = min(T, p.m - key0);
-  const int nqt = (p.n + T - 1) / T;
-  const long long hd = (long long)p.H * D;
-
-  const __nv_bfloat16* qh = p.qh + (long long)b * p.n * hd + h * D;
-  const __nv_bfloat16* g = p.g + b * p.g_sb + h * D;
-  const float* lse = p.lse + ((long long)b * p.H + h) * p.n;
-  const float* del = p.delta + ((long long)b * p.H + h) * p.n;
-  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
-  float* del_s = reinterpret_cast<float*>(smem + L::DEL_OFF);
-
-  auto load_q_tile = [&](int i) {
-    const int s = i & 1, q0 = i * T, rows = min(T, p.n - q0);
-    tile_async(sbase + L::Q_OFF + s * TILE, qh + q0 * hd, hd, rows, tid);
-    tile_async(sbase + L::G_OFF + s * TILE, g + q0 * p.g_sn, p.g_sn, rows, tid);
-    if (tid < T) {
-      const bool ok = tid < rows;
-      lse_s[s * T + tid] = ok ? lse[q0 + tid] * LOG2E : INFINITY;
-      del_s[s * T + tid] = ok ? del[q0 + tid] : 0.0f;
-    }
-  };
-
-  tile_async(sbase + L::K_OFF, p.kh + ((long long)b * p.m + key0) * hd + h * D, hd, keys, tid);
-  tile_async(sbase + L::V_OFF, p.v + b * p.v_sb + key0 * p.v_sm + h * D, p.v_sm, keys, tid);
-  load_q_tile(0);
-  cp_commit();
-
-  // accumulator fragment: rows (keys) rw, rw + 8; columns 8 j + 2 t + {0, 1}
-  const int gq = lane >> 2, t = lane & 3;
-  const int rw = warp * 16 + gq;
-  float kb2[2];
-#pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int key = key0 + rw + 8 * ii;
-    kb2[ii] = key < p.m ? (p.bias ? p.bias[(long long)b * p.m + key] : 0.0f) * LOG2E : -INFINITY;
-  }
-  float dv[32], dk[32];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) dv[e] = dk[e] = 0.0f;
-
-  const uint32_t kaddr = sbase + L::K_OFF, vaddr = sbase + L::V_OFF;
-  for (int i = 0; i < nqt; ++i) {
-    const int s = i & 1;
-    if (i + 1 < nqt) {
-      load_q_tile(i + 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    ac::fence_async_smem();
-    __syncthreads();
-    const uint32_t qaddr = sbase + L::Q_OFF + s * TILE, gaddr = sbase + L::G_OFF + s * TILE;
-
-    // S^T = k^ q^T and dP^T = v g^T (64 keys x 64 queries)
-    float sc[32], dp[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
-    ac::fence_operands(sc);
-    ac::fence_operands(dp);
-    ac::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ac::wgmma_ss_n64(sc, ac::desc_kmajor<ROWB>(kaddr + kk * 32), ac::desc_kmajor<ROWB>(qaddr + kk * 32), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ac::wgmma_ss_n64(dp, ac::desc_kmajor<ROWB>(vaddr + kk * 32), ac::desc_kmajor<ROWB>(gaddr + kk * 32), kk > 0);
-    ac::wgmma_commit();
-    ac::wgmma_wait_all();
-    ac::fence_operands(sc);
-    ac::fence_operands(dp);
-
-    // P^T = exp(S^T + bias - LSE), dS^T = P^T (dP^T - D)
-    const float* ls = lse_s + s * T;
-    const float* ds_ = del_s + s * T;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        const float pe = exp2f(fmaf(sc[4 * j + e], LOG2E, kb2[e >> 1]) - ls[col]);
-        sc[4 * j + e] = pe;
-        dp[4 * j + e] = pe * (dp[4 * j + e] - ds_[col]);
-      }
-    }
-    uint32_t pa[4][4], da[4][4];
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        pa[kc][e] = ac::pack_bf16(sc[8 * kc + 2 * e], sc[8 * kc + 2 * e + 1]);
-        da[kc][e] = ac::pack_bf16(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1]);
-      }
-    }
-    // dV += P^T g, dK^ += dS^T q^ (B MN-major: 16 query rows a step)
-    ac::fence_operands(dv);
-    ac::fence_operands(dk);
-    ac::wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) ac::wgmma_rs(dv, pa[kc], ac::desc_mnmajor<ROWB>(gaddr + kc * 16 * ROWB));
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) ac::wgmma_rs(dk, da[kc], ac::desc_mnmajor<ROWB>(qaddr + kc * 16 * ROWB));
-    ac::wgmma_commit();
-    ac::wgmma_wait_all();
-    ac::fence_operands(dv);
-    ac::fence_operands(dk);
-    __syncthreads();  // stage s is read; the next iteration's load may overwrite it
-  }
-
-  // dv as it is; dk^ through an f32 tile for k's norm and the k_scale partial
-  float* acc = reinterpret_cast<float*>(smem + L::Q_OFF);
-  __nv_bfloat16* dvp = p.dv + ((long long)b * p.m + key0) * hd + h * D;
-#pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int r = rw + 8 * ii;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * t;
-      if (r < keys) store2(dvp + r * hd + c, dv[4 * j + 2 * ii], dv[4 * j + 2 * ii + 1]);
-      acc[r * EP + c] = dk[4 * j + 2 * ii];
-      acc[r * EP + c + 1] = dk[4 * j + 2 * ii + 1];
-    }
-  }
-  __syncthreads();
-  norm_chain_rows(acc, p.k + b * p.k_sb + key0 * p.k_sm + h * D, p.k_sm, keys, p.k_scale,
-                  p.dk + ((long long)b * p.m + key0) * hd + h * D, hd, tid, NTH);
-  __syncthreads();
-  column_sums(acc, p.dks_part + (((long long)b * gridDim.x + kt) * p.H + h) * D, 1.0f, tid);
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// -- bf16: dQ, query-stationary, and the null column ----------------------------------
+// d (64 x 64, f32) (+)= A (64 x 16, bf16 registers) B (16 x 64, smem, MN-major); d is
+// overwritten where !accumulate
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
 
-struct DqSmem {
-  static constexpr int Q_OFF = 0, G_OFF = TILE;       // q^, g: resident
-  static constexpr int K_OFF = 2 * TILE;              // [2] k^ tiles
-  static constexpr int V_OFF = 4 * TILE;              // [2] v tiles
-  static constexpr int BIAS_OFF = 6 * TILE;           // [2][T] f32, bias * log2(e)
-  static constexpr int VEC_OFF = BIAS_OFF + 2 * T * 4;  // nk^, nv, q_scale * scale [D]; P_0, dS_0 [T]
-  static constexpr int BYTES = VEC_OFF + (3 * D + 2 * T) * 4;
-  static constexpr int ALLOC = BYTES + 1024;
-  static_assert(4 * TILE >= T * EP * 4, "the epilogue tile reuses the k^ and v stages");
+// keep A fragments live (in their registers) until a `wgmma` that reads them has retired
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the ring's barriers
+struct SplitRing {
+  uint32_t full0, ready0, empty0, res;
+  __device__ __forceinline__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ __forceinline__ uint32_t ready(int s) const { return ready0 + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return empty0 + 8 * s; }
 };
 
-__global__ void __launch_bounds__(NTH, 2) qknorm_bwd_dq_bf16(const Bwd<__nv_bfloat16> p) {
-  using L = DqSmem;
+__device__ __forceinline__ SplitRing split_ring(uint32_t sbase) {
+  const uint32_t b0 = sbase + SplitSmem::BAR_OFF;
+  return {b0, b0 + 8 * SP_STAGES, b0 + 16 * SP_STAGES, b0 + 24 * SP_STAGES};
+}
+
+__device__ __forceinline__ void split_init(const SplitRing& ring, int readies) {
+#pragma unroll
+  for (int s = 0; s < SP_STAGES; ++s) {
+    ac::mbar_init(ring.full(s), 32);                  // every lane of the loading warp
+    ac::mbar_init(ring.ready(s), readies);            // every thread that normalises
+    ac::mbar_init(ring.empty(s), SP_CONSUMERS / 32);  // lane 0 of every consumer warp
+  }
+  ac::mbar_init(ring.res, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer warp: the block's two resident tile pairs (rows row0, row0 +
+// 64 of maps ra and rb), then `tiles` streamed pairs (maps sa, sb); `terms(s,
+// j)` writes stage s's row terms for tile j, each lane a share, before the
+// lane arrives on the stage's full barrier.
+template <typename Terms>
+__device__ __forceinline__ void split_loads(const SplitRing& ring, uint32_t sbase, const CUtensorMap* ra,
+                                            const CUtensorMap* rb, const CUtensorMap* sa, const CUtensorMap* sb,
+                                            int c0, int c2, int row0, int tiles, int lane, Terms terms) {
+  if (lane == 0) {
+    ac::mbar_arrive_tx(ring.res, 2 * SP_WGS * TILE);
+#pragma unroll
+    for (int w = 0; w < SP_WGS; ++w) {
+      ac::tma_load_3d(sbase + SplitSmem::RAW_OFF + w * TILE, ra, ring.res, c0, row0 + 64 * w, c2);
+      ac::tma_load_3d(sbase + SplitSmem::SEC_OFF + w * TILE, rb, ring.res, c0, row0 + 64 * w, c2);
+    }
+  }
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % SP_STAGES;
+    ac::mbar_wait(ring.empty(s), ((j / SP_STAGES) & 1) ^ 1);
+    terms(s, j);
+    if (lane == 0) {
+      const uint32_t dst = sbase + SplitSmem::RING_OFF + s * SplitSmem::STAGE;
+      ac::mbar_arrive_tx(ring.full(s), SplitSmem::STAGE);
+      ac::tma_load_3d(dst, sa, ring.full(s), c0, j * T, c2);
+      ac::tma_load_3d(dst + TILE, sb, ring.full(s), c0, j * T, c2);
+    } else {
+      ac::mbar_arrive(ring.full(s));
+    }
+  }
+}
+
+// The normalising threads: row nt of each streamed tile's first operand,
+// t^ = t / |t| sc in place as the tile lands (the row's eight 16-byte
+// chunks in flight at once), then the stage's ready barrier.
+__device__ __forceinline__ void split_normalise(const SplitRing& ring, unsigned char* smem, const float* sc,
+                                                int tiles, int nt) {
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % SP_STAGES;
+    ac::mbar_wait(ring.full(s), (j / SP_STAGES) & 1);
+    unsigned char* row = smem + SplitSmem::RING_OFF + s * SplitSmem::STAGE + nt * ROWB;
+    uint4 raw[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) raw[c] = *reinterpret_cast<const uint4*>(row + ((c ^ (nt & 7)) << 4));
+    float part[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float x[8];
+      ac::unpack8(raw[c], x);
+      part[c] = ((x[0] * x[0] + x[1] * x[1]) + (x[2] * x[2] + x[3] * x[3])) +
+                ((x[4] * x[4] + x[5] * x[5]) + (x[6] * x[6] + x[7] * x[7]));
+    }
+    const float rr = rsqrtf(((part[0] + part[1]) + (part[2] + part[3])) + ((part[4] + part[5]) + (part[6] + part[7])) + 1e-12f);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float x[8];
+      ac::unpack8(raw[c], x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = x[e] * rr * sc[8 * c + e];
+      *reinterpret_cast<uint4*>(row + ((c ^ (nt & 7)) << 4)) = ac::pack8(x);
+    }
+    ac::fence_async_smem();
+    ac::mbar_arrive(ring.ready(s));
+  }
+}
+
+// A consumer's share of streamed tile j (the queries kernel: its
+// consumers normalise k^ while a tile's dQ^ product runs): a quarter of row
+// ctid / 4, t^ = t / |t| sc in place once the tile has landed; then the
+// stage's ready barrier.
+__device__ __forceinline__ void normalise_share(const SplitRing& ring, unsigned char* smem, const float* sc, int j,
+                                                int ctid) {
+  const int s = j % SP_STAGES, r = ctid >> 2, part = ctid & 3;
+  ac::mbar_wait(ring.full(s), (j / SP_STAGES) & 1);
+  unsigned char* tile = smem + SplitSmem::RING_OFF + s * SplitSmem::STAGE;
+  uint4* a0 = reinterpret_cast<uint4*>(tile + ac::swz<ROWB>(r, 2 * part));
+  uint4* a1 = reinterpret_cast<uint4*>(tile + ac::swz<ROWB>(r, 2 * part + 1));
+  float x[16], sq[8];
+  ac::unpack8(*a0, x);
+  ac::unpack8(*a1, x + 8);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sq[e] = x[2 * e] * x[2 * e] + x[2 * e + 1] * x[2 * e + 1];
+  float ss = ((sq[0] + sq[1]) + (sq[2] + sq[3])) + ((sq[4] + sq[5]) + (sq[6] + sq[7]));
+  ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+  ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+  const float rr = rsqrtf(ss + 1e-12f);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) x[e] = x[e] * rr * sc[part * 16 + e];
+  *a0 = ac::pack8(x);
+  *a1 = ac::pack8(x + 8);
+  ac::fence_async_smem();
+  ac::mbar_arrive(ring.ready(s));
+}
+
+// Built with -DQKNORM_BWD_TIMING, each split-route block leaves its start and
+// end on the global timer (ns), its SM, and the SM clocks its thread 0
+// (warpgroup 0) spent in each part: prologue, ready waits, products,
+// exponentials and dS, epilogue, and (queries kernel) its share of
+// normalising the next tile, its full wait included.
+#ifdef QKNORM_BWD_TIMING
+#define SP_TICK(slot)                  \
+  do {                                 \
+    if (tid == 0) {                    \
+      const long long now = clock64(); \
+      clk[slot] += now - clk_t;        \
+      clk_t = now;                     \
+    }                                  \
+  } while (0)
+#define SP_TIMER_START()                                  \
+  long long clk[CLOCK_SLOTS] = {}, clk_t = clock64();     \
+  if (tid == 0) {                                         \
+    unsigned sm;                                          \
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));       \
+    clk[0] = global_ns();                                 \
+    clk[2] = sm;                                          \
+  }
+#define SP_TIMER_END()                                                                                  \
+  if (tid == 0) {                                                                                       \
+    clk[1] = global_ns();                                                                               \
+    long long* row = p.clocks + (((long long)b * gridDim.y + h) * gridDim.x + blockIdx.x) * CLOCK_SLOTS; \
+    for (int i = 0; i < CLOCK_SLOTS; ++i) row[i] = clk[i];                                              \
+  }
+#else
+#define SP_TICK(slot) \
+  do {                \
+  } while (0)
+#define SP_TIMER_START()
+#define SP_TIMER_END()
+#endif
+
+// Query-stationary, launched first: a block per (128 queries, head, batch).
+// Its prologue takes q^ (rounded where the forward rounds it), D = g . out
+// (written for the keys kernel), the null column (s0 from the rounded q^,
+// P_0, dS_0) and the block's d nv / d nk^ rows. Then per key tile (k^
+// normalised in place): S = q^ k^T and dP = g v^T from shared memory, P
+// and dS in registers, dQ^ += dS k^ with dS as the A fragment.
+// The epilogue adds dS_0 nk^, applies q's norm (raw q stays resident) and
+// writes dq 16 bytes a thread and the block's d q_scale row.
+__global__ void __launch_bounds__(SP_THREADS, 1)
+qknorm_bwd_queries_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_g,
+                        const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                        const Bwd<__nv_bfloat16> p) {
+  using L = SplitSmem;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (ac::smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = ac::smem_u32(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * T, rows = min(T, p.n - q0);
-  const int nkt = (p.m + T - 1) / T;
-  const long long hd = (long long)p.H * D;
-  float* bias_s = reinterpret_cast<float*>(smem + L::BIAS_OFF);
-  float* nkh = reinterpret_cast<float*>(smem + L::VEC_OFF);
+  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z, n = p.n, m = p.m;
+  const int q0 = qb * SP_ROWS, nkt = (m + T - 1) / T;
+  const long long hd = (long long)p.H * D, bh = (long long)b * p.H + h;
+  float* svec = reinterpret_cast<float*>(smem + L::SVEC_OFF);  // [stage][2][T]: the key tile's bias * log2e
+  float* lse2 = reinterpret_cast<float*>(smem + L::VEC_OFF);   // [SP_ROWS] LSE * log2e, +inf past n
+  float* del = lse2 + SP_ROWS;                                 // D
+  float* ds0 = del + SP_ROWS;                                  // dS_0
+  float* rq = ds0 + SP_ROWS;                                   // 1 / |q|
+  float* qsc = rq + SP_ROWS;
+  float* ksc = qsc + D;
+  float* nkh = ksc + D;
   float* nvs = nkh + D;
-  float* qsc = nvs + D;
-  float* p0s = qsc + D;
-  float* ds0s = p0s + T;
+  float* red_a = nvs + D;  // [8][D] d nv, d nk^ and d q_scale rows by warp
+  float* red_b = red_a + 8 * D;
+  float* red_c = red_b + 8 * D;
+  const SplitRing ring = split_ring(sbase);
 
-  const __nv_bfloat16* kh = p.kh + (long long)b * p.m * hd + h * D;
-  const __nv_bfloat16* v = p.v + b * p.v_sb + h * D;
-  const float* brow = p.bias ? p.bias + (long long)b * p.m : nullptr;
-  auto load_k_tile = [&](int i) {
-    const int s = i & 1, k0 = i * T, keys = min(T, p.m - k0);
-    tile_async(sbase + L::K_OFF + s * TILE, kh + k0 * hd, hd, keys, tid);
-    tile_async(sbase + L::V_OFF + s * TILE, v + k0 * p.v_sm, p.v_sm, keys, tid);
-    if (tid < T) bias_s[s * T + tid] = tid < keys ? (brow ? brow[k0 + tid] : 0.0f) * LOG2E : -INFINITY;
-  };
-
-  tile_async(sbase + L::Q_OFF, p.qh + ((long long)b * p.n + q0) * hd + h * D, hd, rows, tid);
-  tile_async(sbase + L::G_OFF, p.g + b * p.g_sb + q0 * p.g_sn + h * D, p.g_sn, rows, tid);
-  cp_commit();
-  if (nkt > 0) {
-    load_k_tile(0);
-    cp_commit();
+  if (tid == 0) split_init(ring, SP_CONSUMERS);
+  if (tid < D) {
+    qsc[tid] = p.q_scale[tid] * p.scale;
+    ksc[tid] = p.k_scale[tid];
   }
-  if (tid < D) qsc[tid] = p.q_scale[tid] * p.scale;
-  if (warp == 0) {  // the null key, normalised and scaled in f32, as the forward does
+  if (warp == 1) {  // the null key, normalised and scaled in f32, as the forward does
     const float a0 = __bfloat162float(p.nk[h * D + lane]), a1 = __bfloat162float(p.nk[h * D + lane + 32]);
     const float r = rsqrtf(warp_sum(a0 * a0 + a1 * a1) + 1e-12f);
     nkh[lane] = a0 * r * p.k_scale[lane];
@@ -1144,136 +1172,493 @@ __global__ void __launch_bounds__(NTH, 2) qknorm_bwd_dq_bf16(const Bwd<__nv_bflo
     nvs[lane] = __bfloat162float(p.nv[h * D + lane]);
     nvs[lane + 32] = __bfloat162float(p.nv[h * D + lane + 32]);
   }
-  if (nkt > 0)
-    cp_wait<1>();
-  else
-    cp_wait<0>();
-  ac::fence_async_smem();
   __syncthreads();
 
-  // the null column of each row: two threads a row
-  const float* lse = p.lse + ((long long)b * p.H + h) * p.n + q0;
-  const float* del = p.delta + ((long long)b * p.H + h) * p.n + q0;
+  if (warp >= SP_CONSUMERS / 32) {  // the producer warpgroup: its first warp loads
+    regs_dec<SP_PRODUCER_REGS>();
+    if (warp == SP_CONSUMERS / 32) {
+      const float* brow = p.bias ? p.bias + (long long)b * m : nullptr;
+      split_loads(ring, sbase, &tm_q, &tm_g, &tm_k, &tm_v, h * D, b, q0, nkt, lane, [&](int s, int j) {
+        float* kb = svec + s * 2 * T;
+        for (int c = lane; c < T; c += 32) {
+          const int key = j * T + c;
+          kb[c] = key < m ? (brow ? brow[key] * LOG2E : 0.0f) : -INFINITY;
+        }
+      });
+    }
+    return;
+  }
+
+  regs_inc<SP_CONSUMER_REGS>();
+  SP_TIMER_START();
+  const int wg = warp >> 2, wt = tid & 127;
+  const int gq = lane >> 2, t = lane & 3, rw = (warp & 3) * 16 + gq;  // accumulator rows rw, rw + 8
+  const int r0 = q0 + wg * 64;                                          // this warpgroup's first query
+  unsigned char* qr_t = smem + L::RAW_OFF + wg * TILE;
+  unsigned char* qh_t = smem + L::HAT_OFF + wg * TILE;
+  unsigned char* g_t = smem + L::SEC_OFF + wg * TILE;
+
+  // -- prologue, two threads a row: q^, D, the null column, this warp's d nv / d nk^ sums
   {
-    const int r = tid >> 1, half = tid & 1;
-    float qv[32], gv[32];
-    tile_row_half(smem + L::Q_OFF, r, half, qv);
-    tile_row_half(smem + L::G_OFF, r, half, gv);
-    float s0 = 0.0f, dp0 = 0.0f;
+    const int r = wt >> 1, half = wt & 1, qi = r0 + r, row = wg * 64 + r;
+    const bool ok = qi < n;
+    // the forward's output and LSE of this row, read while the resident tiles land
+    uint4 ou[4] = {};
+    const float lse_r = ok ? p.lse[bh * n + qi] : 0.0f;
+    if (ok) {
+      const uint4* o = reinterpret_cast<const uint4*>(p.out + ((long long)b * n + qi) * hd + h * D + half * 32);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ou[c] = o[c];
+    }
+    ac::mbar_wait(ring.res, 0);
+    float x[32], gv[32], ov[32];
+    tile_row_half(qr_t, r, half, x);
+    tile_row_half(g_t, r, half, gv);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ac::unpack8(ou[c], ov + 8 * c);
+    float ss = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) ss += x[e] * x[e];
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    const float rr_q = rsqrtf(ss + 1e-12f);
+    float s0 = 0.0f, dp0 = 0.0f, dd = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = x[8 * c + e] * rr_q * qsc[half * 32 + 8 * c + e];
+      const uint4 u = ac::pack8(y);
+      *reinterpret_cast<uint4*>(qh_t + ac::swz<ROWB>(r, half * 4 + c)) = u;
+      ac::unpack8(u, x + 8 * c);  // x now holds the rounded q^
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s0 += x[8 * c + e] * nkh[half * 32 + 8 * c + e];
+    }
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
-      s0 += qv[e] * nkh[half * 32 + e];
       dp0 += gv[e] * nvs[half * 32 + e];
+      dd += gv[e] * ov[e];
     }
     s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
     dp0 += __shfl_xor_sync(0xffffffffu, dp0, 1);
+    dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+    const float l2 = ok ? lse_r * LOG2E : INFINITY;
+    const float p0 = ok ? exp2f(s0 * LOG2E - l2) : 0.0f;
+    const float d0 = ok ? p0 * (dp0 - dd) : 0.0f;
     if (half == 0) {
-      const bool ok = r < rows;
-      const float p0 = ok ? exp2f(s0 * LOG2E - lse[r] * LOG2E) : 0.0f;
-      p0s[r] = p0;
-      ds0s[r] = ok ? p0 * (dp0 - del[r]) : 0.0f;
+      lse2[row] = l2;
+      del[row] = ok ? dd : 0.0f;
+      ds0[row] = d0;
+      rq[row] = rr_q;
+      if (ok) p.delta[bh * n + qi] = dd;
     }
-  }
-  __syncthreads();
-  {  // d nv and d nk^ partials of this block: sum over its rows, in row order
-    const int c = tid & (D - 1);
-    const bool is_nv = tid < D;
-    const float* w = is_nv ? p0s : ds0s;
-    const unsigned char* tile = smem + (is_nv ? L::G_OFF : L::Q_OFF);
-    float s = 0.0f;
-    for (int r = 0; r < T; ++r) s += w[r] * tile_at(tile, r, c);
-    float* dst = is_nv ? p.dnv_part : p.dnk_part;
-    dst[(((long long)b * gridDim.x + qt) * p.H + h) * D + c] = s;
-  }
-
-  // accumulator fragment: rows (queries) rw, rw + 8; columns 8 j + 2 t + {0, 1}
-  const int gq = lane >> 2, t = lane & 3;
-  const int rw = warp * 16 + gq;
-  float lse2[2], dl[2];
+    float anv[32], ank[32];
 #pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int r = rw + 8 * ii;
-    lse2[ii] = r < rows ? lse[r] * LOG2E : INFINITY;
-    dl[ii] = r < rows ? del[r] : 0.0f;
+    for (int e = 0; e < 32; ++e) {
+      anv[e] = p0 * gv[e];
+      ank[e] = d0 * x[e];
+    }
+    // over the 16 lanes of one half (each lane keeps two columns' sums)
+    reduce_scatter32(anv, lane);
+    reduce_scatter32(ank, lane);
+    const int col = half * 32 + (lane & 30);
+    red_a[warp * D + col] = anv[0];
+    red_a[warp * D + col + 1] = anv[1];
+    red_b[warp * D + col] = ank[0];
+    red_b[warp * D + col + 1] = ank[1];
+    ac::fence_async_smem();  // q^ for wgmma
+    ac::named_barrier(1 + wg, 128);
   }
+  if (nkt > 0) normalise_share(ring, smem, ksc, 0, tid);  // the first key tile's k^
+  SP_TICK(3);
+
+  // -- the key tiles
+  const float l2r[2] = {lse2[wg * 64 + rw], lse2[wg * 64 + rw + 8]};
+  const float dlr[2] = {del[wg * 64 + rw], del[wg * 64 + rw + 8]};
   float dq[32];
+  uint32_t da[4][4];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) dq[e] = 0.0f;
-  const uint32_t qaddr = sbase + L::Q_OFF, gaddr = sbase + L::G_OFF;
-
-  for (int i = 0; i < nkt; ++i) {
-    const int s = i & 1;
-    cp_wait<0>();  // tile i, the one group in flight
-    ac::fence_async_smem();
-    __syncthreads();
-    if (i + 1 < nkt) {  // into the stage of tile i - 1, released by the barrier at its end
-      load_k_tile(i + 1);
-      cp_commit();
-    }
-    const uint32_t kaddr = sbase + L::K_OFF + s * TILE, vaddr = sbase + L::V_OFF + s * TILE;
-
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) da[kc][e] = 0u;
+  for (int j = 0; j < nkt; ++j) {
+    const int s = j % SP_STAGES;
+    ac::mbar_wait(ring.ready(s), (j / SP_STAGES) & 1);
+    SP_TICK(4);
+    const uint32_t k_a = sbase + L::RING_OFF + s * L::STAGE, v_a = k_a + TILE;
+    const uint32_t qh_a = sbase + L::HAT_OFF + wg * TILE, g_a = sbase + L::SEC_OFF + wg * TILE;
+    // S = q^ k^T, then dP = g v^T (64 queries x 64 keys), two groups; the first k step overwrites
     float sc[32], dp[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.0f;
     ac::fence_operands(sc);
     ac::fence_operands(dp);
     ac::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      ac::wgmma_ss_n64(sc, ac::desc_kmajor<ROWB>(qaddr + kk * 32), ac::desc_kmajor<ROWB>(kaddr + kk * 32), kk > 0);
+      ac::wgmma_ss_n64(sc, ac::desc_kmajor<ROWB>(qh_a + kk * 32), ac::desc_kmajor<ROWB>(k_a + kk * 32), kk > 0);
+    ac::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      ac::wgmma_ss_n64(dp, ac::desc_kmajor<ROWB>(gaddr + kk * 32), ac::desc_kmajor<ROWB>(vaddr + kk * 32), kk > 0);
+      ac::wgmma_ss_n64(dp, ac::desc_kmajor<ROWB>(g_a + kk * 32), ac::desc_kmajor<ROWB>(v_a + kk * 32), kk > 0);
     ac::wgmma_commit();
-    ac::wgmma_wait_all();
+    wgmma_wait<1>();  // S, and the last tile's dQ^ product: its stage is free
     ac::fence_operands(sc);
-    ac::fence_operands(dp);
-
-    const float* bs = bias_s + s * T;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        const float pe = exp2f(fmaf(sc[4 * j + e], LOG2E, bs[col]) - lse2[e >> 1]);
-        dp[4 * j + e] = pe * (dp[4 * j + e] - dl[e >> 1]);
-      }
+    fence_frags(da);
+    SP_TICK(5);
+    if (j > 0) {
+      __syncwarp();
+      if (lane == 0) ac::mbar_arrive(ring.empty((j - 1) % SP_STAGES));
     }
-    uint32_t da[4][4];
+    // P = exp(S + bias - LSE), while dP is multiplied
+    const float* kb = svec + s * 2 * T;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 bb = *reinterpret_cast<const float2*>(kb + 8 * jj + 2 * t);  // columns 8 jj + 2 t, + 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * jj + e] = ex2(fmaf(sc[4 * jj + e], LOG2E, (e & 1) ? bb.y : bb.x) - l2r[e >> 1]);
+    }
+    SP_TICK(6);
+    wgmma_wait<0>();
+    ac::fence_operands(dp);
+    SP_TICK(5);
+    // dS = P (dP - D), rounded to bf16 as the A fragment of dQ^ += dS k^ (B MN-major)
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) da[kc][e] = ac::pack_bf16(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1]);
+      for (int e = 0; e < 4; ++e) {
+        const int i0 = 8 * kc + 2 * e;  // rows rw (e even) or rw + 8 (e odd)
+        da[kc][e] = ac::pack_bf16(sc[i0] * (dp[i0] - dlr[e & 1]), sc[i0 + 1] * (dp[i0 + 1] - dlr[e & 1]));
+      }
     }
-    // dQ^ += dS k^ (B MN-major: 16 key rows a step)
+    SP_TICK(6);
     ac::fence_operands(dq);
     ac::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) ac::wgmma_rs(dq, da[kc], ac::desc_mnmajor<ROWB>(kaddr + kc * 16 * ROWB));
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs(dq, da[kc], ac::desc_mnmajor<ROWB>(k_a + kc * 16 * ROWB), j > 0 || kc > 0);
     ac::wgmma_commit();
-    ac::wgmma_wait_all();
-    ac::fence_operands(dq);
-    __syncthreads();  // stage s is read
+    SP_TICK(5);
+    if (j + 1 < nkt) normalise_share(ring, smem, ksc, j + 1, tid);  // the next tile's k^, under the dQ^ product
+    SP_TICK(8);
   }
+  wgmma_wait<0>();
+  ac::fence_operands(dq);
+  fence_frags(da);
+  if (nkt == 0) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[e] = 0.0f;
+  }
+  SP_TICK(5);
 
-  // dq^ += dS_0 nk^, then q's norm and the q_scale partial through an f32 tile
-  float* acc = reinterpret_cast<float*>(smem + L::K_OFF);
+  // -- epilogue: dq^ += dS_0 nk^, q's norm, dq staged in the g tile; this warp's d q_scale sums
+  ac::named_barrier(1 + wg, 128);  // every warp's products have retired: g may be overwritten
+  {
+    float cs[16];
 #pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int r = rw + 8 * ii;
-    const float d0 = ds0s[r];
+    for (int e = 0; e < 16; ++e) cs[e] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * t;
-      acc[r * EP + c] = fmaf(d0, nkh[c], dq[4 * j + 2 * ii]);
-      acc[r * EP + c + 1] = fmaf(d0, nkh[c + 1], dq[4 * j + 2 * ii + 1]);
+    for (int ii = 0; ii < 2; ++ii) {
+      const int rr = rw + 8 * ii, row = wg * 64 + rr;
+      const float d0 = ds0[row], rr_q = rq[row];
+      float uq[16], w[16], uw = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 qv =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr_t + ac::swz<ROWB>(rr, jj) + 4 * t));
+        const int e0 = 4 * jj + 2 * ii, c = 8 * jj + 2 * t;
+        const float g0 = fmaf(d0, nkh[c], dq[e0]), g1 = fmaf(d0, nkh[c + 1], dq[e0 + 1]);
+        uq[2 * jj] = qv.x * rr_q;
+        uq[2 * jj + 1] = qv.y * rr_q;
+        w[2 * jj] = g0 * qsc[c];
+        w[2 * jj + 1] = g1 * qsc[c + 1];
+        uw += uq[2 * jj] * w[2 * jj] + uq[2 * jj + 1] * w[2 * jj + 1];
+        cs[2 * jj] = fmaf(g0, uq[2 * jj], cs[2 * jj]);
+        cs[2 * jj + 1] = fmaf(g1, uq[2 * jj + 1], cs[2 * jj + 1]);
+      }
+      uw += __shfl_xor_sync(0xffffffffu, uw, 1);
+      uw += __shfl_xor_sync(0xffffffffu, uw, 2);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        *reinterpret_cast<uint32_t*>(g_t + ac::swz<ROWB>(rr, jj) + 4 * t) =
+            ac::pack_bf16(rr_q * (w[2 * jj] - uq[2 * jj] * uw), rr_q * (w[2 * jj + 1] - uq[2 * jj + 1] * uw));
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
+    }
+    if (lane < 4) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        red_c[warp * D + 8 * jj + 2 * t] = cs[2 * jj];
+        red_c[warp * D + 8 * jj + 2 * t + 1] = cs[2 * jj + 1];
+      }
     }
   }
+  ac::named_barrier(1 + wg, 128);
+#pragma unroll
+  for (int it = 0; it < T * 8 / 128; ++it) {
+    const int c = wt + it * 128, r = c >> 3, ch = c & 7, qi = r0 + r;
+    if (qi < n)
+      *reinterpret_cast<uint4*>(p.dq + ((long long)b * n + qi) * hd + h * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(g_t + ac::swz<ROWB>(r, ch));
+  }
+  // the block's rows of d nv, d nk^ and d q_scale: the warps' sums in order
+  ac::named_barrier(3, SP_CONSUMERS);
+  if (tid < 3 * D) {
+    const int a = tid / D, c = tid % D;
+    const float* src = a == 0 ? red_a : a == 1 ? red_b : red_c;
+    float sum = 0.0f;
+    for (int w = 0; w < SP_CONSUMERS / 32; ++w) sum += src[w * D + c];
+    float* dst = a == 0 ? p.dnv_part : a == 1 ? p.dnk_part : p.dqs_part;
+    dst[(((long long)b * gridDim.x + qb) * p.H + h) * D + c] = a == 2 ? sum * p.scale : sum;
+  }
+  SP_TICK(7);
+  SP_TIMER_END();
+}
+
+// Key-stationary, after the queries kernel (which wrote D): a block per (128
+// keys, head, batch). Its prologue normalises k (raw k stays resident for the
+// epilogue). Per query tile (q^ normalised in place, g, LSE and D beside
+// them): S^T = k^ q^T and dP^T = v g^T from shared memory, P^T and dS^T in
+// registers as the A fragments of dV += P^T g and dK^ += dS^T q^. The
+// epilogue writes dv, then dk through k's norm, each staged in the k^ tile
+// and written 16 bytes a thread, and the block's d k_scale row.
+__global__ void __launch_bounds__(SP_THREADS, 1)
+qknorm_bwd_keys_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_g,
+                     const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                     const Bwd<__nv_bfloat16> p) {
+  using L = SplitSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (ac::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = ac::smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kblk = blockIdx.x, h = blockIdx.y, b = blockIdx.z, n = p.n, m = p.m;
+  const int k0 = kblk * SP_ROWS, nqt = (n + T - 1) / T;
+  const long long hd = (long long)p.H * D, bh = (long long)b * p.H + h;
+  float* svec = reinterpret_cast<float*>(smem + L::SVEC_OFF);  // [stage]: LSE * log2e [T] (+inf past n), D [T]
+  float* kb = reinterpret_cast<float*>(smem + L::VEC_OFF);     // [SP_ROWS] key bias * log2e, -inf past m
+  float* rk = kb + SP_ROWS;                                    // 1 / |k|
+  float* qsc = rk + 3 * SP_ROWS;
+  float* ksc = qsc + D;
+  float* red_a = ksc + 3 * D;  // [8][D] d k_scale rows by warp
+  const SplitRing ring = split_ring(sbase);
+
+  if (tid == 0) split_init(ring, SP_NORM);
+  if (tid < D) {
+    qsc[tid] = p.q_scale[tid] * p.scale;
+    ksc[tid] = p.k_scale[tid];
+  }
   __syncthreads();
-  norm_chain_rows(acc, p.q + b * p.q_sb + q0 * p.q_sn + h * D, p.q_sn, rows, qsc,
-                  p.dq + ((long long)b * p.n + q0) * hd + h * D, hd, tid, NTH);
-  __syncthreads();
-  column_sums(acc, p.dqs_part + (((long long)b * gridDim.x + qt) * p.H + h) * D, p.scale, tid);
+
+  if (warp >= SP_CONSUMERS / 32) {  // the producer warpgroup: its first warp loads
+    regs_dec<SP_PRODUCER_REGS>();
+    if (warp == SP_CONSUMERS / 32) {
+      const float* lse = p.lse + bh * n;
+      const float* dl = p.delta + bh * n;
+      split_loads(ring, sbase, &tm_k, &tm_v, &tm_q, &tm_g, h * D, b, k0, nqt, lane, [&](int s, int j) {
+        float* sv = svec + s * 2 * T;
+        for (int c = lane; c < T; c += 32) {
+          const int qi = j * T + c;
+          const bool ok = qi < n;
+          sv[c] = ok ? lse[qi] * LOG2E : INFINITY;
+          sv[T + c] = ok ? dl[qi] : 0.0f;
+        }
+      });
+    } else if (warp <= SP_CONSUMERS / 32 + SP_NORM / 32) {
+      split_normalise(ring, smem, qsc, nqt, tid - SP_CONSUMERS - 32);
+    }
+    return;
+  }
+
+  regs_inc<SP_CONSUMER_REGS>();
+  SP_TIMER_START();
+  const int wg = warp >> 2, wt = tid & 127;
+  const int gq = lane >> 2, t = lane & 3, rw = (warp & 3) * 16 + gq;  // accumulator rows (keys) rw, rw + 8
+  const int kw0 = k0 + wg * 64;                                         // this warpgroup's first key
+  const unsigned char* kr_t = smem + L::RAW_OFF + wg * TILE;
+  unsigned char* kh_t = smem + L::HAT_OFF + wg * TILE;
+  ac::mbar_wait(ring.res, 0);
+  {  // k^ = k / |k| k_scale, rounded to bf16 as the forward rounds it: two threads a row
+    const int r = wt >> 1, half = wt & 1, key = kw0 + r;
+    float x[32];
+    tile_row_half(kr_t, r, half, x);
+    float ss = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) ss += x[e] * x[e];
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    const float rr_k = rsqrtf(ss + 1e-12f);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = x[8 * c + e] * rr_k * ksc[half * 32 + 8 * c + e];
+      *reinterpret_cast<uint4*>(kh_t + ac::swz<ROWB>(r, half * 4 + c)) = ac::pack8(y);
+    }
+    if (half == 0) {
+      rk[wg * 64 + r] = rr_k;
+      kb[wg * 64 + r] = key < m ? (p.bias ? p.bias[(long long)b * m + key] * LOG2E : 0.0f) : -INFINITY;
+    }
+    ac::fence_async_smem();  // k^ for wgmma
+    ac::named_barrier(1 + wg, 128);
+  }
+  SP_TICK(3);
+
+  const float kb2[2] = {kb[wg * 64 + rw], kb[wg * 64 + rw + 8]};
+  float dv[32], dk[32];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pa[kc][e] = da[kc][e] = 0u;
+  for (int i = 0; i < nqt; ++i) {
+    const int s = i % SP_STAGES;
+    ac::mbar_wait(ring.ready(s), (i / SP_STAGES) & 1);
+    SP_TICK(4);
+    const uint32_t q_a = sbase + L::RING_OFF + s * L::STAGE, g_a = q_a + TILE;
+    const uint32_t kh_a = sbase + L::HAT_OFF + wg * TILE, v_a = sbase + L::SEC_OFF + wg * TILE;
+    // S^T = k^ q^T, then dP^T = v g^T (64 keys x 64 queries), two groups; the first k step overwrites
+    float sc[32], dp[32];
+    ac::fence_operands(sc);
+    ac::fence_operands(dp);
+    ac::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ac::wgmma_ss_n64(sc, ac::desc_kmajor<ROWB>(kh_a + kk * 32), ac::desc_kmajor<ROWB>(q_a + kk * 32), kk > 0);
+    ac::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ac::wgmma_ss_n64(dp, ac::desc_kmajor<ROWB>(v_a + kk * 32), ac::desc_kmajor<ROWB>(g_a + kk * 32), kk > 0);
+    ac::wgmma_commit();
+    wgmma_wait<1>();  // S^T, and the last tile's dV and dK^ products: its stage is free
+    ac::fence_operands(sc);
+    fence_frags(pa);
+    fence_frags(da);
+    SP_TICK(5);
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) ac::mbar_arrive(ring.empty((i - 1) % SP_STAGES));
+    }
+    // P^T = exp(S^T + bias - LSE), rounded to bf16 as the A fragment of dV += P^T g (B MN-major)
+    const float* ls = svec + s * 2 * T;
+    const float* dl = ls + T;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 ll = *reinterpret_cast<const float2*>(ls + 8 * jj + 2 * t);  // columns 8 jj + 2 t, + 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * jj + e] = ex2(fmaf(sc[4 * jj + e], LOG2E, kb2[e >> 1]) - ((e & 1) ? ll.y : ll.x));
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kc][e] = ac::pack_bf16(sc[8 * kc + 2 * e], sc[8 * kc + 2 * e + 1]);
+    SP_TICK(6);
+    ac::fence_operands(dv);
+    ac::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs(dv, pa[kc], ac::desc_mnmajor<ROWB>(g_a + kc * 16 * ROWB), i > 0 || kc > 0);
+    ac::wgmma_commit();
+    SP_TICK(5);
+    wgmma_wait<1>();  // dP^T (dV may fly)
+    ac::fence_operands(dp);
+    SP_TICK(5);
+    // dS^T = P^T (dP^T - D), rounded to bf16 as the A fragment of dK^ += dS^T q^
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i0 = 8 * kc + 2 * e;
+        const float2 dd = *reinterpret_cast<const float2*>(dl + 16 * kc + 8 * (e >> 1) + 2 * t);
+        da[kc][e] = ac::pack_bf16(sc[i0] * (dp[i0] - dd.x), sc[i0 + 1] * (dp[i0 + 1] - dd.y));
+      }
+    }
+    SP_TICK(6);
+    ac::fence_operands(dk);
+    ac::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs(dk, da[kc], ac::desc_mnmajor<ROWB>(q_a + kc * 16 * ROWB), i > 0 || kc > 0);
+    ac::wgmma_commit();
+  }
+  wgmma_wait<0>();
+  ac::fence_operands(dv);
+  ac::fence_operands(dk);
+  fence_frags(pa);
+  fence_frags(da);
+  SP_TICK(5);
+
+  // -- epilogue: dv, then dk through k's norm, each staged in this warpgroup's k^ tile
+  const int keys = min(64, m - kw0);
+  auto store_rows = [&](__nv_bfloat16* dst) {
+    ac::named_barrier(1 + wg, 128);
+#pragma unroll
+    for (int it = 0; it < T * 8 / 128; ++it) {
+      const int c = wt + it * 128, r = c >> 3, ch = c & 7;
+      if (r < keys)
+        *reinterpret_cast<uint4*>(dst + r * hd + ch * 8) = *reinterpret_cast<const uint4*>(kh_t + ac::swz<ROWB>(r, ch));
+    }
+    ac::named_barrier(1 + wg, 128);
+  };
+  ac::named_barrier(1 + wg, 128);  // every warp's products have retired: k^ may be overwritten
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int e0 = 4 * jj + 2 * ii;
+      *reinterpret_cast<uint32_t*>(kh_t + ac::swz<ROWB>(rw + 8 * ii, jj) + 4 * t) = ac::pack_bf16(dv[e0], dv[e0 + 1]);
+    }
+  }
+  store_rows(p.dv + ((long long)b * m + kw0) * hd + h * D);
+  {
+    float cs[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) cs[e] = 0.0f;
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int r = rw + 8 * ii;
+      const float rr_k = rk[wg * 64 + r];
+      float u[16], w[16], uw = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 kv =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr_t + ac::swz<ROWB>(r, jj) + 4 * t));
+        const int e0 = 4 * jj + 2 * ii, c = 8 * jj + 2 * t;
+        u[2 * jj] = kv.x * rr_k;
+        u[2 * jj + 1] = kv.y * rr_k;
+        w[2 * jj] = dk[e0] * ksc[c];
+        w[2 * jj + 1] = dk[e0 + 1] * ksc[c + 1];
+        uw += u[2 * jj] * w[2 * jj] + u[2 * jj + 1] * w[2 * jj + 1];
+        cs[2 * jj] = fmaf(dk[e0], u[2 * jj], cs[2 * jj]);
+        cs[2 * jj + 1] = fmaf(dk[e0 + 1], u[2 * jj + 1], cs[2 * jj + 1]);
+      }
+      uw += __shfl_xor_sync(0xffffffffu, uw, 1);
+      uw += __shfl_xor_sync(0xffffffffu, uw, 2);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        *reinterpret_cast<uint32_t*>(kh_t + ac::swz<ROWB>(r, jj) + 4 * t) =
+            ac::pack_bf16(rr_k * (w[2 * jj] - u[2 * jj] * uw), rr_k * (w[2 * jj + 1] - u[2 * jj + 1] * uw));
+    }
+    // this warp's d k_scale = sum dk^ u_k over its rows
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
+    }
+    if (lane < 4) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        red_a[warp * D + 8 * jj + 2 * t] = cs[2 * jj];
+        red_a[warp * D + 8 * jj + 2 * t + 1] = cs[2 * jj + 1];
+      }
+    }
+  }
+  store_rows(p.dk + ((long long)b * m + kw0) * hd + h * D);
+  ac::named_barrier(3, SP_CONSUMERS);
+  if (tid < D) {
+    float sum = 0.0f;
+    for (int w = 0; w < SP_CONSUMERS / 32; ++w) sum += red_a[w * D + tid];
+    p.dks_part[(((long long)b * gridDim.x + kblk) * p.H + h) * D + tid] = sum;
+  }
+  SP_TICK(7);
+  SP_TIMER_END();
 }
 
 // -- f32: one key-stationary pass, then the query side, on CUDA cores ---------------
@@ -1636,7 +2021,8 @@ constexpr int RT = 512;         // threads of the second stage
 // partial a in row order into stage[a][c]. The partials are f32 (tiles, H,
 // D): a = 0 d q_scale and a = 1 d k_scale as (tiles x H) rows of D columns;
 // a = 2 d nv and a = 3 d nk^ as tiles rows of H x D columns. q_tiles =
-// B x query tiles, k_tiles = B x key tiles.
+// B x query blocks, k_tiles = B x key blocks (64 rows a block in f32, 128
+// in bf16).
 __global__ void __launch_bounds__(256)
 qknorm_bwd_sum_rows(const float* __restrict__ dqs_part, const float* __restrict__ dks_part,
                     const float* __restrict__ dnv_part, const float* __restrict__ dnk_part, float* __restrict__ stage,
@@ -1716,14 +2102,27 @@ inline size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
 inline bool takes_one_pass(int n, int esize) { return esize == 2 && n <= OP_N; }
 
 struct Workspace {
-  size_t counter, head_sums, stage, qh, kh, dpart, delta, dqs_part, dks_part, dnk_part, dnv_part, clocks, bytes;
+  size_t counter, head_sums, stage, dpart, delta, dqs_part, dks_part, dnk_part, dnv_part, clocks, bytes;
 };
 
-// one-pass: the tickets and the heads' sums; bf16 split route: the chunk
-// sums, q^, k^ and D; f32: the chunk sums, the key tiles' dQ^ parts and D;
-// then the partials, a row a block and head
+// Rows a block owns on a split route: 128 (bf16) or 64 (f32), on the query
+// side and on the key side.
+inline int split_rows(int esize) { return esize == 2 ? SP_ROWS : T; }
+
+#ifdef QKNORM_BWD_TIMING
+// The timing build's rows of clocks: a block each of the one-pass kernel
+// (B x H) or of the bf16 split route's two kernels
+inline size_t clock_rows(int B, int n, int m, int H, int esize) {
+  if (takes_one_pass(n, esize) || esize == 4) return (size_t)B * H;
+  return (size_t)B * H * ((n + SP_ROWS - 1) / SP_ROWS + (m + SP_ROWS - 1) / SP_ROWS);
+}
+#endif
+
+// one-pass: the tickets and the heads' sums; split routes: the chunk sums
+// and D, f32 also the key tiles' dQ^ parts; then the partials, a row a
+// block and head
 inline Workspace workspace(int B, int n, int m, int H, int esize) {
-  const size_t nqt = (n + T - 1) / T, nkt = (m + T - 1) / T;
+  const size_t nkt = (m + T - 1) / T;
   Workspace w = {};
   size_t at = 0;
   auto take = [&](size_t bytes) {
@@ -1737,21 +2136,17 @@ inline Workspace workspace(int B, int n, int m, int H, int esize) {
     w.head_sums = take((size_t)H * 3 * D * 4);
   } else {
     w.stage = take((size_t)4 * CH * H * D * 4);
-    if (esize == 2) {
-      w.qh = take((size_t)B * n * H * D * esize);
-      w.kh = take((size_t)B * m * H * D * esize);
-    } else {
-      w.dpart = take((size_t)B * H * nkt * n * D * 4);
-    }
+    if (esize == 4) w.dpart = take((size_t)B * H * nkt * n * D * 4);
     w.delta = take((size_t)B * H * n * 4);
-    q_blocks = B * nqt, k_blocks = B * nkt;
+    const int rows = split_rows(esize);
+    q_blocks = (size_t)B * ((n + rows - 1) / rows), k_blocks = (size_t)B * ((m + rows - 1) / rows);
   }
   w.dqs_part = take(q_blocks * H * D * 4);
   w.dks_part = take(k_blocks * H * D * 4);
   w.dnk_part = take(q_blocks * H * D * 4);
   w.dnv_part = take(q_blocks * H * D * 4);
 #ifdef QKNORM_BWD_TIMING
-  w.clocks = take((size_t)B * H * CLOCK_SLOTS * 8);
+  w.clocks = take(clock_rows(B, n, m, H, esize) * CLOCK_SLOTS * 8);
 #endif
   w.bytes = at;
   return w;
@@ -1785,8 +2180,6 @@ cudaError_t launch_all(const void* g, const void* q, const void* k, const void* 
   p.k = static_cast<const TT*>(k);
   p.v = static_cast<const TT*>(v);
   p.out = static_cast<const TT*>(out);
-  p.qh = reinterpret_cast<const TT*>(ws + w.qh);
-  p.kh = reinterpret_cast<const TT*>(ws + w.kh);
   p.nk = static_cast<const TT*>(nk);
   p.nv = static_cast<const TT*>(nv);
   p.lse = lse;
@@ -1825,21 +2218,30 @@ cudaError_t launch_all(const void* g, const void* q, const void* k, const void* 
     }
   }
 
+  int q_tiles = B * nqt, k_tiles = B * nkt;  // the partials' rows
   if constexpr (sizeof(TT) == 2) {
-    // the bf16 split route: prep, key-stationary dK / dV, query-stationary dQ
-    const long long rows = (long long)B * (n + m) * H;
-    qknorm_bwd_prep<TT><<<(unsigned)((rows + 31) / 32), 256, 0, stream>>>(
-        p.q, p.k, p.g, p.out, qs, ks, const_cast<TT*>(p.qh), const_cast<TT*>(p.kh), p.delta, B,
-        n, m, H, q_sb, q_sn, k_sb, k_sm, g_sb, g_sn, scale);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    if (nkt > 0) {
-      if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dkdv_bf16), DkdvSmem::ALLOC, 1)) != cudaSuccess)
-        return e;
-      qknorm_bwd_dkdv_bf16<<<dim3(nkt, H, B), NTH, DkdvSmem::ALLOC, stream>>>(p);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    // the bf16 split route: the query-stationary kernel (which writes D),
+    // then the key-stationary one, over TMA maps of the callers' strides
+    const int nqb = (n + SP_ROWS - 1) / SP_ROWS, nkb = (m + SP_ROWS - 1) / SP_ROWS;
+    CUtensorMap tq = {}, tg = {}, tk = {}, tv = {};  // without keys k and v are never loaded
+    if ((e = ac::make_kv_map(&tq, q, D, (long long)H * D, n, B, q_sn, q_sb)) != cudaSuccess) return e;
+    if ((e = ac::make_kv_map(&tg, g, D, (long long)H * D, n, B, g_sn, g_sb)) != cudaSuccess) return e;
+    if (m > 0) {
+      if ((e = ac::make_kv_map(&tk, k, D, (long long)H * D, m, B, k_sm, k_sb)) != cudaSuccess) return e;
+      if ((e = ac::make_kv_map(&tv, v, D, (long long)H * D, m, B, v_sm, v_sb)) != cudaSuccess) return e;
     }
-    if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_dq_bf16), DqSmem::ALLOC, 2)) != cudaSuccess) return e;
-    qknorm_bwd_dq_bf16<<<dim3(nqt, H, B), NTH, DqSmem::ALLOC, stream>>>(p);
+    if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_queries_bf16), SplitSmem::ALLOC, 1)) != cudaSuccess)
+      return e;
+    qknorm_bwd_queries_bf16<<<dim3(nqb, H, B), SP_THREADS, SplitSmem::ALLOC, stream>>>(tq, tg, tk, tv, p);
+    if (m > 0) {
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      if ((e = allow_smem(reinterpret_cast<const void*>(qknorm_bwd_keys_bf16), SplitSmem::ALLOC, 2)) != cudaSuccess)
+        return e;
+      Bwd<TT> pk = p;
+      pk.clocks += (long long)B * H * nqb * CLOCK_SLOTS;  // the timing build's rows of this kernel
+      qknorm_bwd_keys_bf16<<<dim3(nkb, H, B), SP_THREADS, SplitSmem::ALLOC, stream>>>(tq, tg, tk, tv, pk);
+    }
+    q_tiles = B * nqb, k_tiles = B * nkb;
   } else {
     // f32: the key-stationary pass, then the query side
     if (nkt > 0) {
@@ -1854,7 +2256,7 @@ cudaError_t launch_all(const void* g, const void* q, const void* k, const void* 
   // the partials in two fixed-order stages
   float* stage = reinterpret_cast<float*>(ws + w.stage);
   qknorm_bwd_sum_rows<<<dim3(CH, 4), 256, 0, stream>>>(p.dqs_part, p.dks_part, p.dnv_part, p.dnk_part, stage,
-                                                       B * nqt, B * nkt, H);
+                                                       q_tiles, k_tiles, H);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   qknorm_bwd_reduce<TT><<<1, RT, 2 * H * D * 4, stream>>>(stage, p.nk, ks, dqs, dks, p.dnk, p.dnv, H);
   return cudaGetLastError();
@@ -1869,13 +2271,24 @@ long long muse_qknorm_attn_bwd_workspace(int B, int n, int m, int H, int dtype) 
   return static_cast<long long>(workspace(B, n, m, H, dtype == 1 ? 2 : 4).bytes);
 }
 
-// Where the one-pass kernel's clocks lie in the workspace (bytes from its
-// start; B x H x 10 int64), or -1 without -DQKNORM_BWD_TIMING.
+// Where the timing build's clocks lie in the workspace (bytes from its
+// start; rows of 10 int64: B x H for the one-pass kernel, then on the bf16
+// split route B x H x query blocks for `queries_bf16` and B x H x key
+// blocks for `keys_bf16`), or -1 without -DQKNORM_BWD_TIMING.
 long long muse_qknorm_attn_bwd_clocks(int B, int n, int m, int H, int dtype) {
 #ifdef QKNORM_BWD_TIMING
   return static_cast<long long>(workspace(B, n, m, H, dtype == 1 ? 2 : 4).clocks);
 #else
   return -1;
+#endif
+}
+
+// Rows of clocks the timing build writes (see above); 0 without it.
+long long muse_qknorm_attn_bwd_clock_rows(int B, int n, int m, int H, int dtype) {
+#ifdef QKNORM_BWD_TIMING
+  return static_cast<long long>(clock_rows(B, n, m, H, dtype == 1 ? 2 : 4));
+#else
+  return 0;
 #endif
 }
 

@@ -291,7 +291,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         fn.argtypes = [p] * 19 + [i] * 4 + [ll] * 8 + [f, i, p]
         fn.restype = ctypes.c_int
-        for name in ("muse_qknorm_attn_bwd_workspace", "muse_qknorm_attn_bwd_clocks"):
+        for name in ("muse_qknorm_attn_bwd_workspace", "muse_qknorm_attn_bwd_clocks", "muse_qknorm_attn_bwd_clock_rows"):
             getattr(lib, name).argtypes = [i] * 5
             getattr(lib, name).restype = ll
         lib.muse_qknorm_attn_bwd_one_pass.argtypes = [i, i]
@@ -381,24 +381,44 @@ def _backward_one_pass(n: int, dtype: torch.dtype) -> bool:
 BACKWARD_PARTS = (
     "q-side loads", "prologue", "key tile wait + k^", "tile pairs", "halves, dv, dk", "dq epilogue", "reduction",
 )
+# the bf16 split route's kernels, as their thread 0 sees them
+BACKWARD_SPLIT_PARTS = ("prologue", "ready waits", "products", "exponentials and dS", "epilogue", "normalising")
 BACKWARD_TIMING_FLAGS = ("-DQKNORM_BWD_TIMING",)
 _CLOCK_SLOTS = 10  # a block's int64 clock slots in that build: start, end, SM, the parts
+_SPLIT_ROWS = 128  # rows (queries or keys) a block of the bf16 split route owns
 _timing_bwd_lib = None
 
 
+def _clock_stats(clocks: torch.Tensor, names) -> dict:
+    start, end = clocks[:, 0], clocks[:, 1]
+    events = sorted([(int(t), 1) for t in start] + [(int(t), -1) for t in end])
+    live = most = 0
+    for _, step in events:
+        live += step
+        most = max(most, live)
+    return dict(
+        parts={name: clocks[:, 3 + i].double().mean().item() for i, name in enumerate(names)},
+        block_ns=(end - start).double().mean().item(),
+        span_ns=int(end.max() - start.min()),
+        concurrent=most,
+    )
+
+
 def backward_part_clocks(g, q, k, v, null_k, null_v, q_scale, k_scale, out, lse, mask=None, scale: float = 8.0):
-    """Diagnostic: where the one-pass backward kernel's time goes. Runs its
-    `-DQKNORM_BWD_TIMING` build once on bf16 CUDA inputs that take it (n <=
-    256; arguments as `qknorm_attend_backward`) and returns, averaged over
-    the blocks, the SM clocks of each part of `BACKWARD_PARTS` as each
-    block's thread 0 saw them (`parts`), and from the global timer the mean
+    """Diagnostic: where the bf16 backward kernels' time goes. Runs the
+    `-DQKNORM_BWD_TIMING` build once on bf16 CUDA inputs (arguments as
+    `qknorm_attend_backward`) and returns, for each kernel that keeps clocks
+    (the one-pass kernel at n <= 256; `qknorm_bwd_queries_bf16` and
+    `qknorm_bwd_keys_bf16` above), by its name: averaged over its blocks, the
+    SM clocks of each part (`BACKWARD_PARTS`, `BACKWARD_SPLIT_PARTS`) as
+    the timed threads saw them (`parts`), and from the global timer the mean
     block's ns (`block_ns`), the kernel's span (`span_ns`) and the most
     blocks resident at once (`concurrent`). The instrumented build is
     slower than the kernel by its clock reads, and counts as a launch of
     the backward."""
     global _timing_bwd_lib
-    if q.dtype != torch.bfloat16 or not _backward_one_pass(q.shape[1], q.dtype):
-        raise ValueError("backward_part_clocks times the one-pass kernel: bf16 with n <= 256")
+    if q.dtype != torch.bfloat16:
+        raise ValueError("backward_part_clocks times the bf16 kernels")
     if _timing_bwd_lib is None:
         _timing_bwd_lib = _bind_bwd(ctypes.CDLL(str(_build.build("qknorm_attention_bwd", BACKWARD_TIMING_FLAGS))))
     lib = _timing_bwd_lib
@@ -407,20 +427,15 @@ def backward_part_clocks(g, q, k, v, null_k, null_v, q_scale, k_scale, out, lse,
     bias = key_mask_bias(mask, b, m, q.device)
     ws = torch.empty(lib.muse_qknorm_attn_bwd_workspace(b, n, m, h, 1), dtype=torch.uint8, device=q.device)
     _backward_call(lib, g, q, k, v, null_k, null_v, q_scale, k_scale, bias, out, lse, scale, workspace=ws)
-    at = lib.muse_qknorm_attn_bwd_clocks(b, n, m, h, 1)
-    clocks = ws[at : at + b * h * _CLOCK_SLOTS * 8].view(torch.int64).view(b * h, _CLOCK_SLOTS).cpu()
-    start, end = clocks[:, 0], clocks[:, 1]
-    events = sorted([(int(t), 1) for t in start] + [(int(t), -1) for t in end])
-    live = most = 0
-    for _, step in events:
-        live += step
-        most = max(most, live)
-    return dict(
-        parts={name: clocks[:, 3 + i].double().mean().item() for i, name in enumerate(BACKWARD_PARTS)},
-        block_ns=(end - start).double().mean().item(),
-        span_ns=int(end.max() - start.min()),
-        concurrent=most,
-    )
+    at, rows = lib.muse_qknorm_attn_bwd_clocks(b, n, m, h, 1), lib.muse_qknorm_attn_bwd_clock_rows(b, n, m, h, 1)
+    clocks = ws[at : at + rows * _CLOCK_SLOTS * 8].view(torch.int64).view(rows, _CLOCK_SLOTS).cpu()
+    if _backward_one_pass(n, q.dtype):
+        return {"qknorm_bwd_onepass_bf16": _clock_stats(clocks, BACKWARD_PARTS)}
+    q_rows = b * h * -(-n // _SPLIT_ROWS)
+    stats = {"qknorm_bwd_queries_bf16": _clock_stats(clocks[:q_rows], BACKWARD_SPLIT_PARTS)}
+    if m > 0:
+        stats["qknorm_bwd_keys_bf16"] = _clock_stats(clocks[q_rows:], BACKWARD_SPLIT_PARTS)
+    return stats
 
 
 def qknorm_attend_backward(

@@ -247,7 +247,12 @@ def test_qknorm_gradients_match_plain(dev, dtype):
 # partial ones, and n = 256 / 257 on either side of the route's limit; then
 # the f32 keys kernel's edges: m = 63, 64 and 65 (a partial, a full and an
 # extra key tile), n = 65 (a second query tile of one row), and 640 blocks
-# of (key tile, head, batch), more than four waves of 132
+# of (key tile, head, batch), more than four waves of 132; then the bf16
+# split route's edges (n > 256: 128-row blocks, TMA rings): no keys, a
+# ragged n = 1025 over m = 200 with a ragged text and a dropped row, m = 63
+# and 65 (WG 1's 64 keys past m, or one key), the super-res cross shape
+# (text keys then 256 conditioning keys, the null half's text keys off),
+# and 576 key blocks of (128 keys, head, batch), more than four waves
 BACKWARD_SHAPES = {
     "ragged": (3, 70, 200, 2, "partial"),
     "m0": (2, 70, 0, 2, None),
@@ -265,6 +270,12 @@ BACKWARD_SHAPES = {
     "m65": (2, 70, 65, 2, "partial"),
     "n65": (3, 65, 130, 2, "mixed"),
     "waves": (8, 65, 640, 8, "partial"),
+    "n300_m0": (2, 300, 0, 2, None),
+    "n1025_m200": (2, 1025, 200, 2, "mixed"),
+    "n300_m63": (2, 300, 63, 2, "partial"),
+    "n300_m65": (2, 300, 65, 2, "partial"),
+    "sr_cross": (4, 1024, 320, 8, "superres"),
+    "split_waves": (8, 300, 1100, 8, "partial"),
 }
 
 
@@ -279,7 +290,10 @@ def test_qknorm_backward_matches_plain(dev, dtype, shape):
     nk, nv = (torch.randn(h, 64, generator=g, device=dev).to(dtype) for _ in range(2))
     qs, ks = (1 + 0.1 * torch.randn(64, generator=g, device=dev) for _ in range(2))
     mask = None
-    if mask_kind is not None:
+    if mask_kind == "superres":
+        mask = torch.ones(b, m, dtype=torch.bool, device=dev)
+        mask[b // 2 :, : m - 256] = False  # the null half's text keys; the conditioning keys stay on
+    elif mask_kind is not None:
         mask = torch.rand(b, m, generator=g, device=dev) > (-1.0 if mask_kind == "dropped" else 0.3)
         if mask_kind == "mixed":
             mask[0] = torch.arange(m, device=dev) < m // 3  # a ragged text: keys on up to its length
@@ -310,7 +324,7 @@ def test_qknorm_backward_matches_plain(dev, dtype, shape):
         _leaves_close(got[4:5], [cot.float().sum(dim=(0, 1)).to(dtype)], 1e-4 if dtype == torch.float32 else K2_BWD_BF16_VS_ROUNDED)
         assert got[1].numel() == got[2].numel() == 0
         return
-    if mask_kind is not None:
+    if mask_kind not in (None, "superres"):
         assert got[0][b - 1].float().abs().max().item() <= 1e-4  # the dropped row's q sees no key
     if dtype == torch.float32:
         _leaves_close(got, want, 1e-4)

@@ -208,3 +208,102 @@ def test_f32_kernel_split_matches_jax_vjp(case):
     ts = [torch.from_numpy(a) for a in arrays]
     got = _split_backward(torch.from_numpy(cot), *ts, torch.from_numpy(bias))
     _assert_leaves_close([t.numpy() for t in got], [np.asarray(w) for w in want], GRAD_FRAC, case, SPLIT_CASES)
+
+
+# The bf16 split route (`qknorm_bwd_queries_bf16`, then `qknorm_bwd_keys_bf16`,
+# n > 256), restated in plain PyTorch on bf16-valued inputs: ragged n over
+# three 128-query blocks and ragged m over two 128-key blocks, a fully
+# masked row, no keys
+BF16_SPLIT_CASES = {
+    "ragged": (2, 300, 130, 2, "partial"),
+    "row-masked": (3, 260, 70, 2, "row"),
+    "m0": (2, 270, 0, 2, None),
+}
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _through_norm(dt_hat, u, r, s):
+    w = dt_hat * s
+    return r * (w - u * (u * w).sum(-1, keepdim=True))
+
+
+def _bf16_split_backward(g, q, k, v, nk, nv, qs, ks, bias, scale=8.0, block=128, tile=64):
+    """q^ and k^ rounded to bf16 where the kernels round them (f32 norm
+    and scale first); the forward's output rounded to bf16 for D =
+    rowsum(g out). The queries kernel, per 128-query block and 64-key tile:
+    S and dP recomputed, dS rounded, dQ^ summed in key order, then dS_0 nk^
+    and q's norm; the keys kernel, per 128-key block and 64-query tile: P
+    and dS rounded, dV and dK^ summed in query order, then k's norm. Each
+    block's rows of the scale and null gradients are summed over its rows,
+    then the blocks in (batch, block) order. dq, dk, dv, d null_k, d null_v
+    come out in bf16, as the kernels write them."""
+    b, n, h, _ = q.shape
+    m = k.shape[1]
+    qsc = qs * scale
+    (uq, rq), (uk, rk), (unk, rnk) = _unit(q), _unit(k), _unit(nk)
+    qh, kh, nkh = _bf16(uq * qsc), _bf16(uk * ks), unk * ks
+    s0 = torch.einsum("bnhd,hd->bhn", qh, nkh)
+    s_full = torch.einsum("bnhd,bmhd->bhnm", qh, kh) + bias[:, None, None, :]
+    lse = torch.logsumexp(torch.cat([s0[..., None], s_full], -1), -1)  # the forward's
+    out = torch.einsum("bhnm,bmhd->bnhd", torch.exp(s_full - lse[..., None]), v)
+    out = _bf16(out + torch.exp(s0 - lse).transpose(1, 2)[..., None] * nv)
+    dd = torch.einsum("bnhd,bnhd->bhn", g, out)
+    p0 = torch.exp(s0 - lse)
+    ds0 = p0 * (torch.einsum("bnhd,hd->bhn", g, nv) - dd)
+
+    def tile_terms(qr, kr):  # P and dS of query rows qr against keys kr
+        p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", qh[:, qr], kh[:, kr]) + bias[:, None, None, kr] - lse[..., qr, None])
+        dp = torch.einsum("bnhd,bmhd->bhnm", g[:, qr], v[:, kr])
+        return p, p * (dp - dd[..., qr, None])
+
+    # the queries kernel
+    dqh = torch.zeros_like(q)
+    dqs_rows, dnv_rows, dnk_rows = [], [], []
+    for q0 in range(0, n, block):
+        qr = slice(q0, q0 + block)
+        acc = torch.zeros_like(q[:, qr])
+        for k0 in range(0, m, tile):
+            _, ds = tile_terms(qr, slice(k0, k0 + tile))
+            acc = acc + torch.einsum("bhnm,bmhd->bnhd", _bf16(ds), kh[:, k0 : k0 + tile])
+        dqh[:, qr] = acc + ds0[..., qr].transpose(1, 2)[..., None] * nkh
+        dqs_rows.append((dqh[:, qr] * uq[:, qr]).sum(1))  # (b, h, d): a row a (batch, block, head)
+        dnv_rows.append(torch.einsum("bhn,bnhd->bhd", p0[..., qr], g[:, qr]))
+        dnk_rows.append(torch.einsum("bhn,bnhd->bhd", ds0[..., qr], qh[:, qr]))
+    # the keys kernel
+    dv, dkh, dks_rows = torch.zeros_like(v), torch.zeros_like(k), []
+    for k0 in range(0, m, block):
+        kr = slice(k0, k0 + block)
+        for q0 in range(0, n, tile):
+            p, ds = tile_terms(slice(q0, q0 + tile), kr)
+            dv[:, kr] += torch.einsum("bhnm,bnhd->bmhd", _bf16(p), g[:, q0 : q0 + tile])
+            dkh[:, kr] += torch.einsum("bhnm,bnhd->bmhd", _bf16(ds), qh[:, q0 : q0 + tile])
+        dks_rows.append((dkh[:, kr] * uk[:, kr]).sum(1))
+
+    def in_order(rows):  # blocks in (batch, block) order, each row's sum first
+        total = torch.zeros(rows[0].shape[1:])
+        for bi in range(b):
+            for r in rows:
+                total = total + r[bi]
+        return total
+
+    dnkh = in_order(dnk_rows)  # (h, d)
+    dqs = scale * in_order(dqs_rows).sum(0)
+    dks = in_order(dks_rows).sum(0) + (dnkh * unk).sum(0) if m else (dnkh * unk).sum(0)
+    dq = _bf16(_through_norm(dqh, uq, rq, qsc))
+    dk = _bf16(_through_norm(dkh, uk, rk, ks))
+    dnk = _bf16(_through_norm(dnkh, unk, rnk, ks))
+    return dq, dk, _bf16(dv), dnk, _bf16(in_order(dnv_rows)), dqs, dks
+
+
+@pytest.mark.parametrize("case", list(BF16_SPLIT_CASES))
+def test_bf16_kernel_split_matches_jax_vjp(case):
+    b, _, m, _, _ = BF16_SPLIT_CASES[case]
+    arrays, mask, cot = _inputs(case, d=64, seed=5, cases=BF16_SPLIT_CASES)
+    arrays, cot = [_bf16(torch.from_numpy(a)).numpy() for a in arrays], _bf16(torch.from_numpy(cot)).numpy()
+    bias = _bias(mask, b, m)
+    want = _jax_vjp(tuple(jnp.asarray(a) for a in arrays), jnp.asarray(bias), jnp.asarray(cot))
+    got = _bf16_split_backward(torch.from_numpy(cot), *[torch.from_numpy(a) for a in arrays], torch.from_numpy(bias))
+    _assert_leaves_close([t.numpy() for t in got], [np.asarray(w) for w in want], K2_BWD_BF16_FROM_F32, case, BF16_SPLIT_CASES)
