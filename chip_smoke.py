@@ -139,6 +139,8 @@ PEAK_F32 = 67e12        # f32 FMA outside the tensor cores
 # queries
 BWD_F32_KERNELS = ["qknorm_bwd_keys_f32", "qknorm_bwd_queries_f32", "qknorm_bwd_sum_rows", "qknorm_bwd_reduce"]
 BWD_BF16_SPLIT_KERNELS = ["qknorm_bwd_queries_bf16", "qknorm_bwd_keys_bf16", "qknorm_bwd_sum_rows", "qknorm_bwd_reduce"]
+# K2's f32 forward kernel (`csrc/qknorm_attention.cu`), one launch a call
+F32_FWD_KERNEL = "qknorm_fwd_f32"
 
 
 def log(msg: str) -> None:
@@ -882,11 +884,11 @@ def device_busy(prof, pattern=None):
     return busy / 1000, len(streams), repeats
 
 
-def backward_kernels(torch, call):
-    """The names of the device kernels that one `call` of K2's backward
-    launched, in launch order, as torch.profiler saw them (the
-    `qknorm_bwd_*` kernels; memsets and casts left out); None where the
-    profiler saw no device time."""
+def kernels_by_name(torch, call, pattern):
+    """The names (the match of `pattern`) of the device kernels that one
+    `call` launched, in launch order, as torch.profiler saw them, those
+    that do not match (memsets, casts) left out; None where the profiler
+    saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     call()  # warm: the library is loaded and each kernel's attribute set
@@ -898,7 +900,8 @@ def backward_kernels(torch, call):
     if not kernels:
         return None
     kernels.sort(key=lambda e: e.time_range.start)
-    return [re.search(r"qknorm_bwd_\w+", e.name).group(0) for e in kernels if "qknorm_bwd_" in e.name]
+    found = (re.search(pattern, e.name) for e in kernels)
+    return [f.group(0) for f in found if f is not None]
 
 
 def busy_within(busy_ms, host_ms, what):
@@ -2015,7 +2018,10 @@ def phase_train(torch, ctx):
         `round_to` form), a repeat bit-identical. The backward alone by graph
         replay beside its bound, the plain backward and SDPA's backward on
         the normalised inputs (the attention core only); forward + backward
-        by CUDA events beside SDPA's, as before.
+        by CUDA events beside SDPA's; the forward alone by graph replay
+        beside SDPA's forward and its bound. Each route's kernels by name as
+        torch.profiler saw one call (the forward: f32 `qknorm_fwd_f32`, bf16
+        `flash_core_kernel<64, true>`; the backward: its route's list).
     (b) one f32 `MaskGit.forward` + backward with the kernels and under
         `plain_path()`, on the same draws: losses to 1e-4 relative, each
         gradient leaf to 1e-3 of its largest |g|.
@@ -2173,7 +2179,7 @@ def phase_train(torch, ctx):
             plain_iters = 3 if n > SEQ else 10
             bwd_call = lambda: qknorm_attend_backward(cot, *args, fwd_out, lse, mask=mask)  # noqa: E731
             one_pass = attention._backward_one_pass(n, dtype)
-            bwd_names = backward_kernels(torch, bwd_call)
+            bwd_names = kernels_by_name(torch, bwd_call, r"qknorm_bwd_\w+")
             if bwd_names is not None:
                 # the f32 route: the key-stationary kernel and the query side,
                 # then the two fixed-order sums; bf16 one pass, or the split route
@@ -2181,6 +2187,12 @@ def phase_train(torch, ctx):
                     BWD_F32_KERNELS if f32 else ["qknorm_bwd_onepass_bf16"] if one_pass else BWD_BF16_SPLIT_KERNELS
                 )
                 require(bwd_names == want_names, f"K2 backward {name} {dtype}: the profiler saw {bwd_names} in a call")
+            fwd_call = lambda: qknorm_attend(*args, mask=mask)  # noqa: E731
+            fwd_names = kernels_by_name(torch, fwd_call, r"qknorm_fwd_f32|flash_core_kernel<64, true>")
+            if fwd_names is not None:
+                # f32: the CUDA-core kernel, one launch a call; bf16: the Hopper core's qk-norm instance
+                want_names = [F32_FWD_KERNEL if f32 else "flash_core_kernel<64, true>"]
+                require(fwd_names == want_names, f"K2 forward {name} {dtype}: the profiler saw {fwd_names} in a call")
             sdpa_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(qn, kn, vn, scale=1.0)  # noqa: E731
             sdpa_fwd_ms = graph_ms(sdpa_fwd)  # under autograd, as the pair it is taken from
             qd, kd, vd = qn.detach(), kn.detach(), vn.detach()
@@ -2200,7 +2212,7 @@ def phase_train(torch, ctx):
                 bwd_library_ms=graph_ms(sdpa_step) - sdpa_fwd_ms,
                 bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
                 ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend(*leaves, mask=mask), leaves, cot), iters=20),
-                fwd_ms=graph_ms(lambda: qknorm_attend(*args, mask=mask)),
+                fwd_ms=graph_ms(fwd_call), fwd_kernel_names=fwd_names,
                 fwd_library_ms=sdpa_fwd_alone_ms, fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
                 plain_ms=cuda_ms(lambda: torch.autograd.grad(qknorm_attend_plain(*leaves, mask=mask), leaves, cot), iters=plain_iters, warmup=1),
                 library_ms=cuda_ms(sdpa_step, iters=20),
@@ -2223,7 +2235,8 @@ def phase_train(torch, ctx):
             f"backward {t['bwd_library_ms']:.4f} (core only; ours {t['bwd_vs_sdpa']:.2f}x its time), bound "
             f"{t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}, {t['bwd_bound_ms'] / t['bwd_ms']:.0%}); fwd+bwd {t['ms']:.4f} ms (eager) vs plain {t['plain_ms']:.3f}, "
             f"SDPA {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}); forward alone {t['fwd_ms']:.4f} "
-            f"ms (graph replay) vs SDPA's forward {t['fwd_library_ms']:.4f} (core only; ours "
+            f"ms (graph replay; its kernels a call by the profiler: "
+            f"{'not measured' if t['fwd_kernel_names'] is None else ' + '.join(t['fwd_kernel_names'])}) vs SDPA's forward {t['fwd_library_ms']:.4f} (core only; ours "
             f"{t['fwd_ms'] / t['fwd_library_ms']:.2f}x its time), bound {t['fwd_bound_ms']:.4f} ({t['fwd_bound_by']}, "
             f"{t['fwd_bound_ms'] / t['fwd_ms']:.0%}); {errs}"
         )
@@ -2520,13 +2533,23 @@ def phase_train(torch, ctx):
                 for k in (
                     "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by", "bwd_vs_sdpa",
                     "bwd_host_us", "bwd_kernels", "bwd_kernel_names", "bwd_clocks", "fwd_ms", "fwd_library_ms",
-                    "fwd_bound_ms", "fwd_bound_by",
+                    "fwd_bound_ms", "fwd_bound_by", "fwd_kernel_names",
                 )
                 if k in grad_times[(n, d)]
             }
             for n, d in grad_times
         },
     )
+    # K2's f32 forward alone at the train shapes (graph replay, no gradient)
+    # beside SDPA's f32 forward on the normalised inputs and the bound
+    ctx["k2_f32_forward"] = {
+        name: dict(
+            ms=t["fwd_ms"], sdpa_ms=t["fwd_library_ms"], bound_ms=t["fwd_bound_ms"], bound_by=t["fwd_bound_by"],
+            share=t["fwd_bound_ms"] / t["fwd_ms"], kernel_names=t["fwd_kernel_names"],
+        )
+        for (name, dtype), t in grad_times.items()
+        if dtype == torch.float32
+    }
     ctx["train"] = dict(
         ms_per_step=step_s * 1000, img_s=TRAIN_BATCH / step_s, mfu=mfu, flops_per_step=flops, peak_gib=peak_gib,
         losses=losses, grad_norms=norms, k2_launches_per_step=k2_steps, k2_backward_launches_per_step=bwd_steps,
@@ -3120,7 +3143,11 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=f"muse_maskgit_pytorch_tpu_torch/csrc/{src}",
             replaces=f"muse_maskgit_pytorch_tpu/ops/{tpu}", **{k: ctx[tag][k] for k in keys},
             **({"routes": ctx["k1_routes"]} if tag == "k1" else {}),
-            **({"shapes": ctx["k2_shapes"], "backward": ctx["k2_backward"]} if tag == "k2" else {}),
+            **(
+                {"shapes": ctx["k2_shapes"], "backward": ctx["k2_backward"], "f32_forward": ctx["k2_f32_forward"]}
+                if tag == "k2"
+                else {}
+            ),
         )
         for tag, name, src, tpu in rows
     ]

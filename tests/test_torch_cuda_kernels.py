@@ -459,6 +459,54 @@ def test_qknorm_without_keys_returns_null_v(dev, dtype):
     torch.testing.assert_close(out.float(), nv.float().expand(b, n, h, d), rtol=0, atol=1e-6)
 
 
+def _plain_lse(q, k, nk, qs, ks, mask, scale=8.0):
+    """Each row's logsumexp over the null position and the keys, in plain
+    PyTorch (f32): what K2's forward writes for the backward."""
+
+    def norm(t):
+        return t * torch.rsqrt((t * t).sum(-1, keepdim=True) + 1e-12)
+
+    qn, kn, nkn = norm(q) * qs * scale, norm(k) * ks, norm(nk) * ks
+    s = torch.einsum("bnhd,bmhd->bhnm", qn, kn)
+    if mask is not None:
+        s = s + attention.key_mask_bias(mask, k.shape[0], k.shape[1], q.device)[:, None, None, :]
+    s0 = torch.einsum("bnhd,hd->bhn", qn, nkn)
+    return torch.logsumexp(torch.cat([s0[..., None], s], -1), -1)
+
+
+# K2's f32 forward (`qknorm_fwd_f32`, 128 queries a block, 64-key tiles) at
+# its edges: one query, a block less one, exactly one, one more; no key, one,
+# a tile less one, exactly one, one more, five tiles; k and v strided views
+# of one to_kv output; a partial mask, and the last row's keys all masked
+# (null_v, its tiles skipped)
+@pytest.mark.parametrize("m", [0, 1, 63, 64, 65, 320])
+@pytest.mark.parametrize("n", [1, 127, 128, 129])
+def test_qknorm_f32_forward_edges(dev, n, m):
+    g = torch.Generator(device=dev).manual_seed(1000 * n + m)
+    b, h = 3, 2
+    q = torch.randn(b, n, h, 64, generator=g, device=dev)
+    kv = torch.randn(b, m, 2 * h * 64, generator=g, device=dev)
+    k, v = (t.reshape(b, m, h, 64) for t in kv.chunk(2, dim=-1))
+    nk, nv = (torch.randn(h, 64, generator=g, device=dev) for _ in range(2))
+    qs, ks = (1 + 0.1 * torch.randn(64, generator=g, device=dev) for _ in range(2))
+    mask = None
+    if m > 0:
+        mask = torch.rand(b, m, generator=g, device=dev) > 0.3
+        mask[b - 1] = False
+    args = (q, k, v, nk, nv, qs, ks)
+    before = attention.qknorm_attend.launches
+    out, lse = attention.qknorm_attend_with_lse(*args, mask=mask)
+    assert attention.qknorm_attend.launches == before + 1
+    again, lse_again = attention.qknorm_attend_with_lse(*args, mask=mask)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again), "two launches differ"
+    assert torch.equal(attention.qknorm_attend(*args, mask=mask), out)  # the same kernel without the lse
+    # f32 on both sides: summation order, base 2 and the folded norms only
+    torch.testing.assert_close(out, attention.qknorm_attend_plain(*args, mask=mask), rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, _plain_lse(q, k, nk, qs, ks, mask), rtol=0, atol=1e-5)
+    masked = [0, 1, 2] if m == 0 else [b - 1]
+    torch.testing.assert_close(out[masked], nv.expand(len(masked), n, h, 64), rtol=0, atol=1e-4)
+
+
 def test_attention_rejects_what_the_kernel_does_not_take(dev):
     q = torch.randn(1, 8, 2, 32, device=dev)  # head dim 32
     with pytest.raises(ValueError, match="head dim"):
