@@ -39,6 +39,12 @@ read just after):
     micro-batch 8) in f32 with LFQ and with EMA-VQ and in bf16 with LFQ, the
     R1 penalty on and off, and `bench_ema_vq.py`'s EMA-VQ run from a folder
     of PNGs (memorisation, exact resume) -- K3 three times an EMA-VQ step;
+  * `eval`: the FID towers alone at b64 (InceptionV3 at 299px, VGG16 fc2 at
+    256px, random weights from a seed; held against the same towers on the
+    CPU), then FID end to end: 256 images from `MaskGit.generate` at the
+    base stage's width (8 requests of b32 -- K1 and K2), written as PNGs
+    beside 256 seeded "real" ones, through the port's `compute_fid` command
+    line (`--save-stats`, `--stats`, a set against itself);
   * `serving`: the base model saved in the JAX package's checkpoint format
     and loaded into a fresh model (tensor- and image-equal), then served:
     `GeneratePipeline` at b16, T18, CFG 3 with T5 in front (warmup, timed
@@ -53,7 +59,7 @@ raises and the exit code is non-zero. The last line is
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
 selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
-t5, surfaces, serving, train, gan, cascade, profile) while iterating; a
+t5, surfaces, serving, train, gan, cascade, eval, profile) while iterating; a
 subset prints its phases' lines and no result lines.
 """
 
@@ -77,7 +83,7 @@ from pathlib import Path
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
     "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
-    "gan", "cascade", "profile",
+    "gan", "cascade", "eval", "profile",
 )
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "qknorm_attention_bwd", "vq_search", "flash_attention")
 
@@ -108,6 +114,11 @@ EMA_VQ_KW = dict(codebook_dim=CODE_DIM, decay=0.8, commitment_weight=1.0, kmeans
 # `bench_ema_vq.py`'s EMA-VQ run: dim 64, 2 layers, 128px, batch 16, dead
 # codes revived below 2.0, no GAN, lr 1e-3; fed from a folder of PNGs
 MEM_DIM, MEM_LAYERS, MEM_IMAGE, MEM_BATCH, MEM_LR, MEM_STEPS, MEM_FILES = 64, 2, 128, 16, 1e-3, 30, 24
+# evaluation: the towers' batch, the generate requests of BATCH images whose
+# FID is taken, the images the towers are held against the CPU with
+EVAL_BATCH, EVAL_REQUESTS, EVAL_CPU_IMAGES = 64, 8, 4
+# the CPU tests' limits for the towers: rtol, and atol as a share of max |ref|
+TOWER_RTOL = 1e-4
 # 57-63 bytes each: with the end token, a T5 length of 64, so 64 + 256 cross-attention keys
 PROMPTS = (
     "a watercolor painting of a lighthouse on a cliff at sunrise",
@@ -3085,6 +3096,231 @@ def phase_cascade(torch, ctx):
     )
 
 
+def tower_close(got, ref) -> float:
+    """max |got - ref| / max |ref|; raises beyond the CPU tests' limits
+    (rtol TOWER_RTOL, atol TOWER_RTOL * max |ref|)."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    scale = float(ref.abs().max())
+    excess = ((got - ref).abs() - TOWER_RTOL * (ref.abs() + scale)).max().item()
+    require(bool(got.isfinite().all()) and excess <= 0, f"tower features beyond rtol/atol {TOWER_RTOL}: {excess:.3g}")
+    return float((got - ref).abs().max()) / scale
+
+
+def phase_eval(torch, ctx):
+    """Evaluation at the base stage's full width: (a) the two FID towers
+    alone, random weights from a seed drawn on the card: InceptionV3 pool3
+    at b64 299px and VGG16 fc2 at b64 256px through their extractors, img/s
+    by CUDA events (median of 5 after 2 warm-ups) and peak memory, and the
+    same 4 images through each tower on the CPU; (b) FID end to end: 256
+    images from `MaskGit.generate` (8 requests of b32, T18, CFG 3, each
+    K1 +18 and K2 +288), written as PNGs beside 256 seeded smooth "real"
+    images, then the port's `examples.compute_fid` `main(argv)` on the
+    card: `--real` with `--save-stats`, `--stats` with `--fake`, `--real`
+    against itself; the saved statistics load bit-equal, a set against
+    itself scores < 1e-4, the generated set against the real one a finite
+    FID above that. The extractor's device time and the Fréchet distance's
+    host time are read by wrapping the names the command line calls."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from muse_maskgit_pytorch_tpu_torch.examples import compute_fid
+    from muse_maskgit_pytorch_tpu_torch.models.inception import InceptionV3
+    from muse_maskgit_pytorch_tpu_torch.models.vgg import VGG16
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+    from muse_maskgit_pytorch_tpu_torch.utils import eval as ev
+    from muse_maskgit_pytorch_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    # -- (a) the towers alone
+    towers = {}
+    for name, cls, size, make in (
+        ("inception", InceptionV3, 299, lambda m: ev.make_inception_extractor(inception=m)),
+        ("vgg", VGG16, IMAGE, lambda m: ev.make_vgg_extractor(vgg=m)),
+    ):
+        with torch.device(dev):  # drawn on the card: a CPU draw of VGG16 takes seconds
+            tower = cls(generator=torch.Generator(dev).manual_seed(0), device=dev)
+        extract = make(tower)
+        x = torch.rand(EVAL_BATCH, size, size, 3, generator=g, device=dev)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            extract(x)
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            feats = extract(x)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        require(feats.shape == (EVAL_BATCH, 2048 if name == "inception" else 4096), f"{name}: features {tuple(feats.shape)}")
+        require(bool(feats.isfinite().all()), f"{name}: non-finite features")
+        # the same images through the same weights on the CPU
+        few = x[:EVAL_CPU_IMAGES]
+        cpu_feats = make(copy.deepcopy(tower).cpu())(few.cpu())
+        rel = tower_close(extract(few), cpu_feats)
+        again = extract(few)
+        require(torch.equal(again, extract(few)), f"{name}: a repeat on the card is not bit-identical")
+        ms = statistics.median(times)
+        towers[name] = dict(
+            batch=EVAL_BATCH, px=size, ms=ms, img_s=EVAL_BATCH / ms * 1e3, peak_gib=peak, cpu_max_rel_err=rel,
+        )
+        if name == "inception":
+            # at the command line's input, 256px: on the card (the resize
+            # included), and as the host batch the loader hands over
+            x256 = torch.rand(EVAL_BATCH, IMAGE, IMAGE, 3, generator=g, device=dev)
+            host = x256.cpu().numpy()
+            towers[name]["ms_256px_on_card"] = cuda_ms(lambda: extract(x256), iters=5)
+            towers[name]["ms_256px_from_host"] = cuda_ms(lambda: extract(host), iters=5)
+            del x256, host
+        del tower, extract, x, feats
+    torch.cuda.empty_cache()
+
+    # -- (b) FID end to end
+    maskgit = ctx.get("maskgit") or build_models(torch)
+    ctx["maskgit"] = maskgit
+    counted = (fused_topk_gumbel_sample, qknorm_attend, attend, nearest_code)  # K1, K2, K4, K3
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=scratch))
+    fake_dir, real_dir = tmp / "fake", tmp / "real"
+    fake_dir.mkdir()
+    real_dir.mkdir()
+    mask = torch.ones(BATCH, TEXT_LEN, dtype=torch.bool, device=dev)
+
+    def request(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        text = torch.randn(BATCH, TEXT_LEN, TEXT_DIM, generator=gen, device=dev)
+        return maskgit.generate(generator=gen, text_embeds=text, text_mask=mask, timesteps=STEPS, cond_scale=CFG)
+
+    request(1000)  # warm-up
+    for fn in counted:
+        fn.launches = 0
+    per_request, images = [], []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(EVAL_REQUESTS):
+        before = [fn.launches for fn in counted]
+        images.append(request(i))
+        per_request.append(tuple(fn.launches - b for fn, b in zip(counted, before)))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    eval_launches = dict(zip(("k1", "k2", "k4", "k3"), (fn.launches for fn in counted)))
+    for got in per_request:
+        require(got == (STEPS, STEPS * DEPTH * 2, 0, 0), f"K1, K2, K4, K3 launched {got} in an eval request")
+    fake = torch.cat(images)
+    n_images = fake.shape[0]
+    require(tuple(fake.shape) == (n_images, IMAGE, IMAGE, 3) and bool(fake.isfinite().all()), "generated images")
+    fake_u8 = (fake.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+    # "real": smooth seeded images (bilinear 8x8 noise), another distribution
+    low = torch.rand(n_images, 3, 8, 8, generator=torch.Generator(dev).manual_seed(22), device=dev)
+    real_u8 = (F.interpolate(low, size=(IMAGE, IMAGE), mode="bilinear") * 255).round().to(torch.uint8)
+    real_u8 = real_u8.permute(0, 2, 3, 1).cpu().numpy()
+    t = time.perf_counter()
+    for i in range(n_images):
+        (fake_dir / f"{i:04d}.png").write_bytes(encode_png(fake_u8[i]))
+        (real_dir / f"{i:04d}.png").write_bytes(encode_png(real_u8[i]))
+    png_s = time.perf_counter() - t
+
+    # the command line on the card, with its extractor's device time and
+    # the distance's host time read through the names it calls
+    extract_ms, distance_s, stats_seen = [], [], []
+    make, distance, compute = compute_fid.make_inception_extractor, ev.frechet_distance, compute_fid.compute_feature_stats
+
+    def timed_make(**kw):
+        inner = make(**kw)
+
+        def extract(images):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(images)
+            end.record()
+            extract_ms.append((start, end, out.shape[0]))
+            return out
+
+        return extract
+
+    def timed_distance(*a, **kw):
+        t0 = time.perf_counter()
+        out = distance(*a, **kw)
+        distance_s.append(time.perf_counter() - t0)
+        return out
+
+    def kept_stats(*a, **kw):
+        stats_seen.append(compute(*a, **kw))
+        return stats_seen[-1]
+
+    common = ["--image-size", str(IMAGE), "--batch-size", str(EVAL_BATCH)]
+    stats_file = tmp / "real_stats"
+    compute_fid.make_inception_extractor, ev.frechet_distance = timed_make, timed_distance
+    compute_fid.compute_feature_stats = kept_stats
+    try:
+        cli_s = []
+        t = time.perf_counter()
+        require(compute_fid.main(["--real", str(real_dir), "--save-stats", str(stats_file), *common]) is None, "stats only")
+        cli_s.append(time.perf_counter() - t)
+        saved = stats_seen[-1]
+        loaded = ev.FeatureStats.load(f"{stats_file}.npz")
+        require(
+            loaded.n == saved.n == n_images and np.array_equal(loaded._sum, saved._sum)
+            and np.array_equal(loaded._outer, saved._outer),
+            "the loaded statistics differ from the saved ones",
+        )
+        t = time.perf_counter()
+        fid = compute_fid.main(["--stats", f"{stats_file}.npz", "--fake", str(fake_dir), *common])
+        cli_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        fid_self = compute_fid.main(["--real", str(real_dir), "--fake", str(real_dir), *common])
+        cli_s.append(time.perf_counter() - t)
+    finally:
+        compute_fid.make_inception_extractor, ev.frechet_distance = make, distance
+        compute_fid.compute_feature_stats = compute
+    torch.cuda.synchronize()
+    shutil.rmtree(tmp, ignore_errors=True)
+    require(abs(fid_self) < 1e-4, f"FID of a set against itself {fid_self}")
+    require(math.isfinite(fid) and fid > fid_self, f"FID of the generated set {fid}")
+    require(tuple(fn.launches for fn in counted) == tuple(eval_launches.values()), "compute_fid launched a kernel")
+    ext_ms = sum(s.elapsed_time(e) for s, e, _ in extract_ms)
+    ext_n = sum(n for _, _, n in extract_ms)
+    ctx["eval"] = dict(
+        towers=towers, images=n_images, generate_img_s=n_images / gen_s, extract_img_s=ext_n / ext_ms * 1e3,
+        extract_device_ms=ext_ms, frechet_s=distance_s, fid=fid, fid_self=fid_self, cli_s=cli_s, png_s=png_s,
+        wall_s=time.perf_counter() - t_phase,
+    )
+    ctx["eval_launches"] = eval_launches
+    ctx["eval_per_request"] = dict(zip(("k1", "k2", "k4", "k3"), per_request[0]))
+    tw = "; ".join(
+        f"{n} b{r['batch']} {r['px']}px {r['img_s']:.1f} img/s ({r['ms']:.1f} ms a batch, median of 5), peak "
+        f"{r['peak_gib']:.2f} GiB, CPU agreement max rel err {r['cpu_max_rel_err']:.2e}"
+        for n, r in towers.items()
+    )
+    inc = towers["inception"]
+    tw += (
+        f"; inception's extractor at 256px (resized to 299 on the card): {inc['ms_256px_on_card']:.1f} ms a batch "
+        f"from the card, {inc['ms_256px_from_host']:.1f} ms from a host array (CUDA events, mean of 5)"
+    )
+    log(
+        f"[eval] towers (random init, f32): {tw} | generate {n_images} images (b{BATCH} x {EVAL_REQUESTS}, T{STEPS}, "
+        f"cfg{CFG:g}): {n_images / gen_s:.2f} img/s, K1 +{per_request[0][0]}, K2 +{per_request[0][1]} per request; "
+        f"PNGs written {png_s:.1f}s | compute_fid (Inception, random init): extraction {ext_n} images "
+        f"{ext_n / ext_ms * 1e3:.1f} img/s by CUDA events; frechet_distance (two eigh, 2048 x 2048 f64) "
+        f"{', '.join(f'{x:.2f}' for x in distance_s)} s on the host; FID generated vs real {fid:.6g}, real vs "
+        f"itself {fid_self:.3g}; stats saved and loaded bit-equal; the three calls {', '.join(f'{x:.1f}' for x in cli_s)} s "
+        f"| {ctx['smi']} | phase {time.perf_counter() - t_phase:.1f} s"
+    )
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -3095,7 +3331,11 @@ def main(argv=None) -> int:
             parser.error(f"unknown phase {p!r}")
 
     # the port must come from this checkout; without it there is nothing to run
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(__file__).resolve().parent
+    if not (root / "muse_maskgit_pytorch_tpu_torch").is_dir():
+        print(f"chip_smoke.py: no muse_maskgit_pytorch_tpu_torch/ beside {root}: run it from a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
     import torch
 
     if not torch.cuda.is_available():
@@ -3116,16 +3356,17 @@ def main(argv=None) -> int:
     # launches per request, as counted: K1 and K2 per `generate` request and
     # per cascade request, K3 per EMA-VQ encode, K4 in one `generate`
     # request, one cascade request and one encode of each tokenizer (the
-    # model paths). `launches` sums the timed requests of both driven paths.
+    # model paths). `launches` sums the timed requests of every driven path.
     ctx["k4"]["launches_per_request"] = (
         ctx["k4_per_request"] + ctx["k4_per_encode"] + ctx["cascade_per_request"]["k4"]
     )
     for tag in ("k1", "k2", "k4", "k3"):
         ctx[tag]["launches"] += (
             ctx["cascade_launches"][tag] + ctx["surface_launches"][tag] + ctx["serving_launches"][tag]
-            + ctx["train_launches"][tag] + ctx["gan_launches"][tag]
+            + ctx["train_launches"][tag] + ctx["gan_launches"][tag] + ctx["eval_launches"][tag]
         )
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
+        ctx[tag]["launches_per_eval_request"] = ctx["eval_per_request"][tag]
     rows = [
         ("k1", "fused_topk_gumbel_sample", "sampling_kernel.cu", "sampling_kernel.py:57"),
         ("k2", "qknorm_attend", "qknorm_attention.cu", "attention.py:242"),
@@ -3134,7 +3375,8 @@ def main(argv=None) -> int:
     ]
     keys = (
         "launches", "launches_per_request", "launches_per_cascade_request", "launches_per_surface_request",
-        "launches_per_serving_batch", "launches_per_train_step", "launches_per_gan_step", "max_abs_err", "ms",
+        "launches_per_serving_batch", "launches_per_train_step", "launches_per_gan_step", "launches_per_eval_request",
+        "max_abs_err", "ms",
         "plain_ms", "bound_ms",
         "bound_by", "library_ms",
     )
@@ -3156,7 +3398,7 @@ def main(argv=None) -> int:
             {
                 "cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"], "surfaces": ctx["surfaces"],
                 "vaes_share_weights_ms": ctx["vaes_share_weights_ms"], "serving": ctx["serving"],
-                "train": ctx["train"], "gan": ctx["gan"],
+                "train": ctx["train"], "gan": ctx["gan"], "eval": ctx["eval"],
             }
         ),
         flush=True,

@@ -16,11 +16,16 @@ and module checkpoints in the JAX package's file format, read and written
 without JAX (`MaskGit.load` / `save`, `utils.checkpoint`); and training
 (`MaskGit.forward`, the masked-token loss, with K2's gradient, and
 `MaskGitTrainer`: Adam / AdamW, schedule, EMA, accumulation, train-state
-checkpoints with exact resume, token shards). Their four hand-written CUDA
-kernels (`ops.sampling_kernel`, `ops.attention`, `ops.vq`) are built from
-`csrc/` on first use. The public modules below take
-`device=` and are built on the GPU ("cuda") unless the caller asks for the
-CPU. See ROADMAP.md for what is still to come.
+checkpoints with exact resume, token shards); and evaluation (streaming FID
+over the `InceptionV3` or `VGG16` tower: `FeatureStats`, `fid_score`,
+`make_inception_extractor`, with the torchvision and Hugging Face weight
+converters of `utils.convert` reading local files only, and
+`utils.metrics.profile_trace`). The example command lines are
+`muse_maskgit_pytorch_tpu_torch.examples.<name>`, each run with
+`python -m`. Their four hand-written CUDA kernels (`ops.sampling_kernel`,
+`ops.attention`, `ops.vq`) are built from `csrc/` on first use. The public
+modules below take `device=` and are built on the GPU ("cuda") unless the
+caller asks for the CPU. See ROADMAP.md for what is still to come.
 """
 
 from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
@@ -41,6 +46,14 @@ from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
     VQGanVAE,
     t5_encode_text,
     vaes_share_weights,
+)
+from muse_maskgit_pytorch_tpu_torch.utils.eval import (  # noqa: F401
+    FeatureStats,
+    compute_feature_stats,
+    fid_score,
+    frechet_distance,
+    make_inception_extractor,
+    make_vgg_extractor,
 )
 from muse_maskgit_pytorch_tpu_torch.utils.from_jax import load_jax_state  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.serving import GeneratePipeline  # noqa: F401

@@ -145,24 +145,30 @@ def conv_ieee(x, w, b, stride, padding, transposed: bool = False, output_padding
 class Conv2d(nn.Conv2d):
     """NCHW convolution with flax's lecun-normal kernel and zero bias.
 
-    `padding` is symmetric: flax's `padding=p` or `((p, p), (p, p))`, at any
-    stride (for a 4x4 kernel at stride 2 and p 1 both give floor(h / 2))."""
+    `kernel` is an int or (kh, kw); `padding` is symmetric along each axis:
+    flax's `padding=p` or `((p, p), (p, p))` (or (ph, pw) for
+    `((ph, ph), (pw, pw))`), at any stride (for a 4x4 kernel at stride 2
+    and p 1 both give floor(h / 2)). `bias=False` is flax's
+    `use_bias=False`."""
 
     def __init__(
-        self, cin: int, cout: int, kernel: int, padding: int = 0, stride: int = 1, *,
+        self, cin: int, cout: int, kernel, padding=0, stride=1, *, bias: bool = True,
         dtype: Optional[torch.dtype] = None, generator=None,
     ):
-        super().__init__(cin, cout, kernel, stride=stride, padding=padding)
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
         self.compute_dtype = dtype
-        lecun_normal_(self.weight, cin * kernel * kernel, generator)
-        nn.init.zeros_(self.bias)
+        kh, kw = self.kernel_size
+        lecun_normal_(self.weight, cin * kh * kw, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def reset_parameters(self) -> None:
         """Initialised in __init__ with the JAX initialiser instead."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self, x)
-        return conv_ieee(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding)
+        b = self.bias.to(dt) if self.bias is not None else None
+        return conv_ieee(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

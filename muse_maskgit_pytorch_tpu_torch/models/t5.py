@@ -17,11 +17,14 @@ Same contract as the JAX module:
   * one cached encoder per (name, device): `get_model_and_tokenizer`,
     `set_model`.
 
-Weights: random init from seed 0, or a JAX `T5Encoder`'s state carried over
-by `utils.from_jax.load_jax_state` and injected with `set_model`. The
-tokenizer is the byte-level one. Pretrained Hugging Face weights and the
-SentencePiece vocabulary need files that are not in the repository:
-`HFTokenizer` and `load_hf_t5_weights` raise until they are.
+Weights and tokenizer, as the JAX package chooses them: for a built-in
+name, a Hugging Face `T5EncoderModel` and its tokenizer from local files
+(a directory or the local Hugging Face cache; `local_files_only=True`,
+nothing is downloaded) when they are there; otherwise, and for a config
+registered at run time, random init from seed 0 and the byte-level
+tokenizer. A JAX `T5Encoder`'s state carried over by
+`utils.from_jax.load_jax_state` is injected with `set_model`.
+`transformers` is imported only when a local file is looked for.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models._layers import Embedding, Linear
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import not_ported, resolve_device
+from muse_maskgit_pytorch_tpu_torch.utils.convert import load_hf_t5_weights  # noqa: F401  (re-export)
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import resolve_device
 
 MAX_LENGTH = 256
 DEFAULT_T5_NAME = "google/t5-v1_1-base"
@@ -68,6 +72,9 @@ T5_CONFIGS: Dict[str, T5Config] = {
     "t5-base": T5Config(768, 3072, 12, 64, 12, False),
     "t5-large": T5Config(1024, 4096, 16, 64, 24, False),
 }
+# the names a hub knows; a config registered at run time is offline by
+# definition and goes straight to random init
+_BUILTIN_CONFIGS = frozenset(T5_CONFIGS)
 
 
 def get_config(name: str) -> T5Config:
@@ -246,17 +253,22 @@ class ByteFallbackTokenizer:
 
 
 class HFTokenizer:
-    """The SentencePiece tokenizer of a Hugging Face T5: needs its vocabulary
-    file, which is not in the repository."""
+    """A Hugging Face tokenizer (T5's SentencePiece vocabulary) from a
+    local directory or the local cache (`local_files_only=True`): the same
+    (ids int32, mask bool) as the JAX package's `HFTokenizer`."""
 
     def __init__(self, name: str):
-        raise not_ported(f"the Hugging Face tokenizer of {name!r} (no vocabulary file here)", "A13")
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(name, local_files_only=True)
+
+    def __call__(self, texts: List[str], max_length: int) -> Tuple[np.ndarray, np.ndarray]:
+        enc = self.tok(texts, return_tensors="np", padding="longest", max_length=max_length, truncation=True)
+        return enc["input_ids"].astype(np.int32), enc["attention_mask"].astype(bool)
 
 
-def load_hf_t5_weights(model: T5Encoder, name: str):
-    """Pretrained Hugging Face weights: need files that are not in the
-    repository."""
-    raise not_ported(f"loading Hugging Face weights of {name!r} (no weight files here)", "A13")
+# what a missing file, a missing `transformers` or an unreadable directory raises
+_NOT_LOCAL = (ImportError, OSError, ValueError)
 
 
 # ---------------------------------------------------------------------------
@@ -274,14 +286,27 @@ def _key(name: str, device) -> Tuple[str, str]:
 
 
 def get_model_and_tokenizer(name: str, device="cuda"):
-    """The cached (encoder, tokenizer) of `name` on `device`; built at random
-    init from seed 0 with the byte tokenizer the first time (inject real
-    weights with `set_model`)."""
+    """The cached (encoder, tokenizer) of `name` on `device`. Built the
+    first time as the JAX package builds it: for a built-in name, Hugging
+    Face weights and tokenizer from local files where they are (read
+    without any network); else random init from seed 0 and the byte
+    tokenizer. Inject other weights with `set_model`."""
     device = resolve_device(device)
     key = _key(name, device)
     if key not in _T5_CACHE:
         model = T5Encoder(get_config(name), generator=torch.Generator().manual_seed(0), device=device)
-        _T5_CACHE[key] = dict(model=model, tokenizer=ByteFallbackTokenizer(), pretrained=False)
+        pretrained, tokenizer = False, None
+        if name in _BUILTIN_CONFIGS:
+            try:
+                load_hf_t5_weights(model, name)
+                pretrained = True
+            except _NOT_LOCAL:
+                pass  # random init, as documented above
+            try:
+                tokenizer = HFTokenizer(name)
+            except _NOT_LOCAL:
+                pass  # the byte tokenizer
+        _T5_CACHE[key] = dict(model=model, tokenizer=tokenizer or ByteFallbackTokenizer(), pretrained=pretrained)
     entry = _T5_CACHE[key]
     return entry["model"], entry["tokenizer"]
 

@@ -28,10 +28,13 @@ state dict, in the JAX layout, with a module that the JAX state holds once
 A file that the JAX package's `save_module` wrote is read without JAX by
 `utils.checkpoint.load_module` (through `utils.msgpack_codec`, which needs
 neither flax nor msgpack), which hands the decoded tree to `load_jax_state`.
-The `Discriminator` and `VGG16` are built of these layers under the JAX
-names, so they bridge by the same rules. The leaves that no port module
-takes (a discriminator's, when a GAN VAE's file is loaded into a VAE built
-with `use_vgg_and_gan=False`) are skipped and returned by name.
+The `Discriminator`, `VGG16` and `InceptionV3` are built of these layers
+under the JAX names, so they bridge by the same rules: an `InceptionV3`
+`BasicConv2d` is a bias-free `conv` (kernel HWIO -> weight OIHW) and its
+BatchNorm statistics `bn_scale`, `bn_bias`, `bn_mean`, `bn_var`, which keep
+their names. The leaves that no port module takes (a discriminator's, when
+a GAN VAE's file is loaded into a VAE built with `use_vgg_and_gan=False`)
+are skipped and returned by name.
 """
 
 from __future__ import annotations

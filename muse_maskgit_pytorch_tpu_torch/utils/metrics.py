@@ -2,11 +2,13 @@
 `muse_maskgit_pytorch_tpu/utils/metrics.py`): an append-only JSONL of
 per-step scalars, a rolling step timer, and the analytic model FLOPs of a
 MaskGit forward, `generate` call and train step, for MFU against the H100's
-dense bf16 peak. The profiler hook waits for ROADMAP A13.
+dense bf16 peak; and `profile_trace`, a TensorBoard trace of a block of
+work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from collections import deque
@@ -171,3 +173,22 @@ def maskgit_train_flops(
         critic_fwd = transformer_forward_flops(batch, seq_len, m_cross, dim=dim, depth=depth, ff_mult=ff_mult)
         total += 3.0 * (critic_fwd + ctx_kv + batch * seq_len * 2 * dim)
     return float(total + vae_encode_flops)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir, enabled: bool = True):
+    """`with profile_trace("traces/step"): trainer.train_step()` writes a
+    TensorBoard-viewable trace (`torch.profiler`, the card's kernels too
+    when a card is present) of everything run inside, into `log_dir`.
+    With `enabled=False` it runs the block and writes nothing."""
+    if not enabled:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield

@@ -789,3 +789,28 @@ def test_f32_conv_gradients_ignore_cudnn_tf32(dev, transposed):
     default, ieee = grads(True, conv), grads(False, conv)
     for name, a, b in zip(names, default, ieee):
         assert torch.equal(a, b), name
+
+
+# -- the FID towers on the card ----------------------------------------------
+
+
+@pytest.mark.parametrize("tower", ["inception", "vgg"])
+def test_fid_towers_on_the_card_match_the_cpu(dev, tower):
+    """The towers through their extractors, the same weights and 4 images on
+    the card and on the CPU, at the CPU tests' limits (rtol 1e-4, atol 1e-4
+    of the largest feature): f32 convolutions stay IEEE on the card. A
+    repeat on the card is bit-identical."""
+    from muse_maskgit_pytorch_tpu_torch.utils import eval as ev
+
+    if tower == "inception":
+        make, kw, px = ev.make_inception_extractor, {"resize_to": 96}, 128  # a shrinking resize
+    else:
+        make, kw, px = ev.make_vgg_extractor, {}, 64
+    x = torch.rand(4, px, px, 3, generator=torch.Generator().manual_seed(2))
+    on_cpu = make(device="cpu", seed=3, **kw)
+    on_card = make(device=dev, seed=3, **kw)
+    ref = on_cpu(x)
+    got = on_card(x)
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(on_card(x.to(dev)), got)
