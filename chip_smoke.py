@@ -59,7 +59,7 @@ raises and the exit code is non-zero. The last line is
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
 selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
-t5, surfaces, serving, train, gan, cascade, eval, profile) while iterating; a
+t5, surfaces, serving, train, gan, cascade, eval, parallel, profile) while iterating; a
 subset prints its phases' lines and no result lines.
 """
 
@@ -83,7 +83,7 @@ from pathlib import Path
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
     "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
-    "gan", "cascade", "eval", "profile",
+    "gan", "cascade", "eval", "parallel", "profile",
 )
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "qknorm_attention_bwd", "vq_search", "flash_attention")
 
@@ -409,13 +409,32 @@ def phase_k1(torch, ctx):
     idx0, _ = sample(logits, TOPK, 0.0, seed)
     at_max = l32.gather(1, idx0.long()[:, None])[:, 0] == l32.amax(-1)
     require(bool(at_max.all()), "K1 temp 0 is not the argmax")
-    idx, _ = sample(logits, TOPK, 1.0, seed)
+    idx, prob_whole = sample(logits, TOPK, 1.0, seed)
     thresh = topk_threshold_plain(l32, TOPK)
     chosen = l32.gather(1, idx.long()[:, None])
     require(bool((chosen >= thresh).all()), "K1 sampled outside the top-k set")
     pidx, _ = plain(logits[:256], TOPK, 1.0, seed)
     agree_philox = (idx[:256] == pidx).float().mean().item()
     require(agree_philox >= 0.99, f"K1 Philox stream vs plain Philox agree {agree_philox:.4f}")
+    # a data-parallel rank's rows: `row_offset` keys the Philox stream on the
+    # global row, so rows [off, off + n) of a batch sample what they sample
+    # in the whole batch, in the kernel and in the plain version alike
+    off, n_off = 133, 256
+    idx_off, prob_off = sample(logits[off : off + n_off], TOPK, 1.0, seed, row_offset=off)
+    pidx_whole, pprob_whole = plain(logits[: off + n_off], TOPK, 1.0, seed)
+    pidx_off, pprob_off = plain(logits[off : off + n_off], TOPK, 1.0, seed, row_offset=off)
+    torch.cuda.synchronize()
+    require(
+        torch.equal(idx_off, idx[off : off + n_off]) and torch.equal(prob_off, prob_whole[off : off + n_off]),
+        "K1 with a row offset differs from its own rows of the whole batch",
+    )
+    require(
+        torch.equal(pidx_off, pidx_whole[off:]) and torch.equal(pprob_off, pprob_whole[off:]),
+        "the plain version with a row offset differs from its rows of the whole batch",
+    )
+    agree_offset = (idx_off == pidx_off).float().mean().item()
+    require(agree_offset >= 0.99, f"K1 with a row offset vs the plain version agree {agree_offset:.4f}")
+    ctx["k1_row_offset"] = dict(offset=off, rows=n_off, agree_plain=agree_offset, exact_vs_whole_batch=True)
     # frequencies on a small vocabulary (k = V: no filtering) against softmax;
     # bound 0.01 is > 5 sigma of a frequency at 2^16 draws
     p = torch.tensor([0.5, 0.2, 0.1, 0.05, 0.05, 0.04, 0.03, 0.03], device=dev)
@@ -477,6 +496,8 @@ def phase_k1(torch, ctx):
     log(
         f"[k1] fused_topk_gumbel_sample ok: ids exact (bf16, cfg_pair, cfg_pair device scale, odd f32; {', '.join(stress)}), "
         f"prob abs err {err:.3g} (rel <= 1e-5); temp0=argmax, top-k set, Philox agree {agree_philox:.4f}, "
+        f"row_offset {off}: rows {off}..{off + n_off - 1} ids and probs bit-equal to the whole batch's in the kernel "
+        f"and in the plain version, kernel vs plain agree {agree_offset:.4f}, "
         f"freq dev {dev_max:.4f}; ({rows}, {VOCAB}) bf16 {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.0%} of it reached; device time by graph replay: "
         f"{small_s}; super-res step 0 ({sr_rows}, {VOCAB}) bf16 ids exact, {sr_ms:.3f} ms vs plain "
@@ -985,6 +1006,264 @@ def phase_generate(torch, ctx):
         f"K2 +{per_request[0][1]}, K4 +{per_request[0][2]} launches per request | {ctx['smi']} | models built "
         f"{t_build:.1f}s, warm-up {t_warm:.1f}s"
     )
+
+
+def phase_parallel(torch, ctx):
+    """[parallel]: data-parallel and FSDP training and serving over a
+    process group of world size 1 (the card's machine holds one H100): an
+    NCCL group on 127.0.0.1, destroyed at the phase's end, so every later
+    phase runs without one.
+
+    (a) `MaskGitTrainer(mesh=create_mesh(), shard_state=True)` at [train]'s
+        full width (b64, seq 256, dim 512, depth 8, vocab 65536, text
+        64x768, self-conditioning), f32: 2 steps from one seed against the
+        unwrapped trainer (`mesh=TrivialMesh()`): losses within 1e-4
+        relative and every leaf within 1e-3 of the largest change of the
+        leaf ([train]'s f32 limits; bit-equality is printed), K2's forward
+        16 or 32 and its backward 16 launches a step inside the wrapped step.
+    (b) the bf16 wrapped trainer: ms a step over 10 after 2 (host clock
+        around synchronised steps, as [train] times it) beside [train]'s
+        unwrapped step of this run, peak memory, `sharded_state_bytes`.
+    (c) a save of the wrapped trainer's state and a load into a fresh
+        wrapped trainer, seconds each, then one step on each: the losses
+        and every weight bit-equal.
+    (d) one `VQGanVAETrainer` EMA-VQ step at [gan]'s scale with
+        `shard_state=True` against the unwrapped step, after the k-means
+        step on both: K3 3 launches in it, the k-means step's logs within
+        1e-5 relative and the next's within 1e-4, the codebooks bit-equal
+        after the k-means step and at most 0.1% of their rows apart by more
+        than 1e-5 after the next.
+    (e) `GeneratePipeline(mesh=)` b16 T18 CFG 3 against the pipeline
+        without a mesh, one seed: uint8 images equal.
+    """
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from muse_maskgit_pytorch_tpu_torch import VGG16, VQGanVAE, VQGanVAETrainer
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend, qknorm_attend_backward
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+    from muse_maskgit_pytorch_tpu_torch.parallel import TrivialMesh, create_mesh, init_distributed, sharded_state_bytes
+    from muse_maskgit_pytorch_tpu_torch.serving import GeneratePipeline
+    from muse_maskgit_pytorch_tpu_torch.training import MaskGitTrainer
+
+    t_phase = time.perf_counter()
+    dev = "cuda"
+    counted = dict(k1=fused_topk_gumbel_sample, k2=qknorm_attend, k3=nearest_code, k4=attend)
+    launches = dict.fromkeys(counted, 0)
+    with socket.socket() as s:  # a free port on the loopback interface
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    init_distributed(backend="nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    t_init = time.perf_counter() - t0
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "the NCCL group of one rank did not form")
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=scratch))
+    out = {}
+    try:
+        mesh = create_mesh()
+        g = torch.Generator(device=dev).manual_seed(21)
+        ids = torch.randint(0, VOCAB, (1, TRAIN_BATCH, SEQ), generator=g, device=dev)
+        te = torch.randn(1, TRAIN_BATCH, TEXT_LEN, TEXT_DIM, generator=g, device=dev)
+        tm = torch.arange(TEXT_LEN, device=dev) < torch.randint(8, TEXT_LEN + 1, (1, TRAIN_BATCH, 1), generator=g, device=dev)
+        batch = (ids, te * tm[..., None], tm)
+
+        def trainer(name, dtype, wrapped, **kw):
+            model = build_models(torch, dtype=dtype, with_vae=False, self_cond=True)
+            return MaskGitTrainer(
+                model, num_train_steps=10**6, batch_size=TRAIN_BATCH, lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                results_folder=str(tmp / name), save_model_every=10**9, mesh=mesh if wrapped else TrivialMesh(),
+                shard_state=wrapped, **kw,
+            )
+
+        # -- (a) f32: the wrapped step against the unwrapped one
+        plain_t, wrapped_t = trainer("f32_plain", torch.float32, False), trainer("f32_wrapped", torch.float32, True)
+        start = [p.detach().clone() for p in plain_t.params]
+        k2_fwd, k2_bwd, losses = [], [], {"plain": [], "wrapped": []}
+        for _ in range(2):
+            losses["plain"].append(plain_t.train_step_arrays(*batch)["loss"])
+            f0, b0 = qknorm_attend.launches, qknorm_attend_backward.launches
+            losses["wrapped"].append(wrapped_t.train_step_arrays(*batch)["loss"])
+            k2_fwd.append(qknorm_attend.launches - f0)
+            k2_bwd.append(qknorm_attend_backward.launches - b0)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["wrapped"], losses["plain"]))
+        leaf = max(
+            (w - p).abs().max().item() / max((p - s).abs().max().item(), 1e-30)
+            for w, p, s in zip(wrapped_t.dp.gather(wrapped_t.dp.masters), plain_t.params, start)
+        )
+        bitwise = all(torch.equal(w, p) for w, p in zip(wrapped_t.dp.gather(wrapped_t.dp.masters), plain_t.params))
+        require(rel <= 1e-4, f"[parallel] f32 wrapped loss {losses['wrapped']} vs unwrapped {losses['plain']}")
+        require(leaf <= 1e-3, f"[parallel] f32 wrapped weights differ by {leaf:.3g} of a leaf's change")
+        require(all(n in (2 * DEPTH, 4 * DEPTH) for n in k2_fwd), f"[parallel] K2 forward launches a step {k2_fwd}")
+        require(all(n == 2 * DEPTH for n in k2_bwd), f"[parallel] K2 backward launches a step {k2_bwd}")
+        del plain_t, wrapped_t, start
+        log(
+            f"[parallel] NCCL group of 1 on 127.0.0.1:{port} in {t_init:.2f} s; MaskGitTrainer(mesh=create_mesh(), "
+            f"shard_state=True) f32 b{TRAIN_BATCH} seq {SEQ} dim {DIM} depth {DEPTH} vocab {VOCAB}, 2 steps vs the "
+            f"unwrapped trainer: loss {', '.join(f'{x:.6f}' for x in losses['wrapped'])} vs "
+            f"{', '.join(f'{x:.6f}' for x in losses['plain'])} ({rel:.2g} relative), weights within {leaf:.2g} of a "
+            f"leaf's change (bit-equal: {bitwise}); launches a wrapped step K2 {k2_fwd}, K2 backward {k2_bwd}"
+        )
+
+        # -- (b) bf16: the wrapped step's time, memory and state
+        torch.cuda.empty_cache()
+        bf = trainer("bf16", None, True)
+        for _ in range(TRAIN_WARM):
+            bf.train_step_arrays(*batch)
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_losses = [bf.train_step_arrays(*batch)["loss"] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1000
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, fn in counted.items():
+            launches[k] += fn.launches
+        require(all(math.isfinite(x) for x in step_losses), f"[parallel] bf16 losses {step_losses}")
+        require(launches["k2"] in range(2 * DEPTH * TRAIN_STEPS, 4 * DEPTH * TRAIN_STEPS + 1), f"K2 {launches}")
+        total, local = sharded_state_bytes(bf.state)
+        unwrapped_ms = ctx.get("train", {}).get("ms_per_step")
+
+        # -- (c) save, load into a fresh wrapped trainer, one step on each
+        t0 = time.perf_counter()
+        bf.save()
+        t_save = time.perf_counter() - t0
+        fresh = trainer("bf16", None, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load()
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        next_a, next_b = bf.train_step_arrays(*batch)["loss"], fresh.train_step_arrays(*batch)["loss"]
+        same = next_a == next_b and all(
+            torch.equal(a, b) for a, b in zip(bf.dp.gather(bf.dp.masters) + bf.ema, fresh.dp.gather(fresh.dp.masters) + fresh.ema)
+        )
+        require(same and fresh.steps == bf.steps, f"[parallel] the resumed step differs: loss {next_b} vs {next_a}")
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "bf16" / "checkpoints").rglob("*") if f.is_file())
+        del bf, fresh
+        torch.cuda.empty_cache()
+        out["train"] = dict(
+            f32_loss_rel=rel, f32_leaf_rel=leaf, f32_bitwise=bitwise, k2_forward_per_step=k2_fwd,
+            k2_backward_per_step=k2_bwd, bf16_ms_per_step=step_ms, unwrapped_ms_per_step=unwrapped_ms,
+            peak_gib=peak, state_bytes_total=total, state_bytes_per_rank=local, save_s=t_save, load_s=t_load,
+            checkpoint_bytes=ckpt_bytes,
+        )
+        beside = f" ([train]'s unwrapped step {unwrapped_ms:.2f} ms in this run)" if unwrapped_ms else ""
+        log(
+            f"[parallel] bf16 wrapped step: {step_ms:.2f} ms/step over {TRAIN_STEPS} after {TRAIN_WARM}{beside}, "
+            f"{TRAIN_BATCH / step_ms * 1000:.2f} img/s, peak {peak:.2f} GiB, sharded_state_bytes {total / 2**30:.3f} "
+            f"GiB total, {local / 2**30:.3f} GiB this rank | save {t_save:.2f} s, load {t_load:.2f} s "
+            f"({ckpt_bytes / 2**30:.3f} GiB), the resumed step bit-equal (loss {next_b:.6f}) | {ctx['smi']}"
+        )
+
+        # -- (d) an EMA-VQ GAN step at [gan]'s scale, wrapped and not
+        imgs = torch.rand(1, GAN_BATCH, IMAGE, IMAGE, 3, generator=g, device=dev)
+
+        def card_built(cls, **kw):
+            with torch.device(dev):
+                return cls(generator=torch.Generator(dev).manual_seed(0), device=dev, **kw)
+
+        vgg = card_built(VGG16)
+        gan = {}
+        # deterministic kernels where there are any, as [gan]'s exact resume
+        # takes them (warn_only: the GAN's towers run ops that have none)
+        saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for name, wrapped in (("plain", False), ("wrapped", True)):
+            vae = card_built(
+                VQGanVAE, dim=VAE_DIM, layers=VAE_LAYERS, codebook_size=VOCAB, use_vgg_and_gan=True, vgg=vgg,
+                lookup_free_quantization=False, vq_kwargs=EMA_VQ_KW,
+            )
+            t = VQGanVAETrainer(
+                vae, folder=None, dataset=[np.zeros((IMAGE, IMAGE, 3), np.float32)], num_train_steps=10**6,
+                batch_size=GAN_BATCH, image_size=IMAGE, results_folder=str(tmp / f"gan_{name}"),
+                save_results_every=10**9, save_model_every=10**9, valid_frac=0.0, use_ema=True,
+                mesh=mesh if wrapped else TrivialMesh(), shard_state=wrapped,
+            )
+            logs0 = t.train_step_arrays(imgs, imgs)  # k-means and the first update
+            first = t.vae.quantizer.codebook.clone()
+            nearest_code.launches = 0
+            logs = t.train_step_arrays(imgs, imgs)
+            gan[name] = ((logs0, logs), nearest_code.launches, first, t.vae.quantizer.codebook.clone())
+            launches["k3"] += nearest_code.launches
+            del t, vae
+        torch.use_deterministic_algorithms(False)
+        if saved_env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+        (lp, k3p, first_p, cbp), (lw, k3w, first_w, cbw) = gan["plain"], gan["wrapped"]
+
+        def rel(step):
+            return max(abs(lw[step][k] - lp[step][k]) / max(abs(lp[step][k]), 1e-30) for k in ("loss", "discr_loss", "grad_norm"))
+
+        gan_rel0, gan_rel = rel(0), rel(1)
+        require(k3w == k3p == 3, f"[parallel] K3 launches in the EMA-VQ step: wrapped {k3w}, unwrapped {k3p}")
+        # the first step starts from one state; the second from weights that
+        # the first step's non-deterministic kernels moved apart at rounding
+        # level, which Adam can turn into lr-sized moves of a few weights
+        require(gan_rel0 <= 1e-5, f"[parallel] the first EMA-VQ step's logs differ by {gan_rel0:.3g}: {lw[0]} vs {lp[0]}")
+        require(gan_rel <= 1e-4, f"[parallel] EMA-VQ step logs differ by {gan_rel:.3g}: {lw[1]} vs {lp[1]}")
+        # the first step's codebook (k-means and an EMA update from the same
+        # weights) is bit-equal; the second's rests on weights that one step
+        # of gradients with non-deterministic kernels (the towers' pooling
+        # backward) moved, and a latent that changes its nearest code moves
+        # two rows of the codebook whole: at most 0.1% of the rows may differ
+        require(torch.equal(first_w, first_p), "[parallel] the EMA-VQ codebooks differ after the k-means step")
+        rows_off = int(((cbw - cbp).abs().amax(dim=-1) > 1e-5).sum())
+        require(rows_off <= cbw.shape[0] // 1000, f"[parallel] {rows_off} EMA-VQ codebook rows differ after the step")
+        cb_equal = torch.equal(cbw, cbp)
+        del vgg, gan
+        torch.cuda.empty_cache()
+        out["gan"] = dict(
+            k3_per_step=k3w, first_step_logs_rel=gan_rel0, logs_rel=gan_rel, codebook_rows_differing=rows_off,
+            codebook_equal=cb_equal,
+        )
+
+        # -- (e) the pipeline over the mesh
+        base = ctx.get("maskgit") or build_models(torch)
+        ctx["maskgit"] = base
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            images = {}
+            for name, m in (("plain", None), ("mesh", mesh)):
+                pipe = GeneratePipeline(
+                    base, batch_size=SERVE_BATCH, timesteps=STEPS, cond_scale=CFG, text_len=TEXT_LEN,
+                    return_pil=False, seed=3, mesh=m,
+                )
+                k1_before = fused_topk_gumbel_sample.launches
+                images[name] = pipe(list(PROMPTS))
+                launches["k1"] += fused_topk_gumbel_sample.launches - k1_before
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        require(
+            images["mesh"].shape == (len(PROMPTS), IMAGE, IMAGE, 3) and np.array_equal(images["mesh"], images["plain"]),
+            "[parallel] GeneratePipeline(mesh=) gave other images than without a mesh",
+        )
+        out["serving"] = dict(images_equal=True, prompts=len(PROMPTS))
+        log(
+            f"[parallel] VQGanVAETrainer EMA-VQ step at [gan]'s scale (dim {VAE_DIM}, {VAE_LAYERS} layers, K {VOCAB}, "
+            f"{IMAGE}px, b{GAN_BATCH}, VGG16 + discriminator), shard_state=True vs unwrapped: K3 {k3w} a step, logs "
+            f"within {gan_rel0:.2g} relative in the k-means step, {gan_rel:.2g} in the next, codebooks bit-equal after the k-means step, {rows_off} of "
+            f"{cbw.shape[0]} rows apart by > 1e-5 after the next (bit-equal: {cb_equal}) | GeneratePipeline(mesh=) b{SERVE_BATCH} T{STEPS} CFG "
+            f"{CFG:g}, {len(PROMPTS)} prompts: uint8 images equal to the pipeline without a mesh | "
+            f"{time.perf_counter() - t_phase:.1f} s"
+        )
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    ctx["parallel"] = out
+    ctx["parallel_launches"] = launches
 
 
 def phase_profile(torch, ctx):
@@ -3364,6 +3643,7 @@ def main(argv=None) -> int:
         ctx[tag]["launches"] += (
             ctx["cascade_launches"][tag] + ctx["surface_launches"][tag] + ctx["serving_launches"][tag]
             + ctx["train_launches"][tag] + ctx["gan_launches"][tag] + ctx["eval_launches"][tag]
+            + ctx["parallel_launches"][tag]
         )
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
         ctx[tag]["launches_per_eval_request"] = ctx["eval_per_request"][tag]
@@ -3398,7 +3678,8 @@ def main(argv=None) -> int:
             {
                 "cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"], "surfaces": ctx["surfaces"],
                 "vaes_share_weights_ms": ctx["vaes_share_weights_ms"], "serving": ctx["serving"],
-                "train": ctx["train"], "gan": ctx["gan"], "eval": ctx["eval"],
+                "train": ctx["train"], "gan": ctx["gan"], "eval": ctx["eval"], "parallel": ctx["parallel"],
+                "k1_row_offset": ctx["k1_row_offset"],
             }
         ),
         flush=True,

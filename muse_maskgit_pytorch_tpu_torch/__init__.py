@@ -20,7 +20,10 @@ checkpoints with exact resume, token shards); and evaluation (streaming FID
 over the `InceptionV3` or `VGG16` tower: `FeatureStats`, `fid_score`,
 `make_inception_extractor`, with the torchvision and Hugging Face weight
 converters of `utils.convert` reading local files only, and
-`utils.metrics.profile_trace`). The example command lines are
+`utils.metrics.profile_trace`); and data-parallel and FSDP training and
+serving over a `torch.distributed` process group (`parallel`: the JAX
+package's mesh functions, both trainers' `mesh=` / `shard_state=`,
+`GeneratePipeline(mesh=)`). The example command lines are
 `muse_maskgit_pytorch_tpu_torch.examples.<name>`, each run with
 `python -m`. Their four hand-written CUDA kernels (`ops.sampling_kernel`,
 `ops.attention`, `ops.vq`) are built from `csrc/` on first use. The public

@@ -11,7 +11,9 @@
 //      bit-identical to the Pallas body's;
 //   3. the logsumexp of the unfiltered row;
 //   4. gumbel noise, injected or from a Philox4x32-10 stream keyed on
-//      (seed, row) with the column as counter (4 columns per call);
+//      (seed, row_offset + row) with the column as counter (4 columns per
+//      call; a data-parallel rank that samples rows of a global batch passes
+//      its first global row, so its noise is the global batch's);
 //   5. the first-index argmax of l / max(temp, 1e-10) + g over l >= thresh,
 //      and prob = exp(l[idx] - lse).
 //
@@ -501,7 +503,8 @@ template <typename T, class Src, bool NOISE>
 __global__ void __launch_bounds__(kThreads, 1)
 sample_kernel(const T* __restrict__ logits, const float* __restrict__ noise,
               const int* __restrict__ seed_ptr, int rows, int V, int k, float temp,
-              const float* __restrict__ scale_ptr, int* __restrict__ idx_out, float* __restrict__ prob_out) {
+              const float* __restrict__ scale_ptr, int* __restrict__ idx_out, float* __restrict__ prob_out,
+              int row_offset) {
   // [chunk ring, staged rows only][lists][E][pad][histogram]
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* after_chunks = smem_raw + (Src::kStaged ? kSlots * kChunkBytes : 0);
@@ -720,7 +723,7 @@ sample_kernel(const T* __restrict__ logits, const float* __restrict__ noise,
       if (NOISE) {
         g = noise[(size_t)row * V + i];
       } else {
-        const uint4 b = philox4x32_10((uint32_t)(i >> 2), seed, (uint32_t)row);
+        const uint4 b = philox4x32_10((uint32_t)(i >> 2), seed, (uint32_t)(row_offset + row));
         const int w = i & 3;
         g = bits_to_gumbel(w == 0 ? b.x : w == 1 ? b.y : w == 2 ? b.z : b.w);
       }
@@ -800,7 +803,7 @@ int sm_count() {
 
 template <typename T, class Src, bool NOISE>
 cudaError_t launch(const void* logits, const void* noise, const void* seed, void* idx, void* prob,
-                   int rows, int V, int k, float temp, const void* scale, cudaStream_t stream) {
+                   int rows, int V, int k, float temp, const void* scale, int row_offset, cudaStream_t stream) {
   auto kern = sample_kernel<T, Src, NOISE>;
   const size_t smem = (Src::kStaged ? (size_t)kSlots * kChunkBytes : 0) + kWarps * Src::kList * sizeof(uint32_t) +
                       (kBins + 4) * sizeof(float) + (kBins + 4) * sizeof(int);
@@ -811,7 +814,8 @@ cudaError_t launch(const void* logits, const void* noise, const void* seed, void
   const int grid = rows < sm_count() ? rows : sm_count();
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(logits), static_cast<const float*>(noise), static_cast<const int*>(seed),
-      rows, V, k, temp, static_cast<const float*>(scale), static_cast<int*>(idx), static_cast<float*>(prob));
+      rows, V, k, temp, static_cast<const float*>(scale), static_cast<int*>(idx), static_cast<float*>(prob),
+      row_offset);
   return cudaGetLastError();
 }
 
@@ -837,22 +841,23 @@ extern "C" {
 // cfg_pair; dtype 0 = f32, 1 = bf16. noise: (rows, V) f32 or null. seed: one
 // int32 in device memory (read by the kernel, so the host never syncs);
 // scale: with cfg_pair, one f32 in device memory, else unread (may be null).
+// row_offset: the Philox key's row is row_offset + row (0 for a whole batch).
 // Outputs idx int32 (rows,), prob f32 (rows,). Returns cudaGetLastError().
 int muse_sample_launch(const void* logits, const void* noise, const void* seed, void* idx,
                        void* prob, int rows, int V, int k, float temp, const void* scale, int dtype,
-                       int cfg_pair, void* stream) {
+                       int cfg_pair, int row_offset, void* stream) {
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool has_noise = noise != nullptr;
   const bool aligned = reinterpret_cast<uintptr_t>(logits) % 16 == 0;
   if (dtype == 1) {
     if (!cfg_pair && aligned && V == kMaxStagedV)
-      return dispatch_noise<__nv_bfloat16, StagedRow<true>>(has_noise, logits, noise, seed, idx, prob, rows, V, k, temp, scale, s);
+      return dispatch_noise<__nv_bfloat16, StagedRow<true>>(has_noise, logits, noise, seed, idx, prob, rows, V, k, temp, scale, row_offset, s);
     if (!cfg_pair && aligned && V % 8 == 0 && V < kMaxStagedV)
-      return dispatch_noise<__nv_bfloat16, StagedRow<false>>(has_noise, logits, noise, seed, idx, prob, rows, V, k, temp, scale, s);
-    return dispatch_global<__nv_bfloat16, 8>(cfg_pair != 0, V, aligned, has_noise, logits, noise, seed, idx, prob, rows, V, k, temp, scale, s);
+      return dispatch_noise<__nv_bfloat16, StagedRow<false>>(has_noise, logits, noise, seed, idx, prob, rows, V, k, temp, scale, row_offset, s);
+    return dispatch_global<__nv_bfloat16, 8>(cfg_pair != 0, V, aligned, has_noise, logits, noise, seed, idx, prob, rows, V, k, temp, scale, row_offset, s);
   }
-  return dispatch_global<float, 4>(cfg_pair != 0, V, aligned, has_noise, logits, noise, seed, idx, prob, rows, V, k, temp, scale, s);
+  return dispatch_global<float, 4>(cfg_pair != 0, V, aligned, has_noise, logits, noise, seed, idx, prob, rows, V, k, temp, scale, row_offset, s);
 }
 
 const char* muse_sample_error_string(int err) {

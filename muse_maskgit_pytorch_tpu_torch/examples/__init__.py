@@ -5,7 +5,7 @@
 
 Each takes its JAX counterpart's arguments and `--device` (default "cuda":
 the models are built on the GPU unless `--device cpu` asks for the CPU),
-writes images through the port's own PNG encoder, and raises
-`not_ported(..., "A11")` for a mesh or FSDP flag. Each has a
+writes images through the port's own PNG encoder; the trainers run data
+parallel under `torchrun` (`--shard-state` shards their state). Each has a
 `main(argv=None)` that tests call in-process.
 """

@@ -8,6 +8,17 @@ Captions come from `<image-stem>.txt` files beside the images; an image
 without one trains with an empty prompt (CFG's null conditioning).
 `--token-shards` trains from pre-tokenized shards
 (`tokenize_dataset`) through the native shard loader instead.
+
+Data parallel over several processes, one a GPU, with the state sharded
+(FSDP / ZeRO) across them under `--shard-state`:
+
+    torchrun --nproc-per-node 4 -m muse_maskgit_pytorch_tpu_torch.examples.train_maskgit --folder images/ \
+        --vae-checkpoint vae.msgpack --shard-state
+
+`--batch-size` is the global batch. From a folder every rank reads the same
+batches (one seeded shuffle) and trains on its rows; from token shards each
+rank opens its share of the shards and reads its rows alone. Rank 0 writes
+the checkpoints, samples and metrics.
 """
 
 from __future__ import annotations
@@ -17,9 +28,10 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from muse_maskgit_pytorch_tpu_torch.parallel.mesh import join_torchrun_group
 from muse_maskgit_pytorch_tpu_torch.training.data import ImageDataset
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import not_ported
 
 
 class CaptionedImageDataset(ImageDataset):
@@ -60,7 +72,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--self-token-critic", action="store_true")
     p.add_argument("--results-folder", default="./results-maskgit")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--shard-state", action="store_true", help="FSDP: shard the state over a mesh (not ported yet)")
+    p.add_argument(
+        "--shard-state", action="store_true",
+        help="FSDP / ZeRO: shard the weights, Adam's moments and the EMA over the ranks (under torchrun)",
+    )
     p.add_argument(
         "--async-checkpoints", action="store_true",
         help="checkpoint saves block only for the device->host copy and write on a background thread",
@@ -78,9 +93,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not (args.folder or args.token_shards):
         p.error("pass --folder or --token-shards")
-    if args.shard_state:
-        raise not_ported("--shard-state (training over a mesh)", "A11")
     from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTrainer, MaskGitTransformer, VQGanVAE
+
+    joined = join_torchrun_group(args.device)
 
     vae = VQGanVAE(
         dim=args.vae_dim, codebook_size=args.codebook_size, generator=torch.Generator().manual_seed(0), device=args.device
@@ -114,23 +129,32 @@ def main(argv=None):
         max_checkpoints=args.max_checkpoints,
         save_results_every=args.save_results_every,
         sample_texts=args.sample_texts,
+        shard_state=args.shard_state,
     )
     if args.token_shards:
         trainer.train_from_shards(args.token_shards, use_captions=args.shard_captions)
-        return trainer
+    else:
+        trainer.train(_folder_batches(args))
+    if joined:
+        dist.destroy_process_group()
+    return trainer
 
+
+def _folder_batches(args):
+    """Global batches of (images, captions), in one seeded order, so every
+    rank of a data-parallel run reads the same ones."""
     ds = CaptionedImageDataset(args.folder, args.image_size)
+    order = random.Random(0)
 
     def batches():
         idx = list(range(len(ds)))
         while True:
-            random.shuffle(idx)
+            order.shuffle(idx)
             for i in range(0, len(idx) - args.batch_size + 1, args.batch_size):
                 chunk = idx[i : i + args.batch_size]
                 yield np.stack([ds[j][0] for j in chunk]), [ds.caption(j) for j in chunk]
 
-    trainer.train(batches())
-    return trainer
+    return batches()
 
 
 if __name__ == "__main__":

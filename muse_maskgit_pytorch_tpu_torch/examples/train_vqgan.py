@@ -5,6 +5,14 @@
 
 Checkpoints and reconstructions go to `--results-folder` (`vae.<step>.pt`
 files and train-state steps, as `VQGanVAETrainer` writes them).
+
+Data parallel over several processes, one a GPU, with the state sharded
+(FSDP / ZeRO) across them under `--shard-state`:
+
+    torchrun --nproc-per-node 4 -m muse_maskgit_pytorch_tpu_torch.examples.train_vqgan --folder images/ --shard-state
+
+Every rank reads the same batches and trains on its rows of each; rank 0
+writes the checkpoints, images and metrics.
 """
 
 from __future__ import annotations
@@ -12,8 +20,9 @@ from __future__ import annotations
 import argparse
 
 import torch
+import torch.distributed as dist
 
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import not_ported
+from muse_maskgit_pytorch_tpu_torch.parallel.mesh import join_torchrun_group
 
 
 def parser() -> argparse.ArgumentParser:
@@ -39,7 +48,10 @@ def parser() -> argparse.ArgumentParser:
         help="bf16 compute in the encoder / decoder with f32 master weights; discriminator, VGG and losses stay f32",
     )
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--shard-state", action="store_true", help="FSDP: shard the state over a mesh (not ported yet)")
+    p.add_argument(
+        "--shard-state", action="store_true",
+        help="FSDP / ZeRO: shard the weights, Adam's moments and the EMA over the ranks (under torchrun)",
+    )
     p.add_argument(
         "--async-checkpoints", action="store_true",
         help="checkpoint saves block only for the device->host copy and write on a background thread",
@@ -53,9 +65,9 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Returns the trainer after its last step."""
     args = parser().parse_args(argv)
-    if args.shard_state:
-        raise not_ported("--shard-state (training over a mesh)", "A11")
     from muse_maskgit_pytorch_tpu_torch import VQGanVAE, VQGanVAETrainer
+
+    joined = join_torchrun_group(args.device)
 
     vae = VQGanVAE(
         dim=args.dim,
@@ -83,8 +95,11 @@ def main(argv=None):
         async_checkpoints=args.async_checkpoints,
         max_checkpoints=args.max_checkpoints,
         random_flip=not args.no_random_flip,
+        shard_state=args.shard_state,
     )
     trainer.train()
+    if joined:
+        dist.destroy_process_group()
     return trainer
 
 

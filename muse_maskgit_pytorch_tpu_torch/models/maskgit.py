@@ -44,6 +44,7 @@ from torch import nn
 from muse_maskgit_pytorch_tpu_torch.models.transformer import MaskGitTransformer, SelfCritic, TokenCritic
 from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE, _strip_towers
 from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+from muse_maskgit_pytorch_tpu_torch.parallel.batch import row_offset, rows_from
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.images import to_pil_images
 from muse_maskgit_pytorch_tpu_torch.utils.sampling import (
@@ -175,6 +176,16 @@ class TrainDraws:
             draws.critic_keep_u = u(batch, 1)
         return draws
 
+    def rows(self, start: int, stop: int) -> "TrainDraws":
+        """The draws of rows [start, stop) of the batch (a data-parallel
+        rank's part of the global batch's draws); the scalars are shared."""
+        cut = lambda t: None if t is None else t[start:stop]  # noqa: E731
+        return dataclasses.replace(
+            self, rand_time=cut(self.rand_time), mask_scores=cut(self.mask_scores),
+            nomask_scores=cut(self.nomask_scores), keep_u=cut(self.keep_u), gumbel=cut(self.gumbel),
+            critic_keep_u=cut(self.critic_keep_u),
+        )
+
 
 class MaskGit(nn.Module):
     def __init__(
@@ -277,11 +288,14 @@ class MaskGit(nn.Module):
         *,
         generator: Optional[torch.Generator] = None,
         draws: Optional[TrainDraws] = None,
+        loss_denominator: Optional[float] = None,
     ) -> torch.Tensor:
         """The training loss (0-d f32): the cross entropy of the masked
         tokens, plus `critic_loss_weight` times the critic's binary cross
         entropy when the model has a critic and `train_only_generator` is
-        off.
+        off. `loss_denominator` divides the cross entropy's sum in place of
+        the batch's masked count (`MaskGitTrainer` over a mesh passes each
+        rank the global count over the number of ranks).
 
         `images_or_ids`: float images (b, h, w, c) in [0, 1], tokenised by
         the frozen VAE (sizes divisible by its factor), or ids (b, n) or
@@ -355,8 +369,7 @@ class MaskGit(nn.Module):
             )
 
         # the mask: a cosine count of positions per row, at random positions
-        mask_probs = self.noise_schedule(draws.rand_time.to(device))
-        num_token_masked = torch.round(seq_len * mask_probs).clamp(min=1).long()
+        num_token_masked = self._num_masked(draws, seq_len).long()
         mask = batch_random_mask(draws.mask_scores.to(device), num_token_masked)
         labels = torch.where(mask, ids, torch.full_like(ids, ignore_index))
         if self.no_mask_token_prob > 0.0:
@@ -385,6 +398,7 @@ class MaskGit(nn.Module):
             x, text_embeds=text_embeds, text_mask=text_mask, self_cond_embed=self_cond_embed,
             conditioning_token_ids=cond_token_ids, labels=labels, cond_drop_prob=cond_drop_prob,
             ignore_index=ignore_index, return_logits=True, keep_u=draws.keep_u, pos_grid=pos_grid,
+            loss_denominator=loss_denominator,
         )
         if not critic:
             return ce_loss
@@ -399,6 +413,33 @@ class MaskGit(nn.Module):
             labels=critic_labels, cond_drop_prob=cond_drop_prob, keep_u=draws.critic_keep_u, pos_grid=pos_grid,
         )
         return ce_loss + self.critic_loss_weight * bce_loss
+
+    def _num_masked(self, draws: TrainDraws, seq_len: int) -> torch.Tensor:
+        """Each row's masked count, `max(round(n * schedule(t)), 1)` (f32)."""
+        device = self.transformer.token_emb.weight.device
+        return torch.round(seq_len * self.noise_schedule(draws.rand_time.to(device))).clamp(min=1)
+
+    def train_draws(
+        self, shape: Tuple[int, ...], images: bool, *, generator: Optional[torch.Generator] = None,
+        train_only_generator: bool = False,
+    ) -> TrainDraws:
+        """The draws `forward` makes for a batch of this shape (of images,
+        or of ids), from the CPU `generator`, in its order."""
+        if images:
+            h, w = (s // self.vae.dim_divisor for s in shape[1:3])
+            seq_len = h * w
+        else:
+            seq_len = math.prod(shape[1:])
+        critic = exists(self.token_critic) and not train_only_generator
+        return TrainDraws.draw(
+            shape[0], seq_len, self.transformer.num_tokens, critic=critic, generator=generator,
+            device=self.transformer.token_emb.weight.device, dtype=self.transformer.dtype,
+        )
+
+    def masked_token_count(self, draws: TrainDraws) -> torch.Tensor:
+        """The number of masked (labelled) tokens `forward` trains on under
+        `draws`: the cross entropy's denominator, on the device (f32)."""
+        return self._num_masked(draws, draws.mask_scores.shape[1]).sum()
 
     def _fmap_hw(self, fmap_size, image_size) -> Tuple[int, int]:
         if image_size is not None:
@@ -528,7 +569,14 @@ class MaskGit(nn.Module):
         the JAX package's call sites and ignored: the port has one attention.
         `compact`, `cfg_fold`, `null_fold`, `temperature` and
         `topk_filter_thres` behave as in the JAX package; `null_fold` is a
-        no-op in a super-res stage and under negative prompts."""
+        no-op in a super-res stage and under negative prompts.
+
+        Under `parallel.batch.rows_from(start)` these rows are rows `start
+        ...` of a global batch that other processes decode the rest of from
+        the same `generator` (data-parallel serving): K1 keys its noise on
+        the global row, so each row samples what it would in the whole
+        batch. The "xla" sampler and a critic's noise draw per call, so they
+        refuse a nonzero start."""
         del attn_impl
         if sampler not in ("auto", "fused", "xla"):
             raise ValueError(f"sampler must be 'auto', 'fused' or 'xla', got {sampler!r}")
@@ -603,6 +651,12 @@ class MaskGit(nn.Module):
         if injected_gumbel_noise is not None:
             injected_gumbel_noise = injected_gumbel_noise.to(device)
         critic_noise_scale = critic_noise_scale if use_critic else 0.0
+        first_row = row_offset()
+        if first_row and (sampler != "fused" or critic_noise_scale):
+            raise ValueError(
+                "rows_from keys K1's noise on the global row; the 'xla' sampler and a critic's noise draw per "
+                "call: decode such a batch whole"
+            )
         # the one host read of these paths, before the loop: a generator per step
         step_seeds = (
             seeds.tolist()
@@ -633,6 +687,7 @@ class MaskGit(nn.Module):
             known_ids=known_token_ids if known_mask is not None else None,
             known_mask=known_mask,
             progress=progress,
+            row_offset=first_row,
         ).reshape(-1, fh, fw)
         if return_ids or not exists(self.vae):
             return ids
@@ -641,7 +696,7 @@ class MaskGit(nn.Module):
     def _decode(
         self, *, text_embeds, text_mask, neg_text_embeds, cond_ids, grid, seeds, step_seeds, step_kb, noise,
         temperature, cond_scale, scales, topk_filter_thres, cfg_fold, null_fold, sampler, can_remask,
-        use_critic, critic_noise_scale, known_ids, known_mask, progress,
+        use_critic, critic_noise_scale, known_ids, known_mask, progress, row_offset=0,
     ) -> torch.Tensor:
         transformer = self.transformer
         mask_id = self.mask_id
@@ -784,6 +839,7 @@ class MaskGit(nn.Module):
                     cfg_pair=fuse_cfg,
                     # the kernel reads a scheduled scale from device memory
                     cond_scale=(scales[i : i + 1] if scheduled else cond_scale) if fuse_cfg else 1.0,
+                    row_offset=row_offset * npos,
                 )
                 pred = pred.reshape(b, npos).long()
                 prob = prob.reshape(b, npos)
@@ -940,7 +996,8 @@ class MaskGit(nn.Module):
             if cs.dim() == 2:
                 # per-sample guidance follows its prompt onto all k candidates
                 generate_kwargs["cond_scale"] = cs.repeat_interleave(k, dim=1)
-        ids = self.generate(text_embeds=te, text_mask=tm, generator=generator, return_ids=True, **generate_kwargs)
+        with rows_from(row_offset() * k):  # each prompt's k candidates are consecutive rows
+            ids = self.generate(text_embeds=te, text_mask=tm, generator=generator, return_ids=True, **generate_kwargs)
         method = score_method
         if method == "auto":
             method = "critic" if exists(self.token_critic) else "logprob"

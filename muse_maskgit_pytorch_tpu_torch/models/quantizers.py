@@ -35,6 +35,7 @@ from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models._layers import Linear
 from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+from muse_maskgit_pytorch_tpu_torch.parallel.batch import gather_rows, mean_over_ranks
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import resolve_device
 
 QuantizerOutput = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -144,7 +145,8 @@ class LFQ(nn.Module):
         logits = 2.0 * self.inv_temperature * torch.einsum("ngd,kd->ngk", xg, combos)
         probs = torch.softmax(logits, dim=-1)
         per_sample_entropy = _entropy(probs).mean()
-        codebook_entropy = _entropy(probs.mean(dim=0)).sum() / num_groups
+        # the global batch's mean distribution where the batch is split over ranks
+        codebook_entropy = _entropy(mean_over_ranks(probs.mean(dim=0), differentiable=True)).sum() / num_groups
         return per_sample_entropy - self.diversity_gamma * codebook_entropy
 
     def forward(self, x: torch.Tensor, train: bool = False) -> QuantizerOutput:
@@ -370,7 +372,7 @@ class VectorQuantizeEMA(nn.Module):
         update from the latents x (..., dim). The trainers call it after the
         gradient, having computed the loss with `update_stats=False`. `rng`:
         a `VQDraws`, a CPU generator to draw one from, or None."""
-        z_flat = self._flat(x)
+        z_flat = gather_rows(self._flat(x))  # the global batch's latents on every rank
         draws = self._draws(rng, z_flat.shape[0])
         self._maybe_init(z_flat, draws)
         self._ema_update(z_flat, self._search(z_flat, self.codebook), draws)
@@ -391,16 +393,17 @@ class VectorQuantizeEMA(nn.Module):
         z_flat = self._flat(x)
         draws = None
         if update_stats:
-            draws = self._draws(rng, z_flat.shape[0])
+            z_all = gather_rows(z_flat.detach())  # the global batch's latents on every rank
+            draws = self._draws(rng, z_all.shape[0])
             with torch.no_grad():
-                self._maybe_init(z_flat.detach(), draws)
+                self._maybe_init(z_all, draws)
         cb = self.codebook  # the gather below copies it before the update
         indices = self._search(z_flat, cb)
         quantized_flat = cb[indices.long()]
         aux_loss = self.commitment_weight * ((quantized_flat.detach() - z_flat) ** 2).mean()
         if update_stats:
             with torch.no_grad():
-                self._ema_update(z_flat.detach(), indices, draws)
+                self._ema_update(z_all, gather_rows(indices), draws)
         quantized_flat = z_flat + (quantized_flat - z_flat).detach()  # straight-through
         quantized = quantized_flat.reshape(*lead_shape, self.codebook_dim).to(x.dtype)
         if self.has_projections:

@@ -569,6 +569,7 @@ class Transformer(nn.Module):
         pos_grid: Optional[tuple] = None,
         skip_head: bool = False,
         null_rows: int = 0,
+        loss_denominator: Optional[float] = None,
     ):
         """Logits (b, n|k, dim_out) for token ids x (b, n).
 
@@ -582,7 +583,8 @@ class Transformer(nn.Module):
 
         Training: with `labels` (b, n) the loss is returned (with the logits
         after it under `return_logits`): the mean cross entropy over the
-        labels that are not `ignore_index`, or for a `dim_out == 1` critic
+        labels that are not `ignore_index` (the sum over
+        `loss_denominator` where given), or for a `dim_out == 1` critic
         the binary cross entropy against float labels. `cond_drop_prob` > 0
         drops a row's text (not its conditioning tokens) where its uniform
         `keep_u` (b, 1) is below it."""
@@ -635,21 +637,26 @@ class Transformer(nn.Module):
         if self.dim_out == 1:
             loss = sigmoid_bce(logits[..., 0], labels)
         else:
-            loss = cross_entropy_ignore_index(logits, labels, ignore_index)
+            loss = cross_entropy_ignore_index(logits, labels, ignore_index, loss_denominator)
         return (loss, logits) if return_logits else loss
 
 
-def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
+def cross_entropy_ignore_index(
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int, denominator: Optional[float] = None
+) -> torch.Tensor:
     """Mean cross entropy over the positions whose label is not
     `ignore_index` (0 when there are none), as `picked logit - logsumexp`
     in f32 over logits of any dtype: no (b, n, vocab) log-softmax is
-    written, only the picked logit is gathered."""
+    written, only the picked logit is gathered. `denominator` replaces the
+    count of those positions (a data-parallel rank divides its sum by its
+    share of the global batch's count)."""
     lse = torch.logsumexp(logits.float(), dim=-1)
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     picked = logits.gather(-1, safe[..., None].long())[..., 0]
     ll = picked.float() - lse
-    return -(ll * valid).sum() / valid.sum().clamp(min=1)
+    count = valid.sum().clamp(min=1) if denominator is None else denominator
+    return -(ll * valid).sum() / count
 
 
 def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

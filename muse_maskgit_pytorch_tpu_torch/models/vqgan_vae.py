@@ -31,6 +31,7 @@ from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models._layers import Conv2d, ConvTranspose2d
 from muse_maskgit_pytorch_tpu_torch.models.quantizers import FSQ, LFQ, VectorQuantizeEMA
+from muse_maskgit_pytorch_tpu_torch.parallel.batch import mean_over_ranks
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 
 GROUPNORM_EPS = 1e-6
@@ -530,6 +531,8 @@ class VQGanVAE(nn.Module):
                 raise ValueError("the adaptive weight differentiates the loss: call with gradients enabled")
             (g_p,) = torch.autograd.grad(perceptual_loss, w_last, retain_graph=True)
             (g_g,) = torch.autograd.grad(gen_loss, w_last, retain_graph=True)
+            # the global batch's gradients where the batch is split over ranks
+            g_p, g_g = mean_over_ranks(g_p), mean_over_ranks(g_g)
             adaptive_weight = safe_div(g_p.norm(), g_g.norm()).clamp(max=1e4).detach()
         else:
             adaptive_weight = 1.0

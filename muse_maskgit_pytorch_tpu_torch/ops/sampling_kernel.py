@@ -5,7 +5,7 @@ Pallas kernel `_sample_kernel` this replaces on Hopper with the CUDA kernel
 in `csrc/sampling_kernel.cu`. Per row of (rows, V) logits: optional CFG
 combine, the top-k threshold of 10 rounds of value bisection, the logsumexp
 of the unfiltered row, gumbel noise (injected, or Philox4x32-10 keyed on
-(seed, row)), the first-index argmax of `l / max(temp, 1e-10) + g` over
+(seed, row_offset + row)), the first-index argmax of `l / max(temp, 1e-10) + g` over
 `l >= threshold`, and the softmax probability of the chosen id.
 
 By bytes the kernel needs 0.32 ms for the main path's step 0 (1.07 GB of
@@ -74,16 +74,16 @@ def philox4x32_10(x0, x1, x2, x3, k0, k1):
     return x0, x1, x2, x3
 
 
-def philox_gumbel(seed: int, rows: int, V: int, device=None) -> torch.Tensor:
+def philox_gumbel(seed: int, rows: int, V: int, device=None, row_offset: int = 0) -> torch.Tensor:
     """(rows, V) f32 gumbel noise from the kernel's Philox4x32-10 stream:
-    key (seed, row), counter (column // 4, 0, 0, 0), output word column % 4,
+    key (seed, row_offset + row), counter (column // 4, 0, 0, 0), output word column % 4,
     top 23 bits -> u = bits * 2^-23 + 2^-24 (strictly below 1, unlike the
     TPU kernel's 24-bit form, which rounds to 1.0 and gives g = +inf),
     g = -log(-log(u))."""
     groups = (V + 3) // 4
     x0 = torch.arange(groups, device=device, dtype=torch.int64).expand(rows, groups)
     zero = torch.zeros_like(x0)
-    k1 = torch.arange(rows, device=device, dtype=torch.int64)[:, None]
+    k1 = torch.arange(row_offset, row_offset + rows, device=device, dtype=torch.int64)[:, None] & _U32
     words = philox4x32_10(x0, zero, zero, zero, int(seed) & _U32, k1)
     bits = torch.stack(words, dim=-1).reshape(rows, groups * 4)[:, :V]
     u = (bits >> 9).to(torch.float32) * (1.0 / (1 << 23)) + (1.0 / (1 << 24))
@@ -142,6 +142,7 @@ def fused_topk_gumbel_sample_plain(
     noise: Optional[torch.Tensor] = None,
     cfg_pair: bool = False,
     cond_scale: Union[float, torch.Tensor] = 1.0,
+    row_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the same f32 operations in the
     same order (so the threshold is bit-identical), with the same noise.
@@ -161,7 +162,7 @@ def fused_topk_gumbel_sample_plain(
     if noise is not None:
         g = noise[:rows].float()
     else:
-        g = philox_gumbel(int(seed.reshape(-1)[0]), rows, V, device=l.device)
+        g = philox_gumbel(int(seed.reshape(-1)[0]), rows, V, device=l.device, row_offset=row_offset)
     # a (rows, 1) tensor, not a python scalar: CUDA would turn division by a
     # host scalar into a multiply by its reciprocal, which rounds differently
     temp = torch.full((rows, 1), max(float(temperature), 1e-10), device=l.device)
@@ -199,7 +200,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.muse_sample_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, f, p, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, f, p, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.muse_sample_error_string.argtypes = [ctypes.c_int]
         lib.muse_sample_error_string.restype = ctypes.c_char_p
@@ -244,6 +245,7 @@ def sample_part_clocks(logits: torch.Tensor, k: int, temperature: float, seed: t
         None,
         1 if logits.dtype == torch.bfloat16 else 0,
         0,
+        0,
         torch.cuda.current_stream(logits.device).cuda_stream,
     )
     _build.check(_timing_lib.muse_sample_error_string, err, "sample_part_clocks")
@@ -260,6 +262,7 @@ def fused_topk_gumbel_sample(
     noise: Optional[torch.Tensor] = None,
     cfg_pair: bool = False,
     cond_scale: Union[float, torch.Tensor] = 1.0,
+    row_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample one id per row.
 
@@ -271,10 +274,12 @@ def fused_topk_gumbel_sample(
     device that the kernel reads there, as it reads the seed (a host float
     is written to such a tensor first); only `cfg_pair` reads it.
     noise: optional (rows, V) gumbel noise that replaces the Philox stream.
+    row_offset: the Philox stream's first row (a data-parallel rank that
+    samples rows of a global batch passes the global index of its first).
     Returns (idx int32 (rows,), prob f32 (rows,))."""
     if logits.device.type == "cpu":
         return fused_topk_gumbel_sample_plain(
-            logits, k, temperature, seed, noise, cfg_pair, cond_scale
+            logits, k, temperature, seed, noise, cfg_pair, cond_scale, row_offset
         )
     if logits.device.type != "cuda":
         raise ValueError(f"fused_topk_gumbel_sample: unsupported device {logits.device}")
@@ -321,6 +326,7 @@ def fused_topk_gumbel_sample(
         scale.data_ptr() if scale is not None else None,
         1 if logits.dtype == torch.bfloat16 else 0,
         1 if cfg_pair else 0,
+        int(row_offset),
         torch.cuda.current_stream(logits.device).cuda_stream,
     )
     _build.check(lib.muse_sample_error_string, err, "fused_topk_gumbel_sample")

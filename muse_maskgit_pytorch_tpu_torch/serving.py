@@ -11,9 +11,16 @@ tensor on the card and the negative prompts as per-row embeddings, so
 requests with different settings share one decode. Images are quantised to
 uint8 on the card before the copy to the host.
 
-Not ported: `export_pipeline` / `ExportedPipeline` (ROADMAP A12b), `mesh=`
-(A11), and the persistent compile cache (nothing to cache: the kernels are
-built once per checkout, `ops/_build.py`).
+Data-parallel serving (`mesh=`, a `parallel.create_mesh()` over a process
+group): every rank is handed the same prompts, decodes its rows of each
+batch from the same seed stream (K1 keys its noise on the global row, so
+the ids are the ones one process decodes), and the images are all-gathered
+in rank order, so every rank, rank 0 among them, returns the whole batch.
+Edits run whole on every rank.
+
+Not ported: `export_pipeline` / `ExportedPipeline` (ROADMAP A12b) and the
+persistent compile cache (nothing to cache: the kernels are built once per
+checkout, `ops/_build.py`).
 """
 
 from __future__ import annotations
@@ -23,11 +30,14 @@ from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from muse_maskgit_pytorch_tpu_torch.models.maskgit import SEED_HIGH, MaskGit, Muse, child_generators, vaes_share_weights
 from muse_maskgit_pytorch_tpu_torch.models.t5 import t5_encode_text_with_mask
 from muse_maskgit_pytorch_tpu_torch.ops import _build
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import not_ported, resolve_device
+from muse_maskgit_pytorch_tpu_torch.parallel.batch import rows_from
+from muse_maskgit_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, axis_coordinate, mesh_axes
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import resolve_device
 
 
 def _quantize_u8(imgs: torch.Tensor) -> torch.Tensor:
@@ -98,8 +108,6 @@ class GeneratePipeline:
         cond_via: str = "auto",
         device="cuda",
     ):
-        if mesh is not None:
-            raise not_ported("data-parallel serving over a device mesh (mesh=)", "A11")
         device = resolve_device(device)
         model_device = next(model.parameters()).device
         if model_device.type != device.type or device.index not in (None, model_device.index):
@@ -109,6 +117,17 @@ class GeneratePipeline:
             raise ValueError(f"rerank_candidates must be at least 1, got {rerank_candidates}")
         self.model = model
         self.is_cascade = isinstance(model, Muse)
+        # data-parallel serving: this rank decodes rows [start, stop) of every batch
+        self.mesh = mesh
+        self._rows, self._data_group = (0, batch_size), None
+        if mesh is not None:
+            axis = DATA_AXIS if DATA_AXIS in mesh_axes(mesh) else mesh.mesh_dim_names[0]
+            index, n = axis_coordinate(mesh, axis)
+            if batch_size % n:
+                raise ValueError(f"batch_size {batch_size} must divide over the mesh's {axis!r} axis ({n} ranks)")
+            per = batch_size // n
+            self._rows = (index * per, (index + 1) * per)
+            self._data_group = mesh.get_group(axis) if n > 1 else None
         self.batch_size = batch_size
         self.timesteps = timesteps
         self.cond_scale = cond_scale
@@ -222,7 +241,7 @@ class GeneratePipeline:
     def _base_generate(self, base: MaskGit, embeds, mask, generator, cond_scale=None, neg_embeds=None, return_ids=False):
         """The base stage's generate, re-ranked when the pipeline asks."""
         common = dict(
-            neg_text_embeds=self._neg_embeds() if neg_embeds is None else neg_embeds,
+            neg_text_embeds=neg_embeds,
             timesteps=self.timesteps,
             cond_scale=self.cond_scale if cond_scale is None else cond_scale,
             temperature=self.temperature,
@@ -238,22 +257,39 @@ class GeneratePipeline:
 
     def _generate_batch(self, embeds, mask, cond_scale=None, neg_embeds=None) -> torch.Tensor:
         generator = self._next_generator()
-        if not self.is_cascade:
-            return self._base_generate(self.model, embeds, mask, generator, cond_scale, neg_embeds)
-        g_base, g_sr = child_generators(generator, self.device)
-        via_ids = self.cond_via == "ids"
-        low = self._base_generate(
-            self.model.base_maskgit, embeds, mask, g_base, cond_scale, neg_embeds, return_ids=via_ids
-        )
-        sr_cond = dict(cond_token_ids=low) if via_ids else dict(cond_images=low.clamp(0.0, 1.0))
-        return self.model.superres_maskgit.generate(
-            text_embeds=embeds, text_mask=mask, generator=g_sr, **sr_cond,
-            neg_text_embeds=self._neg_embeds() if neg_embeds is None else neg_embeds,
-            timesteps=self.timesteps,
-            cond_scale=self.cond_scale if cond_scale is None else cond_scale,
-            temperature=self.temperature,
-            image_size=self._gen_sr_size,
-        )
+        neg_embeds = self._neg_embeds() if neg_embeds is None else neg_embeds
+        start, stop = self._rows
+        if self._data_group is not None:
+            # this rank's rows (and their columns of a per-row scale)
+            embeds, mask = embeds[start:stop], mask[start:stop]
+            neg_embeds = None if neg_embeds is None else neg_embeds[start:stop]
+            cond_scale = None if cond_scale is None else cond_scale[:, start:stop]
+        with rows_from(start):  # K1 keys each row's noise on its global row
+            if not self.is_cascade:
+                return self._gather_rows(self._base_generate(self.model, embeds, mask, generator, cond_scale, neg_embeds))
+            g_base, g_sr = child_generators(generator, self.device)
+            via_ids = self.cond_via == "ids"
+            low = self._base_generate(
+                self.model.base_maskgit, embeds, mask, g_base, cond_scale, neg_embeds, return_ids=via_ids
+            )
+            sr_cond = dict(cond_token_ids=low) if via_ids else dict(cond_images=low.clamp(0.0, 1.0))
+            return self._gather_rows(self.model.superres_maskgit.generate(
+                text_embeds=embeds, text_mask=mask, generator=g_sr, **sr_cond,
+                neg_text_embeds=neg_embeds,
+                timesteps=self.timesteps,
+                cond_scale=self.cond_scale if cond_scale is None else cond_scale,
+                temperature=self.temperature,
+                image_size=self._gen_sr_size,
+            ))
+
+    def _gather_rows(self, images: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a batch, in rank order (the rows as they
+        are without a mesh)."""
+        if self._data_group is None:
+            return images
+        parts = [torch.empty_like(images) for _ in range(dist.get_world_size(self._data_group))]
+        dist.all_gather(parts, images.contiguous(), group=self._data_group)
+        return torch.cat(parts)
 
     def _edit_batch(self, images, masks, embeds, tmask, generator, cond_scale=None) -> torch.Tensor:
         # the pipeline's negative prompt applies to edits too, as to __call__

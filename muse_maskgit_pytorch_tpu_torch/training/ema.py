@@ -9,9 +9,12 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from muse_maskgit_pytorch_tpu_torch.training.optim import local_tensors
+
 
 def ema_init(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Copies of `params` that do not alias them."""
+    """Copies of `params` that do not alias them (a sharded `DTensor`
+    stays a `DTensor` of the same placements)."""
     return [p.detach().clone() for p in params]
 
 
@@ -32,11 +35,12 @@ def ema_update(
     are the updated ones."""
     if step % update_every != 0:
         return ema
-    params = [p.detach() for p in params]
+    params = local_tensors([p.detach() for p in params])
+    local = local_tensors(ema)
     if step <= update_after_step:
-        torch._foreach_copy_(ema, params)
+        torch._foreach_copy_(local, params)
         return ema
     decay = np.float32(beta)
-    torch._foreach_mul_(ema, float(decay))
-    torch._foreach_add_(ema, torch._foreach_mul(params, float(np.float32(1.0) - decay)))
+    torch._foreach_mul_(local, float(decay))
+    torch._foreach_add_(local, torch._foreach_mul(params, float(np.float32(1.0) - decay)))
     return ema

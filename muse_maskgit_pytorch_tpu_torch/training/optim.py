@@ -7,6 +7,12 @@ rounding.
 The schedule is evaluated on the host at the optimizer's own count (the
 first step's rate is `schedule(0)`, 0 under a warmup), in float32 as optax
 evaluates it under `jit`; so a step reads nothing from the device.
+
+Sharded state: parameters, gradients and moments may be `DTensor`s (a
+trainer's FSDP shards). Adam and the EMA are elementwise, so they run on
+each rank's local shards; `global_norm` adds the sharded tensors' squares
+across the ranks that hold their shards, so the clip sees the norm of the
+whole gradient, as on one rank.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -59,9 +67,34 @@ def lr_schedule(lr: float, warmup_steps: int = 0, decay_steps: Optional[int] = N
     return lambda count: float(warm(count) if count < warmup_steps else after(count - warmup_steps))
 
 
+def local_tensors(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each `DTensor`'s local shard (a view: in-place updates reach the
+    `DTensor`), other tensors as they are."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+
+
+def _sharded_dims(t: torch.Tensor) -> tuple:
+    return tuple(i for i, p in enumerate(t.placements) if isinstance(p, Shard)) if isinstance(t, DTensor) else ()
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry (0-d f32, on the device)."""
-    return torch.stack(torch._foreach_norm(list(tensors))).square().sum().sqrt()
+    """sqrt of the sum of squares of every entry (0-d f32, on the device).
+    A sharded `DTensor`'s local squares are summed over the mesh dims that
+    shard it, so every rank gets the whole norm."""
+    tensors = list(tensors)
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault(_sharded_dims(t), []).append(t)
+    if list(groups) == [()]:
+        return torch.stack(torch._foreach_norm(tensors)).square().sum().sqrt()
+    total = None
+    with torch.no_grad():
+        for dims, ts in groups.items():
+            sq = torch.stack(torch._foreach_norm(local_tensors(ts))).square().sum()
+            for d in dims:
+                dist.all_reduce(sq, group=ts[0].device_mesh.get_group(d))
+            total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
@@ -103,32 +136,31 @@ class Adam:
         norm, if the caller has it)."""
         grads = list(grads)
         if self.max_grad_norm is not None:
-            grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
+            norm = global_norm(grads) if norm is None else norm
+            grads = clip_by_global_norm(local_tensors(grads), self.max_grad_norm, norm)
+        grads = local_tensors(grads)
+        params, mu, nu = local_tensors(self.params), local_tensors(self.mu), local_tensors(self.nu)
         # mu = (1 - B1) g + B1 mu; nu = (1 - B2) g^2 + B2 nu
-        torch._foreach_mul_(self.mu, B1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - B1))
-        torch._foreach_mul_(self.nu, B2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - B2))
+        torch._foreach_mul_(mu, B1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - B1))
+        torch._foreach_mul_(nu, B2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - B2))
         lr = self.lr_at(self.count)
         self.count += 1
         # bias corrections in f32, as optax divides by (1 - b ** count).astype(f32)
         bc1 = float(np.float32(1.0 - B1**self.count))
         bc2 = float(np.float32(1.0 - B2**self.count))
-        denom = torch._foreach_div(self.nu, bc2)
+        denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, EPS)
-        updates = torch._foreach_div(self.mu, bc1)
+        updates = torch._foreach_div(mu, bc1)
         torch._foreach_div_(updates, denom)
         if self.weight_decay > 0:
-            torch._foreach_add_(updates, torch._foreach_mul(self.params, self.weight_decay))
+            torch._foreach_add_(updates, torch._foreach_mul(params, self.weight_decay))
         torch._foreach_mul_(updates, -lr)
-        torch._foreach_add_(self.params, updates)
+        torch._foreach_add_(params, updates)
 
     def state_dict(self, names: Sequence[str]) -> Dict:
+        """The count and the moments by parameter name (sharded moments as
+        `DTensor`s: the trainers gather them whole to save them)."""
         return dict(count=self.count, mu=dict(zip(names, self.mu)), nu=dict(zip(names, self.nu)))
-
-    @torch.no_grad()
-    def load_state_dict(self, state: Dict, names: Sequence[str]) -> None:
-        self.count = int(state["count"])
-        torch._foreach_copy_(self.mu, [state["mu"][n].to(m.device) for n, m in zip(names, self.mu)])
-        torch._foreach_copy_(self.nu, [state["nu"][n].to(m.device) for n, m in zip(names, self.nu)])

@@ -24,8 +24,23 @@ PyTorch on the model's device: each micro-batch's forward and backward
 `torch._foreach_*`, and one host read at the end for the logs. Its random
 draws come from one CPU `torch.Generator` (seeded by `seed`), whose state
 is part of the checkpoint, so a resumed run draws what a straight run draws.
-The frozen VAE and T5 are not trained. Data and FSDP parallelism over a
-mesh wait for ROADMAP A11.
+The frozen VAE and T5 are not trained.
+
+Over a mesh (`mesh=`, default `parallel.create_mesh()`: trivial without a
+process group, the whole group on the `data` axis with one) each rank
+trains on its rows of the global batch, which every rank is given whole,
+and the gradients are averaged across ranks (`parallel.zero`): the step is
+the one a single process makes from the whole batch. The draws are drawn
+for the global batch from the same generator on every rank and each rank
+takes its rows; the masked-token loss divides each rank's sum by its share
+of the global masked count; LFQ's codebook entropy, EMA-VQ's codebook
+update and the adaptive weight reduce over the ranks (`parallel.batch`).
+`shard_state=True` shards the parameters, Adam's moments and the EMA over
+the mesh's `fsdp` (else `data`) axis by `fsdp_partition_specs` (ZeRO-3 by
+hand: the whole weights are gathered for a step and freed after it).
+Checkpoints are gathered whole on every rank and written by rank 0, so
+one file format serves every mesh. Tensor parallelism waits for ROADMAP
+A11b.
 """
 
 from __future__ import annotations
@@ -38,10 +53,19 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from muse_maskgit_pytorch_tpu_torch.models.maskgit import MaskGit, TrainDraws
+from muse_maskgit_pytorch_tpu_torch.models.maskgit import MaskGit
 from muse_maskgit_pytorch_tpu_torch.models.quantizers import VectorQuantizeEMA
 from muse_maskgit_pytorch_tpu_torch.models.t5 import t5_encode_text_with_mask
 from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE
+from muse_maskgit_pytorch_tpu_torch.parallel.batch import split_over
+from muse_maskgit_pytorch_tpu_torch.parallel.mesh import (
+    create_mesh,
+    is_main_process,
+    jax_dim_orders,
+    replicate,
+    sharded_state_bytes,
+)
+from muse_maskgit_pytorch_tpu_torch.parallel.zero import DistributedParams
 from muse_maskgit_pytorch_tpu_torch.training.data import (
     DataLoader,
     ImageDataset,
@@ -52,7 +76,7 @@ from muse_maskgit_pytorch_tpu_torch.training.data import (
     split_dataset,
 )
 from muse_maskgit_pytorch_tpu_torch.training.ema import ema_init, ema_update
-from muse_maskgit_pytorch_tpu_torch.training.optim import Adam, global_norm, lr_schedule
+from muse_maskgit_pytorch_tpu_torch.training.optim import Adam, global_norm, local_tensors, lr_schedule
 from muse_maskgit_pytorch_tpu_torch.training.preemption import PreemptionGuard
 from muse_maskgit_pytorch_tpu_torch.training.shard_loader import ShardLoader, read_shard_header
 from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import (
@@ -61,7 +85,7 @@ from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import (
     save_train_state,
     wait_for_saves,
 )
-from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, not_ported
+from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists
 from muse_maskgit_pytorch_tpu_torch.utils.metrics import MetricsLogger, StepTimer
 
 FROZEN_CHILDREN = ("vae", "cond_vae")
@@ -81,6 +105,53 @@ def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Ten
     """d loss / d params, zeros for a parameter the loss does not reach."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def _distribute(trainer, module, groups, mesh, shard_state, rules) -> List[DistributedParams]:
+    """Each (names, params) group of `module` over `mesh`, after rank 0's
+    weights and buffers are broadcast to every rank."""
+    trainer.mesh = default(mesh, create_mesh)
+    replicate([*module.parameters(), *module.buffers()], trainer.mesh)
+    orders = jax_dim_orders(module)
+    return [DistributedParams(trainer.mesh, n, p, orders, shard=shard_state, rules=rules) for n, p in groups]
+
+
+def _report_sharding(trainer, dps) -> None:
+    if any(dp.sharded for dp in dps):
+        total, local = sharded_state_bytes(trainer.state)
+        trainer.print(
+            f"sharded train state over mesh {dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))}: "
+            f"{total / 1e9:.2f}G total, {local / 1e9:.2f}G per rank"
+        )
+
+
+def _gathered_opt(opt: Adam, dp: DistributedParams, names) -> dict:
+    """An optimizer's state dict with whole moments (every rank calls it)."""
+    return dict(count=opt.count, mu=dict(zip(names, dp.gather(opt.mu))), nu=dict(zip(names, dp.gather(opt.nu))))
+
+
+def _load_opt(opt: Adam, dp: DistributedParams, state: dict, names) -> None:
+    opt.count = int(state["count"])
+    dp.load(opt.mu, [state["mu"][n] for n in names])
+    dp.load(opt.nu, [state["nu"][n] for n in names])
+
+
+def _module_copy(module, memo, names, weights):
+    """A copy of `module` (sharing what `memo` holds) with `weights`
+    (whole tensors, by parameter name) in place of its parameters."""
+    model = copy.deepcopy(module, memo)
+    live = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, w in zip(names, weights):
+            live[name].data = w.detach().clone()
+    return model
+
+
+def vqgan_param_groups(vae: VQGanVAE):
+    """(generator, discriminator) parameter names of a VAE's train state;
+    the VGG tower is frozen and in neither."""
+    names = [n for n, _ in vae.named_parameters() if not n.startswith("_vgg.")]
+    return [n for n in names if not n.startswith("discr.")], [n for n in names if n.startswith("discr.")]
 
 
 class VQGanVAETrainer:
@@ -125,8 +196,6 @@ class VQGanVAETrainer:
         max_checkpoints: Optional[int] = None,
         random_flip: bool = True,
     ):
-        if mesh is not None or shard_state or shard_state_rules is not None:
-            raise not_ported("VQGanVAETrainer over a mesh (mesh=, shard_state=)", "A11")
         self.vae = vae
         self.num_train_steps = num_train_steps
         self.batch_size = batch_size
@@ -144,18 +213,20 @@ class VQGanVAETrainer:
         if self.has_discr:
             vae.vgg  # builds the lazy tower now: its weights are part of the train state, as in JAX
 
-        # discriminator / generator parameters; the VGG tower is frozen
-        named = [(n, p) for n, p in vae.named_parameters() if not n.startswith("_vgg.")]
-        self.gen_names = [n for n, _ in named if not n.startswith("discr.")]
-        self.discr_names = [n for n, _ in named if n.startswith("discr.")]
-        params = dict(named)
+        self.gen_names, self.discr_names = vqgan_param_groups(vae)
+        params = dict(vae.named_parameters())
         self.gen_params = [params[n].requires_grad_(True) for n in self.gen_names]
         self.discr_params = [params[n].requires_grad_(True) for n in self.discr_names]
 
         self._lr_sched = lr_schedule(lr, warmup_steps, lr_decay_steps)
-        self.gen_opt = Adam(self.gen_params, self._lr_sched, max_grad_norm=max_grad_norm)
-        self.discr_opt = Adam(self.discr_params, self._lr_sched, max_grad_norm=discr_max_grad_norm)
-        self.ema = ema_init(self.gen_params) if use_ema else None
+        self.gen_dp, self.discr_dp = _distribute(
+            self, vae, [(self.gen_names, self.gen_params), (self.discr_names, self.discr_params)], mesh, shard_state,
+            shard_state_rules,
+        )
+        self.gen_opt = Adam(self.gen_dp.masters, self._lr_sched, max_grad_norm=max_grad_norm)
+        self.discr_opt = Adam(self.discr_dp.masters, self._lr_sched, max_grad_norm=discr_max_grad_norm)
+        self.ema = ema_init(self.gen_dp.masters) if use_ema else None
+        _report_sharding(self, (self.gen_dp, self.discr_dp))
         self._step = 0
         self.generator = torch.Generator().manual_seed(seed)
 
@@ -169,10 +240,13 @@ class VQGanVAETrainer:
         self.valid_dl_iter = cycle(DataLoader(self.valid_ds, batch_size, shuffle=True, seed=seed))
 
         self.results_folder = Path(results_folder)
-        if clear_previous_results and self.results_folder.exists() and any(self.results_folder.iterdir()):
+        if (
+            clear_previous_results and is_main_process() and self.results_folder.exists()
+            and any(self.results_folder.iterdir())
+        ):
             rmtree(self.results_folder)
         self.results_folder.mkdir(parents=True, exist_ok=True)
-        self.metrics = MetricsLogger(default(metrics_file, self.results_folder / "metrics.jsonl"))
+        self.metrics = MetricsLogger(default(metrics_file, self.results_folder / "metrics.jsonl"), enabled=is_main_process())
         self.timer = StepTimer()
 
         # drain a save in flight before listing the steps
@@ -187,33 +261,52 @@ class VQGanVAETrainer:
         return self._step
 
     def print(self, msg):
-        print(msg)
+        if is_main_process():
+            print(msg)
 
     # -- state ------------------------------------------------------------------
 
     def vae_module(self, use_ema: bool = False) -> VQGanVAE:
         """The live VAE, or (`use_ema` with EMA on) a copy of it holding the
         EMA generator weights with the live codebook, discriminator and
-        VGG (the latter two shared, not copied)."""
-        if not (use_ema and self.use_ema):
+        VGG (the latter two shared, not copied). Under a sharded state
+        always a copy with the whole weights (every rank calls it)."""
+        sharded = bool(self.gen_dp.sharded or self.discr_dp.sharded)
+        if not (use_ema and self.use_ema) and not sharded:
             return self.vae
-        memo = {id(t): t for t in (self.vae.discr, self.vae._vgg) if t is not None}
-        model = copy.deepcopy(self.vae, memo)
-        live = dict(model.named_parameters())
-        with torch.no_grad():
-            for name, e in zip(self.gen_names, self.ema):
-                live[name].copy_(e)
-        return model
+        shared = (self.vae._vgg,) if sharded else (self.vae.discr, self.vae._vgg)
+        memo = {id(t): t for t in shared if t is not None}
+        gen = self.gen_dp.gather(self.ema if (use_ema and self.use_ema) else self.gen_dp.masters)
+        names, weights = list(self.gen_names), list(gen)
+        if sharded:
+            names += self.discr_names
+            weights += self.discr_dp.gather(self.discr_dp.masters)
+        return _module_copy(self.vae, memo, names, weights)
 
-    def _state(self) -> dict:
+    @property
+    def state(self) -> dict:
+        """The train state's tensors as the trainer holds them (sharded
+        ones as `DTensor`s): what `parallel.sharded_state_bytes` reads."""
         return dict(
-            gen_params=dict(zip(self.gen_names, self.gen_params)),
-            discr_params=dict(zip(self.discr_names, self.discr_params)),
+            gen_params=dict(zip(self.gen_names, self.gen_dp.masters)),
+            discr_params=dict(zip(self.discr_names, self.discr_dp.masters)),
             buffers=dict(self.vae.named_buffers()),
-            vgg=self.vae.vgg.state_dict() if self.has_discr else None,
             gen_opt=self.gen_opt.state_dict(self.gen_names),
             discr_opt=self.discr_opt.state_dict(self.discr_names),
             ema=dict(zip(self.gen_names, self.ema)) if self.use_ema else None,
+        )
+
+    def _state(self) -> dict:
+        """The whole train state (sharded tensors gathered: every rank calls it)."""
+        gen, discr = self.gen_dp, self.discr_dp
+        return dict(
+            gen_params=dict(zip(self.gen_names, gen.gather(gen.masters))),
+            discr_params=dict(zip(self.discr_names, discr.gather(discr.masters))),
+            buffers=dict(self.vae.named_buffers()),
+            vgg=self.vae.vgg.state_dict() if self.has_discr else None,
+            gen_opt=_gathered_opt(self.gen_opt, gen, self.gen_names),
+            discr_opt=_gathered_opt(self.discr_opt, discr, self.discr_names),
+            ema=dict(zip(self.gen_names, gen.gather(self.ema))) if self.use_ema else None,
             step=self._step,
             generator=self.generator.get_state(),
         )
@@ -228,18 +321,18 @@ class VQGanVAETrainer:
     def load(self, path=None, step=None):
         wait_for_saves()  # the save in flight may be the latest step
         state, s = load_train_state(default(path, self.results_folder / "checkpoints"), step)
-        torch._foreach_copy_(self.gen_params, [state["gen_params"][n].to(self.device) for n in self.gen_names])
-        self.gen_opt.load_state_dict(state["gen_opt"], self.gen_names)
+        self.gen_dp.load(self.gen_dp.masters, [state["gen_params"][n] for n in self.gen_names])
+        _load_opt(self.gen_opt, self.gen_dp, state["gen_opt"], self.gen_names)
         if self.has_discr:
-            torch._foreach_copy_(self.discr_params, [state["discr_params"][n].to(self.device) for n in self.discr_names])
-            self.discr_opt.load_state_dict(state["discr_opt"], self.discr_names)
+            self.discr_dp.load(self.discr_dp.masters, [state["discr_params"][n] for n in self.discr_names])
+            _load_opt(self.discr_opt, self.discr_dp, state["discr_opt"], self.discr_names)
             self.vae.vgg.load_state_dict(state["vgg"])
         for name, buf in self.vae.named_buffers():
             buf.copy_(state["buffers"][name])
         if self.use_ema:
             if state["ema"] is None:
                 raise ValueError("the checkpoint has no EMA weights, this trainer keeps them")
-            torch._foreach_copy_(self.ema, [state["ema"][n].to(self.device) for n in self.gen_names])
+            self.gen_dp.load(self.ema, [state["ema"][n] for n in self.gen_names])
         self.generator.set_state(state["generator"])
         self._step = int(s)
 
@@ -264,21 +357,32 @@ class VQGanVAETrainer:
         discr_images = gen_images if discr_images is None else discr_images
         step = self._step
         update_codebook = isinstance(self.vae.quantizer, VectorQuantizeEMA)
+        dp = self.gen_dp
 
+        def rows(images, i):
+            """This rank's rows of micro-batch i, and the ranks that split it."""
+            img = self._micro(images, i)
+            start, stop, parts = dp.rows(img.shape[0])
+            return img[start:stop], split_over(dp.data_group, parts)
+
+        self.gen_dp.materialize()
+        self.discr_dp.materialize()
         # the generator: each micro-batch's loss and gradient, then its
         # codebook update on the pre-step weights, which the next
         # micro-batch's loss sees
         g_sum, loss_sum = None, torch.zeros((), device=self.device)
         for i in range(accum):
-            img = self._micro(gen_images, i)
-            loss = self.vae(img, return_loss=True, train=True, update_stats=False)
-            grads = _grads(loss, self.gen_params)
-            g_sum = grads if g_sum is None else torch._foreach_add(g_sum, grads)
-            loss_sum = loss_sum + loss.detach()
-            if update_codebook:
-                self.vae.update_quantizer_stats(img, rng=draws[i] if draws is not None else self.generator)
+            img, split = rows(gen_images, i)
+            with split:
+                loss = self.vae(img, return_loss=True, train=True, update_stats=False)
+                grads = _grads(loss, self.gen_params)
+                g_sum = grads if g_sum is None else torch._foreach_add(g_sum, grads)
+                loss_sum = loss_sum + loss.detach()
+                if update_codebook:
+                    self.vae.update_quantizer_stats(img, rng=draws[i] if draws is not None else self.generator)
         with torch.no_grad():
-            torch._foreach_div_(g_sum, float(accum))
+            g_sum, (loss_sum,) = self.gen_dp.reduce(g_sum, loss_sum)
+            torch._foreach_div_(local_tensors(g_sum), float(accum))
             norm = global_norm(g_sum)
             lr = self.gen_opt.lr_at(self.gen_opt.count)
             self.gen_opt.step(g_sum, norm)
@@ -287,23 +391,27 @@ class VQGanVAETrainer:
 
         # the discriminator, on the updated generator and codebook
         if self.has_discr:
+            self.gen_dp.materialize()  # the updated generator
             apply_gp = step % self.apply_grad_penalty_every == 0
             d_sum, d_loss_sum = None, torch.zeros((), device=self.device)
             for i in range(accum):
-                d_loss = self.vae(
-                    self._micro(discr_images, i), return_discr_loss=True, add_gradient_penalty=apply_gp, train=False
-                )
-                grads = _grads(d_loss, self.discr_params)
+                img, split = rows(discr_images, i)
+                with split:
+                    d_loss = self.vae(img, return_discr_loss=True, add_gradient_penalty=apply_gp, train=False)
+                    grads = _grads(d_loss, self.discr_params)
                 d_sum = grads if d_sum is None else torch._foreach_add(d_sum, grads)
                 d_loss_sum = d_loss_sum + d_loss.detach()
             with torch.no_grad():
-                torch._foreach_div_(d_sum, float(accum))
+                d_sum, (d_loss_sum,) = self.discr_dp.reduce(d_sum, d_loss_sum)
+                torch._foreach_div_(local_tensors(d_sum), float(accum))
                 d_norm = global_norm(d_sum)
                 self.discr_opt.step(d_sum, d_norm)
             host |= {"discr_loss": d_loss_sum / accum, "discr_grad_norm": d_norm}
 
         if self.use_ema:
-            ema_update(self.ema, self.gen_params, step, **self.ema_kwargs)
+            ema_update(self.ema, self.gen_dp.masters, step, **self.ema_kwargs)
+        self.gen_dp.release()
+        self.discr_dp.release()
         self._step += 1
         logs = dict(zip(host, torch.stack(list(host.values())).tolist()))  # the step's one host read
         if callable(self._lr_sched):
@@ -330,7 +438,8 @@ class VQGanVAETrainer:
             recons = self.vae_module(use_ema)(valid, train=False).clamp(0.0, 1.0)
             stacked = torch.stack([valid, recons], dim=1).reshape(-1, *valid.shape[1:]).cpu().numpy()
             grid = make_grid(stacked, nrow=2)
-            save_image(grid, self.results_folder / f"{filename}.png")
+            if is_main_process():
+                save_image(grid, self.results_folder / f"{filename}.png")
             logs["reconstructions"] = grid
         self.print(f"{step}: saving to {self.results_folder}")
 
@@ -407,8 +516,6 @@ class MaskGitTrainer:
         sample_texts: Optional[Sequence[str]] = None,
         sample_kwargs: Optional[dict] = None,
     ):
-        if mesh is not None or shard_state or shard_state_rules is not None:
-            raise not_ported("MaskGitTrainer over a mesh (mesh=, shard_state=)", "A11")
         if attn_impl != "auto":
             raise ValueError(
                 f"attn_impl {attn_impl!r}: the port attends through K2 on the GPU and its plain version on the CPU "
@@ -439,14 +546,16 @@ class MaskGitTrainer:
             p.requires_grad_(True)
 
         self._lr_sched = lr_schedule(lr, warmup_steps, lr_decay_steps)
-        self.optimizer = Adam(self.params, self._lr_sched, weight_decay=weight_decay, max_grad_norm=max_grad_norm)
-        self.ema = ema_init(self.params) if use_ema else None
+        (self.dp,) = _distribute(self, maskgit, [(self.param_names, self.params)], mesh, shard_state, shard_state_rules)
+        self.optimizer = Adam(self.dp.masters, self._lr_sched, weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+        self.ema = ema_init(self.dp.masters) if use_ema else None
+        _report_sharding(self, (self.dp,))
         self._step = 0
         self.generator = torch.Generator().manual_seed(seed)
 
         self.results_folder = Path(results_folder)
         self.results_folder.mkdir(parents=True, exist_ok=True)
-        self.metrics = MetricsLogger(default(metrics_file, self.results_folder / "metrics.jsonl"))
+        self.metrics = MetricsLogger(default(metrics_file, self.results_folder / "metrics.jsonl"), enabled=is_main_process())
         self.timer = StepTimer()
 
         # drain a save in flight before listing the steps, or the newest
@@ -462,28 +571,39 @@ class MaskGitTrainer:
         return self._step
 
     def print(self, msg):
-        print(msg)
+        if is_main_process():
+            print(msg)
 
     # -- state ------------------------------------------------------------------
 
     def maskgit_module(self, use_ema: bool = False) -> MaskGit:
         """The live model, or (`use_ema` with EMA on) a copy of it holding
-        the EMA weights, which shares the frozen VAE clones."""
-        if not (use_ema and self.use_ema):
+        the EMA weights, which shares the frozen VAE clones. Under a
+        sharded state always a copy with the whole weights (every rank
+        calls it)."""
+        ema = use_ema and self.use_ema
+        if not ema and not self.dp.sharded:
             return self.maskgit
         memo = {id(getattr(self.maskgit, c)): getattr(self.maskgit, c) for c in FROZEN_CHILDREN}
-        model = copy.deepcopy(self.maskgit, memo)
-        live = dict(model.named_parameters())
-        with torch.no_grad():
-            for name, e in zip(self.param_names, self.ema):
-                live[name].copy_(e)
-        return model
+        weights = self.dp.gather(self.ema if ema else self.dp.masters)
+        return _module_copy(self.maskgit, memo, self.param_names, weights)
 
-    def _state(self) -> dict:
+    @property
+    def state(self) -> dict:
+        """The train state's tensors as the trainer holds them (sharded
+        ones as `DTensor`s): what `parallel.sharded_state_bytes` reads."""
         return dict(
-            params=dict(zip(self.param_names, self.params)),
+            params=dict(zip(self.param_names, self.dp.masters)),
             opt=self.optimizer.state_dict(self.param_names),
             ema=dict(zip(self.param_names, self.ema)) if self.use_ema else None,
+        )
+
+    def _state(self) -> dict:
+        """The whole train state (sharded tensors gathered: every rank calls it)."""
+        return dict(
+            params=dict(zip(self.param_names, self.dp.gather(self.dp.masters))),
+            opt=_gathered_opt(self.optimizer, self.dp, self.param_names),
+            ema=dict(zip(self.param_names, self.dp.gather(self.ema))) if self.use_ema else None,
             step=self._step,
             generator=self.generator.get_state(),
         )
@@ -498,12 +618,12 @@ class MaskGitTrainer:
     def load(self, path=None, step=None):
         wait_for_saves()  # the save in flight may be the latest step
         state, s = load_train_state(default(path, self.results_folder / "checkpoints"), step)
-        torch._foreach_copy_(self.params, [state["params"][n].to(self.device) for n in self.param_names])
-        self.optimizer.load_state_dict(state["opt"], self.param_names)
+        self.dp.load(self.dp.masters, [state["params"][n] for n in self.param_names])
+        _load_opt(self.optimizer, self.dp, state["opt"], self.param_names)
         if self.use_ema:
             if state["ema"] is None:
                 raise ValueError("the checkpoint has no EMA weights, this trainer keeps them")
-            torch._foreach_copy_(self.ema, [state["ema"][n].to(self.device) for n in self.param_names])
+            self.dp.load(self.ema, [state["ema"][n] for n in self.param_names])
         self.generator.set_state(state["generator"])
         self._step = int(s)
 
@@ -517,7 +637,8 @@ class MaskGitTrainer:
         images_u8 = (images.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
         n = len(self.sample_texts)
         grid = make_grid(images_u8.astype(np.float32) / 255.0, nrow=min(n, 4))
-        save_image(grid, self.results_folder / f"maskgit.{step}.png")
+        if is_main_process():
+            save_image(grid, self.results_folder / f"maskgit.{step}.png")
         self.print(f"{step}: saving samples to {self.results_folder}")
 
     # -- one step ---------------------------------------------------------------
@@ -525,12 +646,15 @@ class MaskGitTrainer:
     def _micro(self, t, i):
         return None if t is None else torch.as_tensor(t[i]).to(self.device)
 
-    def train_step_arrays(self, images, text_embeds, text_mask, cond_token_ids=None, draws=None):
+    def train_step_arrays(self, images, text_embeds, text_mask, cond_token_ids=None, draws=None, local_rows=False):
         """One optimizer step over `grad_accum_every` micro-batches: arrays
         (numpy or tensors) shaped (accum, B, ...): images (float) or ids,
         text embeddings and mask, and for a super-res stage trained on ids
         `cond_token_ids` (accum, B, n). `draws` (one `TrainDraws` a
-        micro-batch) replaces the trainer's own draws.
+        micro-batch, for the global batch) replaces the trainer's own draws.
+        Over a mesh every rank is given the global batch and trains on its
+        rows; `local_rows`: the arrays are already this rank's rows, in rank
+        order over the data axis.
 
         The micro-batch gradients are summed and divided by the count, then
         clipped, applied and followed by the EMA. Logs `loss`, `grad_norm`
@@ -539,29 +663,51 @@ class MaskGitTrainer:
         accum = self.grad_accum_every
         if len(images) != accum:
             raise ValueError(f"leading dim {len(images)} != grad_accum_every {accum}")
+        dp = self.dp
+        dp.materialize()
         for p in self.params:
             p.grad = None
         loss_sum = torch.zeros((), device=self.device)
         for i in range(accum):
+            micro = [self._micro(t, i) for t in (images, text_embeds, text_mask, cond_token_ids)]
+            draw, denominator = draws[i] if draws is not None else None, None
+            if dp.active:
+                # the global batch's draws, as one process draws them; this rank's rows of them
+                b = micro[0].shape[0]
+                if local_rows:
+                    start, stop, parts = dp.data_index * b, (dp.data_index + 1) * b, dp.data_size
+                    b *= parts
+                else:
+                    start, stop, parts = dp.rows(b)
+                    micro = [None if t is None else t[start:stop] for t in micro]
+                if draw is None:
+                    draw = self.maskgit.train_draws(
+                        (b, *micro[0].shape[1:]), micro[0].is_floating_point(), generator=self.generator
+                    )
+                if parts > 1:
+                    # each rank's cross-entropy sum over its share of the global masked count
+                    denominator = self.maskgit.masked_token_count(draw) / parts
+                draw = draw.rows(start, stop)
             loss = self.maskgit(
-                self._micro(images, i), text_embeds=self._micro(text_embeds, i), text_mask=self._micro(text_mask, i),
-                cond_token_ids=self._micro(cond_token_ids, i), generator=self.generator,
-                draws=draws[i] if draws is not None else None,
+                micro[0], text_embeds=micro[1], text_mask=micro[2], cond_token_ids=micro[3], generator=self.generator,
+                draws=draw, loss_denominator=denominator,
             )
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         with torch.no_grad():
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-            torch._foreach_div_(grads, float(accum))
+            grads, (loss_sum,) = dp.reduce(grads, loss_sum)
+            torch._foreach_div_(local_tensors(grads), float(accum))
             norm = global_norm(grads)
             lr = self.optimizer.lr_at(self.optimizer.count)
             self.optimizer.step(grads, norm)
             if self.use_ema:
-                ema_update(self.ema, self.params, self._step, **self.ema_kwargs)
+                ema_update(self.ema, dp.masters, self._step, **self.ema_kwargs)
             self._step += 1
             loss_v, norm_v = torch.stack([loss_sum / accum, norm]).tolist()  # the step's one host read
         for p in self.params:
             p.grad = None
+        dp.release()
         logs = {"loss": loss_v, "grad_norm": norm_v}
         if callable(self._lr_sched):
             logs["lr"] = lr
@@ -597,12 +743,14 @@ class MaskGitTrainer:
             self.save_sample_results(self.steps - 1)
         log_fn(logs)
 
-    def _run(self, batches, log_fn):
+    def _run(self, batches, log_fn, local_rows: bool = False):
         """Steps until `num_train_steps` or a preemption signal (then a save)."""
         with PreemptionGuard() as guard:
             while self.steps < self.num_train_steps and not guard.requested:
                 images, tes, tms, cond = next(batches)
-                self._after_step(self.train_step_arrays(images, tes, tms, cond_token_ids=cond), log_fn)
+                rows = dict(local_rows=True) if local_rows else {}
+                logs = self.train_step_arrays(images, tes, tms, cond_token_ids=cond, **rows)
+                self._after_step(logs, log_fn)
             if guard.requested:
                 self.print(f"preemption signal: checkpointing step {self.steps} and exiting")
                 self.save()
@@ -629,8 +777,8 @@ class MaskGitTrainer:
         num_threads: int = 2,
         prefetch: int = 2,
         log_fn: Callable = lambda *a, **k: None,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
         """Ids-path training from native token shards (the JAX package's
         format; `training.shard_loader`).
@@ -645,9 +793,24 @@ class MaskGitTrainer:
         `<shard>.captions` sidecars through the frozen T5, else the text is
         empty (unconditional). `cond_token_len`: paired super-res shards,
         the trailing ids of each row are the conditioning tokens. A bucket
-        smaller than one batch is refused."""
-        if process_count > 1:
-            raise not_ported("multi-process shard training (process_count > 1)", "A11")
+        smaller than one batch is refused.
+
+        Over a mesh, `process_index` / `process_count` default to this
+        rank's place on the data axis and its size: each rank opens its
+        round-robin share of the shards (the loader's split and seed rule)
+        and loads `batch_size / process_count` rows a micro-batch, its part
+        of the global batch."""
+        default_index, default_count = self.dp.data_index, self.dp.data_size
+        process_index = default(process_index, default_index)
+        process_count = default(process_count, default_count)
+        if process_count > 1 and (process_count, process_index) != (default_count, default_index):
+            raise ValueError(
+                f"process {process_index} of {process_count}: over this mesh the data axis puts this rank at "
+                f"{default_index} of {default_count}"
+            )
+        if self.batch_size % process_count:
+            raise ValueError(f"batch_size {self.batch_size} does not divide over {process_count} processes")
+        rank_batch = self.batch_size // process_count
         transformer = self.maskgit.transformer
         t5_name, text_dim = transformer.t5_name, transformer.text_embed_dim
 
@@ -676,7 +839,7 @@ class MaskGitTrainer:
             for gi, (_, paths) in enumerate(groups):
                 loaders.append(
                     ShardLoader(
-                        paths, self.batch_size, seed=loader_seed + 1000003 * gi, num_threads=num_threads,
+                        paths, rank_batch, seed=loader_seed + 1000003 * gi, num_threads=num_threads,
                         drop_last=True, process_index=process_index, process_count=process_count,
                         skip_batches=skips[gi],
                     )
@@ -684,11 +847,12 @@ class MaskGitTrainer:
             # a bucket below one batch wraps its epoch and returns a partial
             # batch: refuse it when it opens
             for gi, ld in enumerate(loaders):
-                if ld.num_seqs < self.batch_size:
+                if ld.num_seqs < rank_batch:
                     raise ValueError(
                         f"shard bucket {groups[gi][0]} holds only {ld.num_seqs} sequences, fewer than "
-                        f"batch_size={self.batch_size}, so it cannot yield a full batch. Merge small aspect "
-                        "buckets or lower batch_size."
+                        f"batch_size={self.batch_size}"
+                        + (f" over {process_count} processes ({rank_batch} each)" if process_count > 1 else "")
+                        + ", so it cannot yield a full batch. Merge small aspect buckets or lower batch_size."
                     )
         except BaseException:
             for ld in loaders:
@@ -733,7 +897,7 @@ class MaskGitTrainer:
 
         batches = prefetch_iterator(accum_batches(), prefetch)
         try:
-            self._run(batches, log_fn)
+            self._run(batches, log_fn, local_rows=process_count > 1)
         finally:
             batches.close()  # joins the producer before the native handles are freed
             for it in cap_iters:

@@ -19,6 +19,12 @@ EMA-VQ's codebook statistics among them) in torch's own format, one directory a
 step, `step_XXXXXXXX/state.pt`: it is written under a temporary name and
 renamed when complete, so a listed step is always a whole one. Only module
 checkpoints cross between the packages.
+
+Under a process group every rank calls the saves: the caller hands them the
+whole state (a sharded trainer gathers it on every rank first), rank 0
+alone writes it, and a barrier follows, so no rank reads a file before it
+is renamed into place. An async save's barrier is in `wait_for_saves`,
+which every rank calls at the same points.
 """
 
 from __future__ import annotations
@@ -34,12 +40,20 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from muse_maskgit_pytorch_tpu_torch.parallel.mesh import is_main_process
 from muse_maskgit_pytorch_tpu_torch.utils import msgpack_codec
 from muse_maskgit_pytorch_tpu_torch.utils.from_jax import load_jax_state, to_jax_state
 
 MANIFEST_NAME = "manifest.json"
+
+
+def _barrier() -> None:
+    """Wait for every rank, under a process group."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def _str_keys(tree):
@@ -69,17 +83,20 @@ def save_module(module: nn.Module, path, exclude: Sequence[str] = ()) -> None:
     `path`: a file the JAX package's `load_module` reads. The write goes to
     `path.tmp` and is renamed over `path`, so a crash leaves the old file or
     none, never a truncated one; a manifest beside it that lists the file is
-    brought up to date."""
+    brought up to date. Under a process group rank 0 writes and every rank
+    waits for it."""
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(path.name + ".tmp")
-    with open(tmp, "wb") as f:
-        for piece in msgpack_codec.iter_packb(_state_tree(module, exclude)):
-            f.write(piece)
-    os.replace(tmp, path)
-    # leaves recorded only for whole-module saves: with `exclude` the file's
-    # contents differ from the live module tree
-    _refresh_manifest_entry(path, module if not exclude else None)
+    if is_main_process():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(path.name + ".tmp")
+        with open(tmp, "wb") as f:
+            for piece in msgpack_codec.iter_packb(_state_tree(module, exclude)):
+                f.write(piece)
+        os.replace(tmp, path)
+        # leaves recorded only for whole-module saves: with `exclude` the file's
+        # contents differ from the live module tree
+        _refresh_manifest_entry(path, module if not exclude else None)
+    _barrier()
 
 
 def load_module(module: nn.Module, path, exclude: Sequence[str] = ()) -> List[str]:
@@ -245,6 +262,11 @@ def wait_for_saves() -> None:
     """Block until the async save in flight (if any) is on disk; raises
     what it raised. Call before reading a just-written checkpoint and at the
     end of training (the trainer does both)."""
+    _drain()
+    _barrier()  # rank 0's save in flight is on disk for every rank
+
+
+def _drain() -> None:
     global _in_flight
     with _saver_lock:
         fut, _in_flight = _in_flight, None
@@ -287,15 +309,20 @@ def save_train_state(ckpt_dir, step: int, tree: Dict, async_save: bool = False, 
     one. With `async_save` the save in flight (if any) is drained first,
     then the older checkpoints are pruned (this one is not finalized yet, so
     N finalized ones stay besides it), the tensors are copied to the host
-    and written on a thread; `wait_for_saves()` drains it."""
+    and written on a thread; `wait_for_saves()` drains it. Under a process
+    group rank 0 writes and prunes; a synchronous save ends in a barrier."""
     global _saver, _in_flight
+    if not is_main_process():
+        if not async_save:
+            _barrier()
+        return
     ckpt_dir = Path(ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = ckpt_dir / f"step_{step:08d}"
     if not async_save:
         _write_step(path, tree)
     else:
-        wait_for_saves()
+        _drain()
     if keep is not None:
         prune_checkpoints(ckpt_dir, keep, current_step=step)
     if async_save:
@@ -304,6 +331,8 @@ def save_train_state(ckpt_dir, step: int, tree: Dict, async_save: bool = False, 
             if _saver is None:
                 _saver = ThreadPoolExecutor(max_workers=1, thread_name_prefix="train-state-save")
             _in_flight = _saver.submit(_write_step, path, host)
+    else:
+        _barrier()
 
 
 def load_train_state(ckpt_dir, step: Optional[int] = None) -> Tuple[Dict, int]:

@@ -2,11 +2,16 @@
 HTTP server's images: the GPU machine need not have Pillow.
 
 `encode_png` writes 8-bit greyscale (h, w) or RGB (h, w, 3) images, each row
-unfiltered. `decode_png` reads 8-bit, non-interlaced PNGs of every colour
-type (grey, grey + alpha, RGB, RGBA, palette) and all five row filters, and
-converts them as Pillow's `Image.convert` does: to "RGB" (alpha dropped,
-palette looked up) or to "L" (ITU-R 601-2 luma, (299 R + 587 G + 114 B) /
-1000 in Pillow's 16-bit fixed point, rounded half up).
+unfiltered. `decode_png` reads every PNG the standard allows: each colour
+type (grey, grey + alpha, RGB, RGBA, palette) at each of its bit depths
+(1 / 2 / 4 / 8 / 16 for grey, 1 / 2 / 4 / 8 for palette, 8 / 16 for the
+others), plain or Adam7-interlaced, with all five row filters. It converts
+them as `PIL.Image.open(...).convert(...)` does, to the byte: grey below 8
+bits scaled to 0-255 (x 255, 85, 17), 16-bit grey clipped to 255 (Pillow's
+"I;16" to "RGB" / "L"), 16-bit colour and alpha to their high byte, palette
+indices looked up (past the palette, black), alpha and tRNS dropped; then
+to "RGB", or to "L" (ITU-R 601-2 luma, (299 R + 587 G + 114 B) / 1000 in
+Pillow's 16-bit fixed point, rounded half up).
 """
 
 from __future__ import annotations
@@ -19,6 +24,10 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels: grey, RGB, palette, grey + alpha, RGBA
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# colour type -> the bit depths the standard allows it
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -83,6 +92,30 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _unpack(rows: np.ndarray, depth: int, n: int) -> np.ndarray:
+    """(h, stride) unfiltered bytes -> (h, n) samples of `depth` bits, big
+    endian as PNG packs them (uint8, or uint16 at 16 bits)."""
+    if depth == 8:
+        return rows[:, :n]
+    if depth == 16:
+        pairs = rows[:, : 2 * n].reshape(rows.shape[0], n, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    samples = (rows[..., None] >> shifts) & np.uint8((1 << depth) - 1)
+    return samples.reshape(rows.shape[0], -1)[:, :n]
+
+
+def _to_8bit(samples: np.ndarray, depth: int, colour: int) -> np.ndarray:
+    """Samples -> uint8 as Pillow opens them: grey below 8 bits scaled to
+    0-255, 16-bit grey clipped ("I;16"), other 16-bit samples' high byte;
+    palette indices stay indices."""
+    if depth == 16:
+        return np.minimum(samples, 255).astype(np.uint8) if colour == 0 else (samples >> 8).astype(np.uint8)
+    if depth < 8 and colour == 0:
+        return samples * np.uint8(255 // ((1 << depth) - 1))
+    return samples
+
+
 def _luma(rgb: np.ndarray) -> np.ndarray:
     """Pillow's RGB -> L: (19595 R + 38470 G + 7471 B + 2^15) >> 16."""
     r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
@@ -91,7 +124,7 @@ def _luma(rgb: np.ndarray) -> np.ndarray:
 
 def decode_png(data: bytes, mode: str = "RGB") -> np.ndarray:
     """PNG bytes -> uint8 array: (h, w, 3) for `mode="RGB"`, (h, w) for
-    "L". 8-bit, non-interlaced images only."""
+    "L"."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, palette, idat = 8, None, None, []
@@ -117,12 +150,32 @@ def decode_png(data: bytes, mode: str = "RGB") -> np.ndarray:
     if header is None or not idat:
         raise ValueError("PNG file without IHDR or IDAT")
     w, h, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in _CHANNELS:
-        raise ValueError(f"only 8-bit PNGs are read here, got bit depth {depth}, colour type {colour}")
-    if interlace:
-        raise ValueError("interlaced PNGs are not read here")
+    if colour not in _CHANNELS or depth not in _DEPTHS[colour]:
+        raise ValueError(f"PNG bit depth {depth} with colour type {colour} is not a valid PNG")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace}, not 0 or 1")
     ch = _CHANNELS[colour]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
+    bits = ch * depth
+    bpp = max(1, bits // 8)
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        stride = (w * bits + 7) // 8
+        samples = _unpack(_unfilter(raw, h, stride, bpp), depth, w * ch).reshape(h, w, ch)
+    else:
+        # seven sub-images, each filtered on its own; an empty pass has no bytes
+        samples = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+            if pw <= 0 or ph <= 0:
+                continue
+            stride = (pw * bits + 7) // 8
+            part = raw[pos : pos + ph * (stride + 1)]
+            pos += ph * (stride + 1)
+            samples[y0::dy, x0::dx] = _unpack(_unfilter(part, ph, stride, bpp), depth, pw * ch).reshape(ph, pw, ch)
+        if pos != len(raw):
+            raise ValueError(f"PNG image data holds {len(raw)} bytes, its interlaced passes {pos}")
+    pixels = _to_8bit(samples, depth, colour)
     if colour == 3:
         if palette is None:
             raise ValueError("palette PNG without a PLTE chunk")

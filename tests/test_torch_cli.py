@@ -27,6 +27,8 @@ from muse_maskgit_pytorch_tpu_torch.examples import (
     compute_fid,
     e2e_demo,
     edit_image,
+    fetch_and_convert,
+    fsdp_memory_report,
     load_test,
     sample,
     serve,
@@ -45,7 +47,7 @@ CLIS = {
     m.__name__.rsplit(".", 1)[1]: m
     for m in (
         compute_fid, sample, train_maskgit, train_vqgan, tokenize_dataset, edit_image, serve, load_test, smoke_e2e,
-        e2e_demo,
+        e2e_demo, fetch_and_convert, fsdp_memory_report,
     )
 }
 T5 = "test/cli-tiny-t5"  # registered below: random init, the byte tokenizer, no files
@@ -227,8 +229,13 @@ def test_train_vqgan(folder, tmp_path, monkeypatch):
     want = flatten_tree(to_jax_state(trainer.vae_module(use_ema=True)))
     assert tree.keys() == {k for k in want if not k.startswith("_vgg.")}
     assert all(tree[k].shape == want[k].shape and tree[k].dtype == want[k].dtype for k in tree)
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_vqgan.main(["--folder", str(folder), "--shard-state", "--device", "cpu"])
+    # --shard-state in one process: nothing to shard over, and it trains
+    sharded = train_vqgan.main([
+        "--folder", str(folder), "--image-size", str(SIZE), "--dim", str(VAE_DIM), "--codebook-size", str(VOCAB),
+        "--batch-size", "2", "--grad-accum-every", "1", "--num-train-steps", "1", "--results-folder",
+        str(tmp_path / "sharded"), "--shard-state", "--device", "cpu",
+    ])
+    assert sharded.steps == 1 and not sharded.gen_dp.sharded
 
 
 def test_train_maskgit(folder, vae_file, tmp_path):
@@ -251,8 +258,11 @@ def test_train_maskgit(folder, vae_file, tmp_path):
         "--results-folder", str(tmp_path / "shards"), *common,
     ])
     assert trainer.steps == 2
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_maskgit.main(["--folder", str(folder), "--shard-state", *common])
+    sharded = train_maskgit.main([
+        "--folder", str(folder), "--num-train-steps", "1", "--results-folder", str(tmp_path / "sharded"),
+        "--shard-state", *common,
+    ])
+    assert sharded.steps == 1 and not sharded.dp.sharded
 
 
 @pytest.mark.parametrize("mode", ["square", "buckets", "paired"])
@@ -273,3 +283,48 @@ def test_tokenize_dataset(folder, vae_file, tmp_path, mode):
         assert all(h["seq_len"] == 5 and h["grid"] == (2, 2) for h in headers)
     captions = [Path(s + ".captions") for s in shards]
     assert all(c.exists() for c in captions)
+
+
+@pytest.fixture
+def no_sockets(monkeypatch):
+    """Any socket this process connects or binds fails the test."""
+    import socket
+
+    def refuse(self, address, *a):
+        raise AssertionError(f"a socket was opened to {address}")
+
+    monkeypatch.setattr(socket.socket, "connect", refuse)
+    monkeypatch.setattr(socket.socket, "connect_ex", refuse)
+    monkeypatch.setattr(socket.socket, "bind", refuse)
+
+
+def test_fetch_and_convert(tmp_path, no_sockets):
+    """The offline converter on a randomly initialised InceptionV3 (the T5
+    and VGG16 dry runs take the same path), then --verify; a truncated file
+    fails --verify."""
+    out = tmp_path / "weights"
+    written = fetch_and_convert.main(["--dry-run", "inception", "--out", str(out), "--device", "cpu"])
+    assert [p.name for p in written] == ["inception_v3.msgpack"]
+    assert fetch_and_convert.main(["--out", str(out), "--verify"]) == 1
+    # the JAX package's reader takes the file: flax's msgpack of the JAX layout
+    tree = flatten_tree(msgpack_restore(written[0].read_bytes()))
+    assert any(k.endswith("conv.kernel") and v.ndim == 4 for k, v in tree.items())
+    written[0].write_bytes(written[0].read_bytes()[:-10])
+    with pytest.raises(ValueError, match="size"):
+        fetch_and_convert.main(["--out", str(out), "--verify"])
+    with pytest.raises(SystemExit, match="nothing requested"):
+        fetch_and_convert.main(["--out", str(out)])
+
+
+def test_fsdp_memory_report(tmp_path, no_sockets):
+    """Two gloo ranks on the CPU, a toy VAE: the sharded state per rank is
+    about half the replicated one, which every rank holds whole. This
+    process only reads a file store; the ranks talk over loopback."""
+    rows = fsdp_memory_report.main([
+        "--device", "cpu", "--ranks", "2", "--dim", "32", "--layers", "2", "--image-size", "32", "--codebook", "256",
+        "--json", str(tmp_path / "rows.json"),
+    ])
+    rep, sh = rows["replicated"], rows["sharded"]
+    assert rep["total"] == sh["total"] == rep["per_rank"]
+    assert 0.5 * rep["total"] < sh["per_rank"] < 0.6 * rep["total"]
+    assert sh["ranks"][0] == sh["ranks"][1]

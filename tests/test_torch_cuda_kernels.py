@@ -617,6 +617,76 @@ def test_ema_vq_codebook_update_repeats_bit_identically(dev):
         assert torch.equal(a, b)
 
 
+def test_sampler_row_offset(dev):
+    """A data-parallel rank's rows: with `row_offset`, rows [off, off + n)
+    sample bit for bit what they sample in the whole batch, in the kernel
+    and in the plain version; kernel against plain as at offset 0."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    off, n = 37, 96
+    logits = torch.randn(off + n, 65536, generator=g, device=dev).to(torch.bfloat16)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    idx, prob = sampling_kernel.fused_topk_gumbel_sample(logits, 6554, 1.0, seed)
+    idx_off, prob_off = sampling_kernel.fused_topk_gumbel_sample(logits[off:], 6554, 1.0, seed, row_offset=off)
+    assert torch.equal(idx_off, idx[off:]) and torch.equal(prob_off, prob[off:])
+    pidx, pprob = sampling_kernel.fused_topk_gumbel_sample_plain(logits, 6554, 1.0, seed)
+    pidx_off, pprob_off = sampling_kernel.fused_topk_gumbel_sample_plain(logits[off:], 6554, 1.0, seed, row_offset=off)
+    assert torch.equal(pidx_off, pidx[off:]) and torch.equal(pprob_off, pprob[off:])
+    assert (idx_off == pidx_off).float().mean().item() >= 0.95
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """A process group of one NCCL rank on 127.0.0.1, destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from muse_maskgit_pytorch_tpu_torch.parallel import init_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(backend="nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_sharded_maskgit_step_matches_unwrapped(dev, nccl_group, tmp_path):
+    """`MaskGitTrainer(mesh=create_mesh(), shard_state=True)` over an NCCL
+    group of one against the unwrapped trainer, two f32 steps from one
+    seed: losses within 1e-5 relative, weights within 1e-5, and K2's
+    gradient launched inside the wrapped step (2 layers x self and cross)."""
+    from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTrainer
+    from muse_maskgit_pytorch_tpu_torch.parallel import TrivialMesh, create_mesh
+
+    def trainer(name, mesh, shard):
+        t = MaskGitTransformer(
+            num_tokens=256, dim=128, seq_len=64, depth=2, dim_head=64, heads=2, text_embed_dim=32, self_cond=True,
+            dtype=torch.float32, generator=torch.Generator().manual_seed(0),
+        )
+        return MaskGitTrainer(
+            MaskGit(image_size=32, transformer=t), num_train_steps=10, batch_size=8, lr=1e-3,
+            results_folder=str(tmp_path / name), mesh=mesh, shard_state=shard,
+        )
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = (
+        torch.randint(0, 256, (1, 8, 64), generator=g, device=dev),
+        torch.randn(1, 8, 5, 32, generator=g, device=dev),
+        torch.ones(1, 8, 5, dtype=torch.bool, device=dev),
+    )
+    plain, wrapped = trainer("plain", TrivialMesh(), False), trainer("wrapped", create_mesh(), True)
+    assert wrapped.dp.active and not plain.dp.active
+    for _ in range(2):
+        want = plain.train_step_arrays(*batch)["loss"]
+        before = attention.qknorm_attend_backward.launches
+        got = wrapped.train_step_arrays(*batch)["loss"]
+        assert attention.qknorm_attend_backward.launches - before == 2 * 2
+        assert got == pytest.approx(want, rel=1e-5)
+    for a, b in zip(plain.params, wrapped.dp.gather(wrapped.dp.masters)):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
 def test_vqgan_trainer_step_on_the_card(dev, tmp_path):
     """A small GAN step with EMA-VQ on the card: K3 three times a step (ten
     more for k-means on the first), finite logs, no gradient left behind."""

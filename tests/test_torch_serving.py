@@ -278,9 +278,20 @@ def test_pipeline_work_runs_in_inference_mode_on_its_thread(model, monkeypatch):
     assert modes == [True, True]
 
 
+class _FakeMesh:
+    """Axis names and sizes, as a `DeviceMesh` reports them."""
+
+    def __init__(self, axes):
+        self.mesh_dim_names, self.shape = tuple(axes), tuple(axes.values())
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 def test_unported_and_wrong_devices_raise(model):
-    with pytest.raises(NotImplementedError, match="A11"):
-        pipe(model, mesh=object())
+    # a batch that does not divide over the mesh's data axis
+    with pytest.raises(ValueError, match="must divide over the mesh's 'data' axis"):
+        pipe(model, batch_size=3, mesh=_FakeMesh({"data": 2}))
     if not torch.cuda.is_available():
         # built without device="cpu", a pipeline runs on the card or raises
         with pytest.raises(RuntimeError, match="no CUDA device"):

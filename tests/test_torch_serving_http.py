@@ -431,13 +431,17 @@ def test_png_rejects_what_it_does_not_read():
     with pytest.raises(ValueError, match="CRC"):
         decode_png(bytes(bad))
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(buf, format="PNG")  # 16-bit grey
-    with pytest.raises(ValueError, match="8-bit"):
-        decode_png(buf.getvalue())
+    Image.fromarray(np.zeros((4, 4), np.uint16)).save(buf, format="PNG")  # 16-bit grey: read as Pillow reads it
+    np.testing.assert_array_equal(decode_png(buf.getvalue()), np.asarray(Image.open(buf).convert("RGB")))
+    bad_depth = bytearray(encode_png(img))
+    bad_depth[24] = 3  # IHDR's bit depth: 3 bits is no PNG's, then its CRC
+    bad_depth[29:33] = struct.pack(">I", zlib.crc32(bytes(bad_depth[12:29])))
+    with pytest.raises(ValueError, match="not a valid PNG"):
+        decode_png(bytes(bad_depth))
     interlaced = bytearray(encode_png(img))
-    interlaced[28] = 1  # IHDR's interlace method, then its CRC
+    interlaced[28] = 1  # IHDR's interlace method, then its CRC: the rows are not Adam7's passes
     interlaced[29:33] = struct.pack(">I", zlib.crc32(bytes(interlaced[12:29])))
-    with pytest.raises(ValueError, match="interlaced"):
+    with pytest.raises(ValueError, match="bytes"):
         decode_png(bytes(interlaced))
     with pytest.raises(ValueError, match="uint8"):
         encode_png(np.zeros((2, 2, 3), np.float32))

@@ -170,6 +170,7 @@ def test_small_bucket_and_process_count_are_refused(tmp_path, pair):
     t = MaskGitTrainer(pm, num_train_steps=1, batch_size=BATCH, results_folder=str(tmp_path / "s"), use_ema=False)
     with pytest.raises(ValueError, match="fewer than batch_size"):
         t.train_from_shards([tmp_path / "big.bin", tmp_path / "small.bin"], num_threads=1)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # one process without a process group is rank 0 of 1 on the data axis
+    with pytest.raises(ValueError, match="data axis puts this rank at 0 of 1"):
         t.train_from_shards([tmp_path / "big.bin"], process_count=2)
     assert t.steps == 0 and torch.is_tensor(t.params[0])

@@ -30,6 +30,7 @@ from muse_maskgit_pytorch_tpu.training.trainers import MaskGitTrainer as JaxTrai
 from muse_maskgit_pytorch_tpu.training.trainers import lr_schedule as jax_lr_schedule
 from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE
 from muse_maskgit_pytorch_tpu_torch.models import t5 as pt5
+from muse_maskgit_pytorch_tpu_torch.parallel import DEFAULT_TP_RULES
 from muse_maskgit_pytorch_tpu_torch.training import MaskGitTrainer, ema_init, ema_update, lr_schedule
 from muse_maskgit_pytorch_tpu_torch.training.optim import clip_by_global_norm, global_norm
 from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import finalized_steps, latest_step, wait_for_saves
@@ -264,8 +265,8 @@ def test_metrics_and_periodic_samples(tmp_path):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="A11"):
-        MaskGitTrainer(_port_model(), num_train_steps=1, batch_size=B, mesh=object())
+    with pytest.raises(NotImplementedError, match="A11b"):
+        MaskGitTrainer(_port_model(), num_train_steps=1, batch_size=B, shard_state_rules=DEFAULT_TP_RULES)
     with pytest.raises(ValueError, match="sample_texts"):
         MaskGitTrainer(_port_model(), num_train_steps=1, batch_size=B, save_results_every=1)
 

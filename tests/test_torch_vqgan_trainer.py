@@ -45,6 +45,7 @@ from muse_maskgit_pytorch_tpu.training import data as jdata
 from muse_maskgit_pytorch_tpu.training.trainers import VQGanVAETrainer as JaxTrainer
 from muse_maskgit_pytorch_tpu_torch import VQGanVAE, VQGanVAETrainer
 from muse_maskgit_pytorch_tpu_torch.models.quantizers import VQDraws
+from muse_maskgit_pytorch_tpu_torch.parallel import DEFAULT_TP_RULES
 from muse_maskgit_pytorch_tpu_torch.training import data as pdata
 from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import finalized_steps, latest_step
 from muse_maskgit_pytorch_tpu_torch.utils.from_jax import flatten_tree, to_jax_state
@@ -268,8 +269,8 @@ def test_sigterm_saves_and_resumes(tmp_path):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        _port_trainer(tmp_path / "m", mesh=object())
+    with pytest.raises(NotImplementedError, match="A11b"):
+        _port_trainer(tmp_path / "m", shard_state_rules=DEFAULT_TP_RULES)
     t = _port_trainer(tmp_path / "g", gan=False)
     assert not t.has_discr and t.discr_names == []
     logs = t.train_step_arrays(images(80, 1, B, 32, 32, 3))
