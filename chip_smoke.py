@@ -45,6 +45,12 @@ read just after):
     base stage's width (8 requests of b32 -- K1 and K2), written as PNGs
     beside 256 seeded "real" ones, through the port's `compute_fid` command
     line (`--save-stats`, `--stats`, a set against itself);
+  * `tensor`: tensor parallelism over a `tensor` axis of two ranks on the
+    one card (gloo on CUDA tensors): `MaskGitTrainer(shard_state=True,
+    shard_state_rules=DEFAULT_TP_RULES)` at the base stage's width, f32
+    against the unwrapped trainer and bf16 timed, a TP forward and
+    `generate` against one process, a TP checkpoint read whole -- K2 on
+    each rank's 4 heads, forward and backward, K1 on the gathered logits;
   * `serving`: the base model saved in the JAX package's checkpoint format
     and loaded into a fresh model (tensor- and image-equal), then served:
     `GeneratePipeline` at b16, T18, CFG 3 with T5 in front (warmup, timed
@@ -59,7 +65,7 @@ raises and the exit code is non-zero. The last line is
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
 selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
-t5, surfaces, serving, train, gan, cascade, eval, parallel, profile) while iterating; a
+t5, surfaces, serving, train, gan, cascade, eval, parallel, tensor, profile) while iterating; a
 subset prints its phases' lines and no result lines.
 """
 
@@ -83,7 +89,7 @@ from pathlib import Path
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
     "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
-    "gan", "cascade", "eval", "parallel", "profile",
+    "gan", "cascade", "eval", "parallel", "tensor", "profile",
 )
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "qknorm_attention_bwd", "vq_search", "flash_attention")
 
@@ -105,6 +111,12 @@ SERVE_BATCH, SERVE_CAS_BATCH, BURST_REQUESTS, BURST_CLIENTS = 16, 8, 48, 16
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM, TRAIN_LR, TRAIN_WARMUP = 64, 10, 2, 1e-4, 2
 # the super-res stage's step (batch CAS_BATCH at seq SR_SEQ): warm-up and timed steps
 SR_TRAIN_WARM, SR_TRAIN_STEPS = 2, 5
+# tensor parallelism: ranks on the one card, the train and generate batches,
+# the bf16 step's warm-up, timed steps and steps with the collectives timed
+TP_WORLD, TP_BATCH, TP_GEN_BATCH, TP_WARM, TP_STEPS, TP_COLL_STEPS = 2, 16, 8, 2, 5, 3
+# the share of the train state a rank holds under DEFAULT_TP_RULES at this
+# width, counted from the specs on the CPU (103,325,181 parameters)
+TP_STATE_SHARE_EXPECTED = 0.696
 SMALL_DEPTH, SMALL_LR = 2, 1e-3
 # the VQ-GAN step (`bench_sweep.py`'s exp_gan_step: the tokenizer's width,
 # micro-batch 8, accumulation 1, EMA) with the reference EMA-VQ settings
@@ -1266,6 +1278,363 @@ def phase_parallel(torch, ctx):
     ctx["parallel_launches"] = launches
 
 
+def tp_inputs(torch, dev="cuda"):
+    """The `[tensor]` phase's train batch (1, TP_BATCH, ...), forward ids
+    and texts, from a card generator with a fixed seed: equal in every
+    process on the card."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    ids = torch.randint(0, VOCAB, (1, TP_BATCH, SEQ), generator=g, device=dev)
+    te = torch.randn(1, TP_BATCH, TEXT_LEN, TEXT_DIM, generator=g, device=dev)
+    tm = torch.arange(TEXT_LEN, device=dev) < torch.randint(8, TEXT_LEN + 1, (1, TP_BATCH, 1), generator=g, device=dev)
+    x = torch.randint(0, VOCAB + 1, (2, SEQ), generator=g, device=dev)
+    text = torch.randn(TP_GEN_BATCH, TEXT_LEN, TEXT_DIM, generator=g, device=dev)
+    return (ids, te * tm[..., None], tm), x, text
+
+
+def tp_noise(torch, dev="cuda"):
+    """(STEPS, TP_GEN_BATCH, SEQ, VOCAB) f32 Gumbel noise from a card
+    generator with a fixed seed (the same in every process), made in place."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    u = torch.rand(STEPS, TP_GEN_BATCH, SEQ, VOCAB, generator=g, device=dev)
+    return u.clamp_(1e-9, 1 - 1e-9).log_().neg_().log_().neg_()
+
+
+def tp_trainer(torch, folder, dtype, mesh=None):
+    """A `MaskGitTrainer` at the base stage's width with self-conditioning:
+    tensor-parallel over `mesh`, or unwrapped without one."""
+    from muse_maskgit_pytorch_tpu_torch.parallel import DEFAULT_TP_RULES, TrivialMesh
+    from muse_maskgit_pytorch_tpu_torch.training import MaskGitTrainer
+
+    wrap = dict(mesh=mesh, shard_state=True, shard_state_rules=DEFAULT_TP_RULES) if mesh is not None else dict(mesh=TrivialMesh())
+    model = build_models(torch, dtype=dtype, with_vae=False, self_cond=True)
+    return MaskGitTrainer(
+        model, num_train_steps=10**6, batch_size=TP_BATCH, lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+        results_folder=str(folder), save_model_every=10**9, **wrap,
+    )
+
+
+def tp_generate(model, text, **kw):
+    """One b8 T18 CFG 3 request through K1 ("fused") and the ids K1 gave
+    at its first step."""
+    from muse_maskgit_pytorch_tpu_torch.models import maskgit as mg
+
+    first, real = [], mg.fused_topk_gumbel_sample
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if not first:
+            first.append(out[0].clone())
+        return out
+
+    mg.fused_topk_gumbel_sample = record
+    try:
+        out = model.generate(text_embeds=text, timesteps=STEPS, cond_scale=CFG, sampler="fused", **kw)
+    finally:
+        mg.fused_topk_gumbel_sample = real
+    return out, first[0]
+
+
+def tp_rank(rank: int, port: int, folder: str, dev: str = "cuda"):
+    """One rank of `[tensor]` (a spawned process): (a) the f32 TP trainer's
+    2 steps, its K2 launches and the heads each saw, its state's bytes, its
+    weights (rank 0 writes them and the checkpoint); (b) the bf16 TP step's
+    time and its collectives' host time; (c) the f32 TP forward's logits and
+    one f32 request under injected noise (rank 0 writes them), and one bf16
+    request to PNGs. The numbers go to `rank<r>.json`."""
+    import datetime
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from muse_maskgit_pytorch_tpu_torch.models import transformer
+    from muse_maskgit_pytorch_tpu_torch.ops.attention import qknorm_attend, qknorm_attend_backward
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.parallel import create_mesh, init_distributed, sharded_state_bytes
+    from muse_maskgit_pytorch_tpu_torch.parallel.tensor import shard_module
+    from muse_maskgit_pytorch_tpu_torch.utils.png import encode_png
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    folder = Path(folder)
+    init_distributed(
+        backend="gloo", device=dev, init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=TP_WORLD,
+        timeout=datetime.timedelta(seconds=300),
+    )
+    out = {}
+    try:
+        mesh = create_mesh({"tensor": TP_WORLD})
+        heads, real_attend = set(), transformer.qknorm_attend
+
+        def attend(q, *args, **kwargs):
+            heads.add(q.shape[2])
+            return real_attend(q, *args, **kwargs)
+
+        transformer.qknorm_attend = attend
+        batch, x, text = tp_inputs(torch, dev)
+
+        # -- (a) f32: 2 steps, launches, the state's bytes, the weights and a checkpoint
+        t = tp_trainer(torch, folder / "f32", torch.float32, mesh)
+        total, local = sharded_state_bytes(t.state)
+        losses, k2_fwd, k2_bwd = [], [], []
+        for _ in range(2):
+            f0, b0 = qknorm_attend.launches, qknorm_attend_backward.launches
+            losses.append(t.train_step_arrays(*batch)["loss"])
+            k2_fwd.append(qknorm_attend.launches - f0)
+            k2_bwd.append(qknorm_attend_backward.launches - b0)
+        weights = t.dp.gather(t.dp.masters)
+        t.save()  # gathered on every rank, written by rank 0
+        if rank == 0:
+            torch.save({n: w.cpu() for n, w in zip(t.param_names, weights)}, folder / "tp_params.pt")
+        out["a"] = dict(losses=losses, k2_forward=k2_fwd, k2_backward=k2_bwd, state_total=total, state_local=local)
+        del t, weights
+        torch.cuda.empty_cache()
+
+        # -- (b) bf16: the step's time, then its collectives' host time
+        t = tp_trainer(torch, folder / "bf16", None, mesh)
+        for _ in range(TP_WARM):
+            t.train_step_arrays(*batch)
+        launches0 = qknorm_attend.launches, qknorm_attend_backward.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf_losses = [t.train_step_arrays(*batch)["loss"] for _ in range(TP_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TP_STEPS * 1000
+        launches = qknorm_attend.launches - launches0[0], qknorm_attend_backward.launches - launches0[1]
+        spent, real_all_reduce = [0.0, 0, 0], dist.all_reduce
+
+        def timed_all_reduce(tensor, *args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            work = real_all_reduce(tensor, *args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - start
+            spent[1] += 1
+            spent[2] += tensor.numel() * tensor.element_size()
+            return work
+
+        dist.all_reduce = timed_all_reduce
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TP_COLL_STEPS):
+                t.train_step_arrays(*batch)
+            torch.cuda.synchronize()
+            timed_ms = (time.perf_counter() - t0) / TP_COLL_STEPS * 1000
+        finally:
+            dist.all_reduce = real_all_reduce
+        out["b"] = dict(
+            ms_per_step=step_ms, losses=bf_losses, k2_forward=launches[0], k2_backward=launches[1],
+            timed_ms_per_step=timed_ms, collective_ms_per_step=spent[0] / TP_COLL_STEPS * 1000,
+            collectives_per_step=spent[1] / TP_COLL_STEPS, collective_bytes_per_step=spent[2] / TP_COLL_STEPS,
+        )
+        del t
+        torch.cuda.empty_cache()
+
+        # -- (c) the f32 forward and a request under injected noise; a bf16 request to PNGs
+        model = build_models(torch, dtype=torch.float32, with_vae=False, self_cond=True)
+        shard_module(model.transformer, mesh)
+        k1_before = fused_topk_gumbel_sample.launches
+        with torch.inference_mode():
+            logits = model.transformer(x, text_embeds=text[: x.shape[0]])
+            noise = tp_noise(torch, dev)
+            ids, first = tp_generate(model, text, injected_gumbel_noise=noise, return_ids=True)
+        k1_f32 = fused_topk_gumbel_sample.launches - k1_before
+        if rank == 0:
+            torch.save(dict(logits=logits.cpu(), ids=ids.cpu(), first=first.cpu()), folder / "tp_outputs.pt")
+        del model, noise, logits
+        torch.cuda.empty_cache()
+        model = build_models(torch)
+        shard_module(model.transformer, mesh)
+        k1_before, k2_before = fused_topk_gumbel_sample.launches, qknorm_attend.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            images, _ = tp_generate(model, text)
+        torch.cuda.synchronize()
+        request_ms = (time.perf_counter() - t0) * 1000
+        k1_bf16, k2_bf16 = fused_topk_gumbel_sample.launches - k1_before, qknorm_attend.launches - k2_before
+        pixels = (images.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+        finite = bool(torch.isfinite(images).all())
+        written = 0
+        if rank == 0:
+            for i, im in enumerate(pixels):
+                (folder / f"tp_{i}.png").write_bytes(encode_png(im))
+                written += 1
+        out["c"] = dict(
+            k1_f32=k1_f32, k1_bf16=k1_bf16, k2_bf16=k2_bf16, request_ms=request_ms, images_shape=list(pixels.shape),
+            images_finite=finite, pngs=written,
+        )
+        out["heads"] = sorted(heads)
+        (folder / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tensor(torch, ctx):
+    """[tensor]: tensor parallelism over a `tensor` axis of TP_WORLD ranks on
+    the one card. NCCL puts no two ranks on one device, so the ranks form a
+    gloo group on CUDA tensors (spawned processes on 127.0.0.1): every
+    collective passes through the host, and the times say nothing of TP over
+    NVLink. Each rank runs `tp_rank`; the references run here, unwrapped, on
+    the same card from the same seeds.
+
+    (a) `MaskGitTrainer(shard_state=True, shard_state_rules=DEFAULT_TP_RULES)`
+        over `create_mesh({"tensor": 2})`, f32, b16 at the base stage's width
+        (dim 512, depth 8, 8 heads x 64, seq 256, vocab 65536, text 64 x 768,
+        self-conditioning), 2 steps against the unwrapped trainer: losses
+        within 1e-4 relative; the weights by tests/test_torch_parallel.py's
+        rule for two summation orders: within 1e-3 of the leaf's largest
+        change (`[parallel]`'s limit) plus 8 ulps of the weight for all but
+        0.1% of a leaf's entries, every entry within 2 x the steps' summed
+        lr (Adam moves an entry whose gradient is at rounding level by about
+        its lr, either way); K2's forward 16 or 32 and its
+        backward 16 launches a rank a step, every one at 4 heads; the state's
+        bytes a rank over the total beside the share counted on the CPU.
+    (b) the bf16 TP step: ms over TP_STEPS after TP_WARM, then TP_COLL_STEPS
+        steps with every all-reduce timed on the host between synchronises
+        (the collectives' ms, count and bytes a step). Printed, not gated.
+    (c) the f32 forward of a `shard_module`d model: logits within 1e-4 of the
+        largest |logit| of one process's; one b8 T18 CFG 3 request under
+        injected noise through K1 on the gathered logits: the first step's
+        ids agree on at least 0.999 of the positions (the logits differ by
+        the split's summation order, so equality would rest on near-ties),
+        the 18-step grids' agreement printed; one bf16 request with the VAE
+        to PNGs, finite.
+    (d) the TP trainer's checkpoint loaded into an unwrapped trainer here:
+        every weight bit-equal to the TP trainer's gathered weights.
+    """
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=scratch))
+    try:
+        with socket.socket() as s:  # a free port on the loopback interface
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        torch.cuda.empty_cache()  # the ranks allocate on the same card
+        t0 = time.perf_counter()
+        mp.start_processes(tp_rank, args=(port, str(tmp)), nprocs=TP_WORLD, join=True, start_method="spawn")
+        t_ranks = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+        tp_params = torch.load(tmp / "tp_params.pt")
+        tp_out = torch.load(tmp / "tp_outputs.pt")
+        batch, x, text = tp_inputs(torch)
+
+        # -- (a) against the unwrapped trainer
+        plain = tp_trainer(torch, tmp / "plain", torch.float32)
+        start = [p.detach().clone() for p in plain.params]
+        plain_losses = [plain.train_step_arrays(*batch)["loss"] for _ in range(2)]
+        a = [r["a"] for r in ranks]
+        rel = max(abs(l - p) / abs(p) for r in a for l, p in zip(r["losses"], plain_losses))
+        # the weights by tests/test_torch_parallel.py's rule for two summation
+        # orders: each entry within 1e-3 of its leaf's largest change plus 8
+        # ulps of the weight (a gamma near 1 moves by about 5e-5 in two
+        # steps, and one rounding of it is 1.2e-3 of that), for all but 0.1%
+        # of a leaf's entries, and every entry within 2 x the steps' summed
+        # lr: Adam moves an entry whose gradient is at rounding level by
+        # about its lr, either way
+        lr_sum = sum(plain.optimizer.lr_at(i) for i in range(2))
+        leaf, worst_share, worst_move, off = 0.0, 0.0, 0.0, []
+        for n, p, s in zip(plain.param_names, plain.params, start):
+            err, change = (tp_params[n].cuda() - p).abs(), (p - s).abs().max()
+            leaf = max(leaf, err.max().item() / max(change.item(), 1e-30))
+            big = torch.maximum(p.abs(), s.abs())
+            outside = (err > 1e-3 * change + 8 * (torch.nextafter(big, big + 1) - big)).float().mean().item()
+            worst_share, worst_move = max(worst_share, outside), max(worst_move, err.max().item() / (2 * lr_sum))
+            if outside > 1e-3 or err.max().item() > 2 * lr_sum:
+                off.append((n, outside, err.max().item()))
+        share = a[0]["state_local"] / a[0]["state_total"]
+        require(rel <= 1e-4, f"[tensor] f32 TP losses {[r['losses'] for r in a]} vs unwrapped {plain_losses}")
+        require(not off, f"[tensor] f32 TP weights off (leaf, share of entries outside, max err): {off}")
+        for r in a:
+            require(all(n in (2 * DEPTH, 4 * DEPTH) for n in r["k2_forward"]), f"[tensor] K2 forward launches a step {r['k2_forward']}")
+            require(all(n == 2 * DEPTH for n in r["k2_backward"]), f"[tensor] K2 backward launches a step {r['k2_backward']}")
+        require(all(r["heads"] == [HEADS // TP_WORLD] for r in ranks), f"[tensor] K2 saw heads {[r['heads'] for r in ranks]}")
+        require(share < 0.75, f"[tensor] a rank holds {share:.3f} of the train state")
+
+        # -- (d) the TP checkpoint, loaded into the unwrapped trainer
+        plain.load(tmp / "f32" / "checkpoints")
+        bitwise = all(torch.equal(p.detach().cpu(), tp_params[n]) for n, p in zip(plain.param_names, plain.params))
+        require(bitwise and plain.steps == 2, "[tensor] the TP checkpoint read in one process differs from the TP weights")
+        del plain, start, tp_params
+        torch.cuda.empty_cache()
+
+        # -- (c) the forward and the request, against one process
+        model = build_models(torch, dtype=torch.float32, with_vae=False, self_cond=True)
+        with torch.inference_mode():
+            logits = model.transformer(x, text_embeds=text[: x.shape[0]])
+            logit_err = (tp_out["logits"].cuda() - logits).abs().max().item() / logits.abs().max().item()
+            noise = tp_noise(torch)
+            ids, first = tp_generate(model, text, injected_gumbel_noise=noise, return_ids=True)
+        first_same = int((tp_out["first"].cuda() == first).sum())
+        grid_agree = (tp_out["ids"].cuda() == ids).float().mean().item()
+        del model, noise, logits
+        torch.cuda.empty_cache()
+        require(logit_err <= 1e-4, f"[tensor] f32 TP logits {logit_err:.3g} of the largest |logit| from one process's")
+        require(first_same >= 0.999 * first.numel(), f"[tensor] first step ids agree at {first_same} of {first.numel()}")
+        c = [r["c"] for r in ranks]
+        for r in c:
+            require(r["images_finite"] and r["images_shape"] == [TP_GEN_BATCH, IMAGE, IMAGE, 3], f"[tensor] bf16 images {r}")
+            require(r["k1_f32"] == STEPS and r["k1_bf16"] == STEPS and r["k2_bf16"] > 0, f"[tensor] launches {r}")
+        require(c[0]["pngs"] == TP_GEN_BATCH, f"[tensor] {c[0]['pngs']} PNGs written")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b = [r["b"] for r in ranks]
+    launches = dict(k1=0, k2=0, k3=0, k4=0)
+    for r in ranks:
+        launches["k2"] += sum(r["a"]["k2_forward"]) + r["b"]["k2_forward"] + r["c"]["k2_bf16"]
+        launches["k1"] += r["c"]["k1_f32"] + r["c"]["k1_bf16"]
+    ctx["tensor_launches"] = launches
+    # K2 at a rank's heads: its launches here; its times are `[train]`'s self_h4 / cross_h4 shapes
+    ctx["k2_tensor"] = dict(
+        heads_per_rank=ranks[0]["heads"], forward_launches_per_rank_step=a[0]["k2_forward"],
+        backward_launches_per_rank_step=a[0]["k2_backward"],
+        backward_launches=sum(sum(r["a"]["k2_backward"]) + r["b"]["k2_backward"] for r in ranks),
+    )
+    ctx["tensor"] = dict(
+        world=TP_WORLD, backend="gloo on CUDA tensors", f32_loss_rel=rel, f32_leaf_rel=leaf,
+        f32_entries_outside_share=worst_share, f32_largest_move_of_lr_bound=worst_move,
+        k2_forward_per_rank_step=a[0]["k2_forward"], k2_backward_per_rank_step=a[0]["k2_backward"],
+        k2_heads=ranks[0]["heads"], state_share=share, state_share_expected=TP_STATE_SHARE_EXPECTED,
+        state_bytes_total=a[0]["state_total"], state_bytes_per_rank=a[0]["state_local"],
+        bf16_ms_per_step=[r["ms_per_step"] for r in b], bf16_collective_ms_per_step=[r["collective_ms_per_step"] for r in b],
+        bf16_ms_per_step_collectives_timed=[r["timed_ms_per_step"] for r in b],
+        collectives_per_step=b[0]["collectives_per_step"], collective_bytes_per_step=b[0]["collective_bytes_per_step"],
+        logits_rel=logit_err, first_step_ids_same=first_same, first_step_ids=first.numel(), grid_agreement=grid_agree,
+        bf16_request_ms=[r["request_ms"] for r in c], checkpoint_bitwise=bitwise, ranks_s=t_ranks,
+    )
+    def each(key, rows, fmt=".1f"):
+        return ", ".join(format(r[key], fmt) for r in rows)
+
+    log(
+        f"[tensor] {TP_WORLD} ranks on one card, gloo on CUDA tensors (every collective through the host: no "
+        f"figure here is TP over NVLink), create_mesh({{'tensor': {TP_WORLD}}}), ranks' run {t_ranks:.1f} s | (a) "
+        f"MaskGitTrainer(shard_state=True, shard_state_rules=DEFAULT_TP_RULES) f32 b{TP_BATCH} seq {SEQ} dim {DIM} depth "
+        f"{DEPTH} vocab {VOCAB}, 2 steps vs unwrapped: loss {', '.join(f'{v:.6f}' for v in a[0]['losses'])} vs "
+        f"{', '.join(f'{v:.6f}' for v in plain_losses)} ({rel:.2g} relative), weights within {leaf:.2g} of a leaf's "
+        f"change, at most {worst_share:.2e} of a leaf's entries past 1e-3 of it + 8 ulps, the largest move "
+        f"{worst_move:.2f} of 2 x the steps' lr; K2 a rank a step {a[0]['k2_forward']} forward, {a[0]['k2_backward']} backward, at {ranks[0]['heads']} "
+        f"heads; state {a[0]['state_local'] / 2**30:.3f} of {a[0]['state_total'] / 2**30:.3f} GiB a rank ({share:.3f}; "
+        f"{TP_STATE_SHARE_EXPECTED} counted on the CPU) | (b) bf16 TP step {each('ms_per_step', b)} "
+        f"ms a rank ({TP_BATCH / b[0]['ms_per_step'] * 1000:.2f} img/s), with each all-reduce timed between "
+        f"synchronises {each('timed_ms_per_step', b)} ms of which collectives "
+        f"{each('collective_ms_per_step', b)} ms ({b[0]['collectives_per_step']:.0f} a step, "
+        f"{b[0]['collective_bytes_per_step'] / 2**20:.1f} MiB) | (c) f32 TP logits within {logit_err:.2g} of the "
+        f"largest |logit|; b{TP_GEN_BATCH} T{STEPS} CFG {CFG:g} under injected noise, K1 on the gathered logits: first "
+        f"step ids {first_same} of {first.numel()} equal, 18-step grids {grid_agree:.4f} equal; bf16 request "
+        f"{each('request_ms', c, '.0f')} ms a rank, {c[0]['pngs']} PNGs | (d) TP checkpoint read "
+        f"in one process: bit-equal | {ctx.get('smi', '')} | {time.perf_counter() - t_phase:.1f} s"
+    )
+
+
 def phase_profile(torch, ctx):
     """One `generate` request (as in `[generate]`) under torch.profiler:
     device time in all and by kernel, for PERF.md's breakdown."""
@@ -2298,7 +2667,8 @@ def phase_train(torch, ctx):
     (a) K2's gradient at the train shapes: the base stage's self (64, 256,
         8, 64) x 256 keys and cross x 64 text keys with a CFG-dropped row,
         the super-res stage's self (16, 1024) x 1024 and cross x 320 keys
-        (the null half's text keys off), f32 and bf16. One forward and one
+        (the null half's text keys off), and the base stage's self and cross
+        at the 4 heads a rank of `[tensor]` runs, f32 and bf16. One forward and one
         backward launch a call; the forward output against
         `qknorm_attend_plain` (1e-4 f32, K2_BF16_FROM_F32 bf16; bf16 also
         against the TPU-rounding form within BF16_VS_ROUNDED; the dropped row
@@ -2365,14 +2735,14 @@ def phase_train(torch, ctx):
     t_phase = time.perf_counter()
     counted = dict(k1=fused_topk_gumbel_sample, k2=qknorm_attend, k3=nearest_code, k4=attend)
     g = torch.Generator(device=dev).manual_seed(8)
-    hd = HEADS * DIM_HEAD
 
     # -- (a) K2's gradient at the train shapes: the forward and the backward kernel
-    def grad_inputs(b, n, m, dtype, mask_kind):
-        q = torch.randn(b, n, hd, generator=g, device=dev).to(dtype).reshape(b, n, HEADS, DIM_HEAD)
+    def grad_inputs(b, n, m, dtype, mask_kind, heads):
+        hd = heads * DIM_HEAD
+        q = torch.randn(b, n, hd, generator=g, device=dev).to(dtype).reshape(b, n, heads, DIM_HEAD)
         kv = torch.randn(b, m, 2 * hd, generator=g, device=dev).to(dtype)
-        k, v = (t.reshape(b, m, HEADS, DIM_HEAD) for t in kv.chunk(2, dim=-1))  # views of one to_kv output
-        nk, nv = (torch.randn(HEADS, DIM_HEAD, generator=g, device=dev).to(dtype) for _ in range(2))
+        k, v = (t.reshape(b, m, heads, DIM_HEAD) for t in kv.chunk(2, dim=-1))  # views of one to_kv output
+        nk, nv = (torch.randn(heads, DIM_HEAD, generator=g, device=dev).to(dtype) for _ in range(2))
         qs, ks = (1 + 0.1 * torch.randn(DIM_HEAD, generator=g, device=dev) for _ in range(2))
         mask = None
         if mask_kind == "dropped":
@@ -2383,7 +2753,7 @@ def phase_train(torch, ctx):
             # conditioning keys; the null half's text keys are off
             mask = torch.ones(b, m, dtype=torch.bool, device=dev)
             mask[b // 2 :, : m - COND_TOKENS] = False
-        cot = torch.randn(b, n, HEADS, DIM_HEAD, generator=g, device=dev).to(dtype)
+        cot = torch.randn(b, n, heads, DIM_HEAD, generator=g, device=dev).to(dtype)
         return [q, k, v, nk, nv, qs, ks], mask, cot
 
     def fwd_bwd(fn, args, mask, cot, **kw):
@@ -2400,18 +2770,22 @@ def phase_train(torch, ctx):
     # the base stage's self- and cross-attention (a CFG-dropped row), and the
     # super-res stage's at b16 (the JAX trainer trains it with paired
     # conditioning ids): self over 1024 positions, cross over 64 text + 256
-    # conditioning keys with the null half's text keys off
+    # conditioning keys with the null half's text keys off; then the base
+    # stage's at the 4 heads a tensor rank of `[tensor]` runs (h / 2)
+    tp_heads = HEADS // TP_WORLD
     grad_shapes = {
-        "self": (TRAIN_BATCH, SEQ, SEQ, None),
-        "cross": (TRAIN_BATCH, SEQ, TEXT_LEN, "dropped"),
-        "sr_self": (CAS_BATCH, SR_SEQ, SR_SEQ, None),
-        "sr_cross": (CAS_BATCH, SR_SEQ, TEXT_LEN + COND_TOKENS, "superres"),
+        "self": (TRAIN_BATCH, SEQ, SEQ, None, HEADS),
+        "cross": (TRAIN_BATCH, SEQ, TEXT_LEN, "dropped", HEADS),
+        "sr_self": (CAS_BATCH, SR_SEQ, SR_SEQ, None, HEADS),
+        "sr_cross": (CAS_BATCH, SR_SEQ, TEXT_LEN + COND_TOKENS, "superres", HEADS),
+        "self_h4": (TRAIN_BATCH, SEQ, SEQ, None, tp_heads),
+        "cross_h4": (TRAIN_BATCH, SEQ, TEXT_LEN, "dropped", tp_heads),
     }
     grad_errs, grad_times = {}, {}
-    for name, (b, n, m, mask_kind) in grad_shapes.items():
+    for name, (b, n, m, mask_kind, heads) in grad_shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
-            args, mask, cot = grad_inputs(b, n, m, dtype, mask_kind)
+            args, mask, cot = grad_inputs(b, n, m, dtype, mask_kind, heads)
             before = qknorm_attend.launches, qknorm_attend_backward.launches
             out, got = fwd_bwd(qknorm_attend, args, mask, cot)
             launched = qknorm_attend.launches - before[0], qknorm_attend_backward.launches - before[1]
@@ -2448,17 +2822,17 @@ def phase_train(torch, ctx):
             peak = PEAK_F32 if f32 else PEAK_BF16_TC
             # forward + backward: QK^T and PV forward; S, dP, dV, dQ, dK backward
             # (4 + 10 n m d a head); the backward alone: 10 n m d
-            lse_bytes = b * HEADS * n * 4
-            fb_bound = bound(14.0 * HEADS * n * keys_on * DIM_HEAD, nbytes(*args, mask, cot) + 2 * nbytes(args[0]) + nbytes(*args[1:3]) + lse_bytes, peak)
-            bwd_bound = bound(10.0 * HEADS * n * keys_on * DIM_HEAD, nbytes(*args, mask, cot, out) + lse_bytes + nbytes(*args[:3]), peak)
+            lse_bytes = b * heads * n * 4
+            fb_bound = bound(14.0 * heads * n * keys_on * DIM_HEAD, nbytes(*args, mask, cot) + 2 * nbytes(args[0]) + nbytes(*args[1:3]) + lse_bytes, peak)
+            bwd_bound = bound(10.0 * heads * n * keys_on * DIM_HEAD, nbytes(*args, mask, cot, out) + lse_bytes + nbytes(*args[:3]), peak)
             leaves = [t.detach().requires_grad_() for t in args]
             fwd_out, lse = qknorm_attend_with_lse(*args, mask=mask)
             # SDPA on the normalised inputs with the null key and value in
             # front: the attention core only (no mask), its flash backward
             qn, kn, nkn = (t.float() / t.float().norm(dim=-1, keepdim=True) for t in (args[0], args[1], args[3]))
             qn = (qn * args[5] * 8.0).to(dtype).transpose(1, 2).detach().requires_grad_()
-            kn = torch.cat([nkn.expand(b, 1, HEADS, DIM_HEAD), kn * args[6]], 1).to(dtype).transpose(1, 2)
-            vn = torch.cat([args[4].expand(b, 1, HEADS, DIM_HEAD), args[2]], 1).transpose(1, 2)
+            kn = torch.cat([nkn.expand(b, 1, heads, DIM_HEAD), kn * args[6]], 1).to(dtype).transpose(1, 2)
+            vn = torch.cat([args[4].expand(b, 1, heads, DIM_HEAD), args[2]], 1).transpose(1, 2)
             kn, vn = kn.detach().requires_grad_(), vn.detach().requires_grad_()
             sdpa_cot = cot.transpose(1, 2)
 
@@ -2489,7 +2863,7 @@ def phase_train(torch, ctx):
             # the forward alone beside K2's, both with no gradient: QK^T and PV
             # over the keys left on, 4 n m d a head; q, k, v, mask in and out out
             sdpa_fwd_alone_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, scale=1.0))
-            fwd_bound = bound(4.0 * HEADS * n * keys_on * DIM_HEAD, nbytes(*args, mask) + nbytes(args[0]), peak)
+            fwd_bound = bound(4.0 * heads * n * keys_on * DIM_HEAD, nbytes(*args, mask) + nbytes(args[0]), peak)
             grad_times[(name, dtype)] = dict(
                 bwd_ms=graph_ms(bwd_call),
                 bwd_host_us=host_us(bwd_call),
@@ -2545,6 +2919,7 @@ def phase_train(torch, ctx):
 
     labels = {
         "self": "self (64,256,8,64)x256", "cross": "cross (64,256|64) with a dropped row (null_v)",
+        "self_h4": "a tensor rank's self (64,256,4,64)x256", "cross_h4": "a tensor rank's cross (64,256|64) at 4 heads",
         "sr_self": f"super-res self ({CAS_BATCH},1024,8,64)x1024",
         "sr_cross": f"super-res cross ({CAS_BATCH},1024|320), the null half's text keys off",
     }
@@ -3643,7 +4018,7 @@ def main(argv=None) -> int:
         ctx[tag]["launches"] += (
             ctx["cascade_launches"][tag] + ctx["surface_launches"][tag] + ctx["serving_launches"][tag]
             + ctx["train_launches"][tag] + ctx["gan_launches"][tag] + ctx["eval_launches"][tag]
-            + ctx["parallel_launches"][tag]
+            + ctx["parallel_launches"][tag] + ctx["tensor_launches"][tag]
         )
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
         ctx[tag]["launches_per_eval_request"] = ctx["eval_per_request"][tag]
@@ -3666,7 +4041,10 @@ def main(argv=None) -> int:
             replaces=f"muse_maskgit_pytorch_tpu/ops/{tpu}", **{k: ctx[tag][k] for k in keys},
             **({"routes": ctx["k1_routes"]} if tag == "k1" else {}),
             **(
-                {"shapes": ctx["k2_shapes"], "backward": ctx["k2_backward"], "f32_forward": ctx["k2_f32_forward"]}
+                {
+                    "shapes": ctx["k2_shapes"], "backward": ctx["k2_backward"], "f32_forward": ctx["k2_f32_forward"],
+                    "tensor": ctx["k2_tensor"],
+                }
                 if tag == "k2"
                 else {}
             ),
@@ -3679,6 +4057,7 @@ def main(argv=None) -> int:
                 "cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"], "surfaces": ctx["surfaces"],
                 "vaes_share_weights_ms": ctx["vaes_share_weights_ms"], "serving": ctx["serving"],
                 "train": ctx["train"], "gan": ctx["gan"], "eval": ctx["eval"], "parallel": ctx["parallel"],
+                "tensor": ctx["tensor"],
                 "k1_row_offset": ctx["k1_row_offset"],
             }
         ),

@@ -394,14 +394,15 @@ class MaskGit(nn.Module):
             else:
                 self_cond_embed = torch.zeros(batch, seq_len, self.transformer.dim, dtype=self.transformer.dtype, device=device)
 
-        ce_loss, logits = self.transformer(
+        out = self.transformer(
             x, text_embeds=text_embeds, text_mask=text_mask, self_cond_embed=self_cond_embed,
             conditioning_token_ids=cond_token_ids, labels=labels, cond_drop_prob=cond_drop_prob,
-            ignore_index=ignore_index, return_logits=True, keep_u=draws.keep_u, pos_grid=pos_grid,
+            ignore_index=ignore_index, return_logits=critic, keep_u=draws.keep_u, pos_grid=pos_grid,
             loss_denominator=loss_denominator,
         )
         if not critic:
-            return ce_loss
+            return out
+        ce_loss, logits = out
 
         temp = default(sample_temperature, draws.sample_temperature)
         with torch.no_grad():

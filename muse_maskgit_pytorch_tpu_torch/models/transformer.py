@@ -21,6 +21,19 @@ entropy (`cross_entropy_ignore_index`), or a critic's binary cross entropy
 (`sigmoid_bce`), with classifier-free-guidance dropout of the text from
 given uniforms (`keep_u`).
 
+Tensor parallelism (`parallel.tensor.plan`, under `shard_state_rules=` or
+`parallel.tensor.shard_module`): a module whose `tensor_split` is set holds
+its rank's slice of the leaves it names and computes its share. `Attention`
+runs K2 on its rank's heads (`to_q`'s rows, `to_out`'s columns; the whole
+`to_kv` is held and sliced, since its rows are `[k | v]` and a contiguous
+split would give one rank all of k); `FeedForward` its slice of the inner
+dim (the whole `proj_in` sliced for `[x | gate]`, `norm_inner`'s statistics
+summed over the ranks); `Transformer` its slice of the vocab in `to_logits`
+(a vocab-parallel cross entropy, the logits gathered for a sampler) and in
+`token_emb`'s lookup. The replicated leaves a rank uses a slice of
+(`null_kv`, `q_scale`, `k_scale`, `norm_inner.gamma`) and the gathered ones
+get whole gradients on every rank.
+
 Parameter names mirror the JAX module tree, so `utils.from_jax` maps
 weights by path.
 """
@@ -38,6 +51,7 @@ from torch import nn
 from muse_maskgit_pytorch_tpu_torch.models._layers import Embedding, Linear
 from muse_maskgit_pytorch_tpu_torch.models.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 from muse_maskgit_pytorch_tpu_torch.ops.attention import qknorm_attend
+from muse_maskgit_pytorch_tpu_torch.parallel.tensor import copy_in, gather_last, max_over, reduce_out
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -56,6 +70,17 @@ def _pad_text_to(t: torch.Tensor, mask: torch.Tensor, length: int):
 def _text_mask(text_embeds: torch.Tensor, text_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """The given mask, or the one the embeddings carry (padding is zero)."""
     return (text_embeds != 0).any(dim=-1) if text_mask is None else text_mask
+
+
+def _linear(layer: Linear, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """`layer` applied with `weight` in place of its own (rows of it)."""
+    dt = layer.compute_dtype
+    return F.linear(x.to(dt), weight.to(dt))
+
+
+def _pair_rows(weight: torch.Tensor, half: int, part: slice) -> torch.Tensor:
+    """Rows `part` of each half of a `[a | b]` weight of 2 * `half` rows."""
+    return torch.cat([weight[part], weight[half + part.start : half + part.stop]])
 
 
 class LayerNorm(nn.Module):
@@ -79,15 +104,38 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: float = 4, dtype=torch.float32, *, generator=None):
         super().__init__()
         inner_dim = int(dim * mult * 2 / 3)
+        self.inner_dim = inner_dim
         self.norm = LayerNorm(dim)
         self.proj_in = Linear(dim, inner_dim * 2, dtype=dtype, generator=generator)
         self.norm_inner = LayerNorm(inner_dim)
         self.proj_out = Linear(inner_dim, dim, dtype=dtype, generator=generator)
+        self.tensor_split = None
+
+    def tensor_local_leaves(self, size: int):
+        """`parallel.tensor.plan`: split `size` ways, a rank holds its
+        columns of `proj_out` (its slice of the inner dim) where the split
+        stores them; an inner dim that does not divide (1365 at dim 512)
+        leaves `proj_out` whole and the block runs whole."""
+        return [{"proj_out.weight": 1}]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, gate = self.proj_in(self.norm(x)).chunk(2, dim=-1)
+        tp = self.tensor_split
+        if tp is None:
+            x, gate = self.proj_in(self.norm(x)).chunk(2, dim=-1)
+            x = gate * F.gelu(x)
+            return self.proj_out(self.norm_inner(x))
+        part = tp.part(self.inner_dim)
+        weight = _pair_rows(copy_in(self.proj_in.weight, tp), self.inner_dim, part)
+        x, gate = _linear(self.proj_in, copy_in(self.norm(x), tp), weight).chunk(2, dim=-1)
         x = gate * F.gelu(x)
-        return self.proj_out(self.norm_inner(x))
+        # norm_inner over the whole inner dim: its statistics summed over the ranks
+        x32 = x.float()
+        mean = copy_in(reduce_out(x32.sum(dim=-1, keepdim=True), tp), tp) / self.inner_dim
+        centred = x32 - mean
+        var = copy_in(reduce_out(centred.square().sum(dim=-1, keepdim=True), tp), tp) / self.inner_dim
+        gamma = copy_in(self.norm_inner.gamma, tp)[part]
+        x = (centred * torch.rsqrt(var + 1e-5) * gamma).to(x.dtype)
+        return reduce_out(self.proj_out(x), tp)
 
 
 class Attention(nn.Module):
@@ -119,16 +167,41 @@ class Attention(nn.Module):
         self.q_scale = nn.Parameter(torch.ones(dim_head))
         self.k_scale = nn.Parameter(torch.ones(dim_head))
         self.to_out = Linear(inner_dim, dim, dtype=dtype, generator=generator)
+        self.tensor_split = None
+
+    def tensor_local_leaves(self, size: int):
+        """`parallel.tensor.plan`: split `size` ways, a rank holds its heads'
+        rows of `to_q` and columns of `to_out` where the heads divide."""
+        return [{"to_q.weight": 0, "to_out.weight": 1}] if self.heads % size == 0 else []
+
+    def _null_kv(self) -> torch.Tensor:
+        """(2, heads, 1, d): this rank's heads under a tensor split."""
+        tp = self.tensor_split
+        return self.null_kv if tp is None else copy_in(self.null_kv, tp)[:, tp.part(self.heads)]
 
     def null_out(self) -> torch.Tensor:
         """(1, 1, dim) output for a query whose whole context is masked: the
-        softmax is one-hot on the null position, so this is `to_out(null_v)`."""
-        v = self.null_kv[1].reshape(1, 1, self.heads * self.dim_head)
-        return self.to_out(v.to(self.dtype))
+        softmax is one-hot on the null position, so this is `to_out(null_v)`
+        (under a tensor split, the sum of each rank's heads' part)."""
+        v = self._null_kv()[1]
+        out = self.to_out(v.reshape(1, 1, v.shape[0] * self.dim_head).to(self.dtype))
+        return out if self.tensor_split is None else reduce_out(out, self.tensor_split)
 
     def compute_kv(self, kv_input: torch.Tensor) -> KV:
-        """Raw K/V projections (views into one to_kv output)."""
-        k, v = self.to_kv(kv_input).chunk(2, dim=-1)
+        """Raw K/V projections (views into one to_kv output); under a tensor
+        split, of this rank's heads."""
+        tp = self.tensor_split
+        return self._kv(kv_input if tp is None else copy_in(kv_input, tp))
+
+    def _kv(self, kv_input: torch.Tensor) -> KV:
+        tp = self.tensor_split
+        if tp is None:
+            out = self.to_kv(kv_input)
+        else:
+            heads = tp.part(self.heads)
+            rows = slice(heads.start * self.dim_head, heads.stop * self.dim_head)
+            out = _linear(self.to_kv, kv_input, _pair_rows(copy_in(self.to_kv.weight, tp), self.heads * self.dim_head, rows))
+        k, v = out.chunk(2, dim=-1)
         return k, v
 
     def forward(
@@ -141,26 +214,36 @@ class Attention(nn.Module):
         if (exists(context) or exists(cached_kv)) != self.cross_attend:
             raise ValueError("context (or cached_kv) is given exactly for cross-attention")
         b, n, _ = x.shape
-        h, d = self.heads, self.dim_head
+        tp = self.tensor_split
+        d = self.dim_head
+        h = self.heads if tp is None else self.heads // tp.size  # this rank's heads
         x = self.norm(x)
+        q_scale, k_scale = self.q_scale, self.k_scale
+        if tp is not None:
+            x = copy_in(x, tp)
+            q_scale, k_scale = copy_in(q_scale, tp), copy_in(k_scale, tp)
         if exists(cached_kv):
             k_raw, v_raw = cached_kv
+        elif self.cross_attend:
+            k_raw, v_raw = self.compute_kv(context)
         else:
-            k_raw, v_raw = self.compute_kv(context if self.cross_attend else x)
+            k_raw, v_raw = self._kv(x)
         m = k_raw.shape[1]
+        null_kv = self._null_kv()
         q = self.to_q(x).reshape(b, n, h, d)
         out = qknorm_attend(
             q,
             k_raw.reshape(b, m, h, d),
             v_raw.reshape(b, m, h, d),
-            null_k=self.null_kv[0, :, 0, :].to(k_raw.dtype),
-            null_v=self.null_kv[1, :, 0, :].to(v_raw.dtype),
-            q_scale=self.q_scale,
-            k_scale=self.k_scale,
+            null_k=null_kv[0, :, 0, :].to(k_raw.dtype),
+            null_v=null_kv[1, :, 0, :].to(v_raw.dtype),
+            q_scale=q_scale,
+            k_scale=k_scale,
             mask=context_mask,
             scale=self.scale,
         )
-        return self.to_out(out.reshape(b, n, h * d))
+        out = self.to_out(out.reshape(b, n, h * d))
+        return out if tp is None else reduce_out(out, tp)
 
 
 class TransformerBlocks(nn.Module):
@@ -300,7 +383,38 @@ class Transformer(nn.Module):
         )
         self.self_cond = self_cond
         self.self_cond_to_init_embed = FeedForward(dim, dtype=dtype, generator=generator)
+        self.tensor_split = None
         self.to(device)
+
+    def tensor_local_leaves(self, size: int):
+        """`parallel.tensor.plan`: split `size` ways, a rank holds its slice
+        of the vocab head's rows and, apart, of the token embedding's rows,
+        where the split stores them (65536 head rows divide; 65537 embedding
+        rows, the mask id's among them, do not)."""
+        return [{"to_logits.weight": 0}, {"token_emb.weight": 0}]
+
+    def _split_of(self, leaf: str):
+        tp = self.tensor_split
+        return tp if tp is not None and tp.splits(leaf) else None
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; under a split table, each rank looks up the ids
+        in its rows (zeros elsewhere) and the ranks' parts are summed."""
+        tp = self._split_of("token_emb.weight")
+        if tp is None:
+            return self.token_emb(ids)
+        table = self.token_emb.weight
+        local = ids - tp.rank * table.shape[0]
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)), table)
+        return reduce_out(torch.where(inside[..., None], rows, torch.zeros_like(rows)), tp)
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        """Vocab logits of pre-head embeddings, whole rows on every rank."""
+        tp = self._split_of("to_logits.weight")
+        if tp is None:
+            return self.to_logits(h)
+        return gather_last(self.to_logits(copy_in(h, tp)), tp)
 
     def _positions(self, n: int, grid: Optional[tuple] = None) -> torch.Tensor:
         """(n, dim) positional embeddings for a sequence of n tokens.
@@ -365,7 +479,7 @@ class Transformer(nn.Module):
         context = text_embeds.to(self.dtype)
         if exists(conditioning_token_ids):
             cond_ids = conditioning_token_ids.reshape(context.shape[0], -1)
-            context = torch.cat([context, self.token_emb(cond_ids).to(self.dtype)], dim=-2)
+            context = torch.cat([context, self._embed(cond_ids).to(self.dtype)], dim=-2)
         return context
 
     def precompute_context_kv(
@@ -423,7 +537,7 @@ class Transformer(nn.Module):
         if fold:
             e = null.float()
             e = e + (cond.float() - e) * s
-            return self.to_logits(e.to(self.dtype))
+            return self._head(e.to(self.dtype))
         if isinstance(s, torch.Tensor):
             return null.float() + (cond - null).float() * s
         return null + (cond - null) * s
@@ -613,7 +727,7 @@ class Transformer(nn.Module):
             n_cond = conditioning_token_ids.reshape(b, -1).shape[-1]
             context_mask = F.pad(context_mask, (0, n_cond), value=True)
 
-        h = (self.token_emb(x) + self._positions(n, grid=pos_grid)).to(self.dtype)
+        h = (self._embed(x) + self._positions(n, grid=pos_grid)).to(self.dtype)
         if self.self_cond:
             if not exists(self_cond_embed):
                 self_cond_embed = torch.zeros_like(h)
@@ -629,7 +743,14 @@ class Transformer(nn.Module):
             head_in = embed
         if skip_head:
             return head_in, embed
-        logits = self.to_logits(head_in)
+        vocab_split = self._split_of("to_logits.weight")
+        if exists(labels) and vocab_split is not None and not return_embed:
+            # a vocab-parallel cross entropy on this rank's logits; the whole
+            # rows only where they are returned
+            local = self.to_logits(copy_in(head_in, vocab_split))
+            loss = cross_entropy_ignore_index(local, labels, ignore_index, loss_denominator, vocab_split)
+            return (loss, gather_last(local, vocab_split)) if return_logits else loss
+        logits = self._head(head_in)
         if return_embed:
             return logits, embed
         if not exists(labels):
@@ -642,18 +763,29 @@ class Transformer(nn.Module):
 
 
 def cross_entropy_ignore_index(
-    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int, denominator: Optional[float] = None
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int, denominator: Optional[float] = None, split=None
 ) -> torch.Tensor:
     """Mean cross entropy over the positions whose label is not
     `ignore_index` (0 when there are none), as `picked logit - logsumexp`
     in f32 over logits of any dtype: no (b, n, vocab) log-softmax is
     written, only the picked logit is gathered. `denominator` replaces the
     count of those positions (a data-parallel rank divides its sum by its
-    share of the global batch's count)."""
-    lse = torch.logsumexp(logits.float(), dim=-1)
+    share of the global batch's count). `split` (a `TensorSplit`): the
+    logits are this tensor rank's slice of the vocab, and the row max, the
+    sum of exponentials and the picked logit reduce over the tensor group."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    picked = logits.gather(-1, safe[..., None].long())[..., 0]
+    if split is None:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        picked = logits.gather(-1, safe[..., None].long())[..., 0]
+    else:
+        x = logits.float()
+        top = max_over(x.detach().amax(dim=-1, keepdim=True), split)
+        lse = torch.log(reduce_out(torch.exp(x - top).sum(dim=-1), split)) + top[..., 0]
+        local = safe.long() - split.rank * logits.shape[-1]
+        inside = (local >= 0) & (local < logits.shape[-1])
+        mine = logits.gather(-1, torch.where(inside, local, torch.zeros_like(local))[..., None])[..., 0].float()
+        picked = reduce_out(torch.where(inside, mine, torch.zeros_like(mine)), split)
     ll = picked.float() - lse
     count = valid.sum().clamp(min=1) if denominator is None else denominator
     return -(ll * valid).sum() / count

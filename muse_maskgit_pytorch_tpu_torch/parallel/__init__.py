@@ -1,5 +1,7 @@
-"""Data-parallel and FSDP training and serving over a `torch.distributed`
-process group (counterpart of `muse_maskgit_pytorch_tpu/parallel/`)."""
+"""Data-parallel, FSDP and tensor-parallel training and serving over a
+`torch.distributed` process group (counterpart of
+`muse_maskgit_pytorch_tpu/parallel/`; the collectives of tensor parallelism,
+which XLA inserts in JAX, are `parallel.tensor`)."""
 
 from muse_maskgit_pytorch_tpu_torch.parallel.mesh import (
     DATA_AXIS,

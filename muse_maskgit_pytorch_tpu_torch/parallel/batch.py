@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from muse_maskgit_pytorch_tpu_torch.parallel.tensor import all_gather
+
 _SPLIT: ContextVar[Optional[Tuple[object, int]]] = ContextVar("batch_split", default=None)
 _ROW0: ContextVar[int] = ContextVar("batch_row_offset", default=0)
 
@@ -80,7 +82,4 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
     split = _SPLIT.get()
     if split is None:
         return t
-    group, size = split
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim=0)
+    return torch.cat(all_gather(t, split[0]), dim=0)

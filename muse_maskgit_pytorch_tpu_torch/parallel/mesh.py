@@ -4,8 +4,10 @@
 The JAX package builds a `jax.sharding.Mesh` over the devices of a slice and
 lets XLA insert the collectives. Here each process drives one device, the
 processes form a `torch.distributed` process group (`init_distributed`:
-NCCL on CUDA, gloo on the CPU), and `create_mesh` lays the group's ranks
-out as a `torch.distributed.device_mesh.DeviceMesh` with named axes. With no
+NCCL on CUDA, gloo on the CPU, or gloo on CUDA tensors for several ranks on
+one card), and `create_mesh` lays the group's ranks out as a
+`torch.distributed.device_mesh.DeviceMesh` with named axes, of the device
+type the ranks compute on. With no
 process group, `create_mesh` gives a `TrivialMesh` of size 1 that needs
 none, so a single-process caller runs as before.
 
@@ -86,8 +88,7 @@ def create_mesh(shape: Optional[Dict[str, int]] = None, devices: Optional[Sequen
         return TrivialMesh(names)
     from torch.distributed.device_mesh import DeviceMesh
 
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.tensor(ranks).reshape(sizes), mesh_dim_names=names)
+    return DeviceMesh(_rank_device_type(), torch.tensor(ranks).reshape(sizes), mesh_dim_names=names)
 
 
 def axis_coordinate(mesh, axis: str) -> Tuple[int, int]:
@@ -146,25 +147,50 @@ def is_main_process() -> bool:
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
-def init_distributed(backend: Optional[str] = None, init_method: Optional[str] = None, **kwargs) -> None:
-    """`torch.distributed.init_process_group`: NCCL where CUDA is, gloo
-    else, the rank and world from `torchrun`'s environment unless given
-    (`rank=`, `world_size=`, `init_method=` or `store=`). On CUDA the rank's
-    device is `LOCAL_RANK` (or rank mod the device count). A no-op when the
-    group exists; a failed NCCL init raises."""
+# the device type the ranks of the group that `init_distributed` made compute on
+_group_device: Dict[int, str] = {}
+
+
+def _rank_device_type() -> str:
+    """"cuda" or "cpu": what `init_distributed` was told, else CUDA under
+    NCCL and the CPU under any other backend."""
+    group = dist.distributed_c10d._get_default_group()
+    return _group_device.get(id(group), "cuda" if dist.get_backend() == "nccl" else "cpu")
+
+
+def init_distributed(
+    backend: Optional[str] = None, init_method: Optional[str] = None, device: Optional[str] = None, **kwargs
+) -> None:
+    """`torch.distributed.init_process_group`, the rank and world from
+    `torchrun`'s environment unless given (`rank=`, `world_size=`,
+    `init_method=` or `store=`). `device` is the device type the ranks
+    compute on, "cuda" (the default where CUDA is) or "cpu"; the backend
+    defaults to NCCL on CUDA and gloo on the CPU. `backend="gloo"` on CUDA
+    puts several ranks on one card, which NCCL refuses; gloo's collectives
+    then pass through the host. On CUDA the rank's device is `LOCAL_RANK`
+    (or rank mod the device count). A no-op when the group exists; a failed
+    NCCL init raises."""
     if dist.is_initialized():
         return
-    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    device = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    backend = backend or ("nccl" if device == "cuda" else "gloo")
+    if backend == "nccl" and device != "cuda":
+        raise ValueError("NCCL runs on CUDA tensors only")
     if "store" not in kwargs:
         kwargs["init_method"] = init_method or "env://"
     elif init_method is not None:
         raise ValueError("pass init_method or store, not both")
-    if backend == "nccl":
+    if device == "cuda":
         rank = kwargs.get("rank", int(os.environ.get("RANK", 0)))
         local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
         torch.cuda.set_device(local)
-        kwargs.setdefault("device_id", torch.device("cuda", local))
+        if backend == "nccl":
+            kwargs.setdefault("device_id", torch.device("cuda", local))
     dist.init_process_group(backend, **kwargs)
+    _group_device.clear()
+    _group_device[id(dist.distributed_c10d._get_default_group())] = device
 
 
 def join_torchrun_group(device) -> bool:
@@ -174,7 +200,7 @@ def join_torchrun_group(device) -> bool:
     caller then destroys it); False outside `torchrun` or with a group."""
     if "RANK" not in os.environ or dist.is_initialized():
         return False
-    init_distributed(backend="gloo" if torch.device(device).type == "cpu" else None)
+    init_distributed(device=torch.device(device).type)
     return True
 
 

@@ -16,7 +16,10 @@ group): every rank is handed the same prompts, decodes its rows of each
 batch from the same seed stream (K1 keys its noise on the global row, so
 the ids are the ones one process decodes), and the images are all-gathered
 in rank order, so every rank, rank 0 among them, returns the whole batch.
-Edits run whole on every rank.
+Edits run whole on every rank. The batch splits over the mesh's `data`
+axis, else its first, as in the JAX package; the ranks of a `tensor` axis
+that a model is split over (`parallel.tensor.shard_module`) decode the
+same rows together.
 
 Not ported: `export_pipeline` / `ExportedPipeline` (ROADMAP A12b) and the
 persistent compile cache (nothing to cache: the kernels are built once per
@@ -30,13 +33,13 @@ from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from muse_maskgit_pytorch_tpu_torch.models.maskgit import SEED_HIGH, MaskGit, Muse, child_generators, vaes_share_weights
 from muse_maskgit_pytorch_tpu_torch.models.t5 import t5_encode_text_with_mask
 from muse_maskgit_pytorch_tpu_torch.ops import _build
 from muse_maskgit_pytorch_tpu_torch.parallel.batch import rows_from
-from muse_maskgit_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, axis_coordinate, mesh_axes
+from muse_maskgit_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS, axis_coordinate, mesh_axes
+from muse_maskgit_pytorch_tpu_torch.parallel.tensor import all_gather
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import resolve_device
 
 
@@ -123,6 +126,8 @@ class GeneratePipeline:
         if mesh is not None:
             axis = DATA_AXIS if DATA_AXIS in mesh_axes(mesh) else mesh.mesh_dim_names[0]
             index, n = axis_coordinate(mesh, axis)
+            if axis == TENSOR_AXIS and any(getattr(m, "tensor_split", None) is not None for m in model.modules()):
+                index, n = 0, 1  # the tensor ranks of a model split over them decode the same rows together
             if batch_size % n:
                 raise ValueError(f"batch_size {batch_size} must divide over the mesh's {axis!r} axis ({n} ranks)")
             per = batch_size // n
@@ -287,9 +292,7 @@ class GeneratePipeline:
         are without a mesh)."""
         if self._data_group is None:
             return images
-        parts = [torch.empty_like(images) for _ in range(dist.get_world_size(self._data_group))]
-        dist.all_gather(parts, images.contiguous(), group=self._data_group)
-        return torch.cat(parts)
+        return torch.cat(all_gather(images, self._data_group))
 
     def _edit_batch(self, images, masks, embeds, tmask, generator, cond_scale=None) -> torch.Tensor:
         # the pipeline's negative prompt applies to edits too, as to __call__

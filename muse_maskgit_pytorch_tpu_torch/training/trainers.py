@@ -38,9 +38,14 @@ update and the adaptive weight reduce over the ranks (`parallel.batch`).
 `shard_state=True` shards the parameters, Adam's moments and the EMA over
 the mesh's `fsdp` (else `data`) axis by `fsdp_partition_specs` (ZeRO-3 by
 hand: the whole weights are gathered for a step and freed after it).
-Checkpoints are gathered whole on every rank and written by rank 0, so
-one file format serves every mesh. Tensor parallelism waits for ROADMAP
-A11b.
+With it, `shard_state_rules` (`parallel.DEFAULT_TP_RULES`) places leaves on
+the mesh's `tensor` axis as the JAX trainer's `_maybe_shard_state` does,
+and the modules those leaves belong to compute on their rank's share
+(tensor parallelism, `parallel.tensor`): a rank runs K2 on its heads, its
+slice of the vocab head and of the FF's inner dim where it divides; the
+ranks of one data index take the same rows. The rules act only with
+`shard_state`, as in JAX. Checkpoints are gathered whole on every rank and
+written by rank 0, so one file format serves every mesh.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from muse_maskgit_pytorch_tpu_torch.parallel.mesh import (
     replicate,
     sharded_state_bytes,
 )
+from muse_maskgit_pytorch_tpu_torch.parallel.tensor import plan, unsplit
 from muse_maskgit_pytorch_tpu_torch.parallel.zero import DistributedParams
 from muse_maskgit_pytorch_tpu_torch.training.data import (
     DataLoader,
@@ -109,11 +115,18 @@ def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Ten
 
 def _distribute(trainer, module, groups, mesh, shard_state, rules) -> List[DistributedParams]:
     """Each (names, params) group of `module` over `mesh`, after rank 0's
-    weights and buffers are broadcast to every rank."""
+    weights and buffers are broadcast to every rank; the modules whose
+    leaves the rules split on the tensor axis compute their share."""
     trainer.mesh = default(mesh, create_mesh)
     replicate([*module.parameters(), *module.buffers()], trainer.mesh)
     orders = jax_dim_orders(module)
-    return [DistributedParams(trainer.mesh, n, p, orders, shard=shard_state, rules=rules) for n, p in groups]
+    rules = rules if shard_state else None  # as JAX's _maybe_shard_state
+    dps = [DistributedParams(trainer.mesh, n, p, orders, shard=shard_state, rules=rules) for n, p in groups]
+    stored = {n: pl for dp in dps for n, pl in zip(dp.names, dp.placements) if pl is not None}
+    local = plan(module, stored, trainer.mesh)
+    for dp in dps:
+        dp.split_compute(local)
+    return dps
 
 
 def _report_sharding(trainer, dps) -> None:
@@ -138,8 +151,9 @@ def _load_opt(opt: Adam, dp: DistributedParams, state: dict, names) -> None:
 
 def _module_copy(module, memo, names, weights):
     """A copy of `module` (sharing what `memo` holds) with `weights`
-    (whole tensors, by parameter name) in place of its parameters."""
-    model = copy.deepcopy(module, memo)
+    (whole tensors, by parameter name) in place of its parameters; it
+    computes whole."""
+    model = unsplit(copy.deepcopy(module, memo))
     live = dict(model.named_parameters())
     with torch.no_grad():
         for name, w in zip(names, weights):

@@ -252,7 +252,9 @@ def test_qknorm_gradients_match_plain(dev, dtype):
 # ragged n = 1025 over m = 200 with a ragged text and a dropped row, m = 63
 # and 65 (WG 1's 64 keys past m, or one key), the super-res cross shape
 # (text keys then 256 conditioning keys, the null half's text keys off),
-# and 576 key blocks of (128 keys, head, batch), more than four waves
+# and 576 key blocks of (128 keys, head, batch), more than four waves; then
+# the base stage's train shapes at the 4 heads a rank of a two-way tensor
+# split runs
 BACKWARD_SHAPES = {
     "ragged": (3, 70, 200, 2, "partial"),
     "m0": (2, 70, 0, 2, None),
@@ -276,6 +278,8 @@ BACKWARD_SHAPES = {
     "n300_m65": (2, 300, 65, 2, "partial"),
     "sr_cross": (4, 1024, 320, 8, "superres"),
     "split_waves": (8, 300, 1100, 8, "partial"),
+    "tp_self": (64, 256, 256, 4, None),
+    "tp_cross": (64, 256, 64, 4, "dropped"),
 }
 
 
@@ -332,6 +336,39 @@ def test_qknorm_backward_matches_plain(dev, dtype, shape):
         _leaves_close(got, want, K2_BWD_BF16_FROM_F32)
         rounded = attention.qknorm_attend_backward_plain(cot, *args, mask=mask, round_to=torch.bfloat16)
         _leaves_close(got, rounded, K2_BWD_BF16_VS_ROUNDED)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mask_kind", [None, "dropped"], ids=["self", "cross"])
+def test_qknorm_forward_on_a_tensor_ranks_heads(dev, dtype, mask_kind):
+    # what a rank of a two-way tensor split runs at the base stage's train
+    # shapes: heads 4..7 of 8. On views of the whole call's inputs (q, and k
+    # and v of one [k | v] projection) the kernel gives the whole call's
+    # heads bit for bit; at 4 heads it holds to the plain version as at 8
+    b, n, h = 64, 256, 8
+    m = 256 if mask_kind is None else 64
+    part = slice(4, 8)
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn(b, n, h, 64, generator=g, device=dev).to(dtype)
+    kv = torch.randn(b, m, 2 * h * 64, generator=g, device=dev).to(dtype)
+    k, v = (t.reshape(b, m, h, 64) for t in kv.chunk(2, dim=-1))
+    nk, nv = (torch.randn(h, 64, generator=g, device=dev).to(dtype) for _ in range(2))
+    qs, ks = (1 + 0.1 * torch.randn(64, generator=g, device=dev) for _ in range(2))
+    mask = None
+    if mask_kind == "dropped":
+        mask = torch.ones(b, m, dtype=torch.bool, device=dev)
+        mask[b - 1] = False
+    whole = attention.qknorm_attend(q, k, v, nk, nv, qs, ks, mask=mask)
+    before = attention.qknorm_attend.launches
+    args = [q[:, :, part], k[:, :, part], v[:, :, part], nk[part], nv[part], qs, ks]
+    half = attention.qknorm_attend(*args, mask=mask)
+    assert attention.qknorm_attend.launches == before + 1
+    assert torch.equal(half, whole[:, :, part])
+    ref = attention.qknorm_attend_plain(*args, mask=mask)
+    torch.testing.assert_close(half.float(), ref.float(), rtol=0, atol=1e-4 if dtype == torch.float32 else K2_BF16_FROM_F32)
+    if dtype == torch.bfloat16:
+        rounded = attention.qknorm_attend_plain(*args, mask=mask, round_to=torch.bfloat16)
+        torch.testing.assert_close(half.float(), rounded.float(), rtol=0, atol=BF16_VS_ROUNDED)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -649,6 +686,37 @@ def nccl_group(dev):
     init_distributed(backend="nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
     yield
     dist.destroy_process_group()
+
+
+def test_tensor_collectives_on_cuda_tensors_under_gloo(dev):
+    """`parallel.tensor`'s collectives in a gloo group on CUDA tensors (how
+    two ranks share one card): the gather through an integer all-reduce
+    keeps every bit, a -0.0 too; bf16 reduces in f32 and comes back bf16."""
+    import socket
+
+    import torch.distributed as dist
+
+    from muse_maskgit_pytorch_tpu_torch.parallel import create_mesh, init_distributed
+    from muse_maskgit_pytorch_tpu_torch.parallel.tensor import all_gather, all_reduce, tensor_split
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(backend="gloo", device="cuda", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        mesh = create_mesh({"tensor": 1})
+        assert mesh.device_type == "cuda" and tensor_split(mesh) is None
+        x = torch.randn(3, 5, device=dev)
+        x[0, 0] = -0.0
+        for t in (x, x.to(torch.bfloat16), torch.arange(7, device=dev), x > 0):
+            (got,) = all_gather(t)
+            assert got.device == t.device and got.dtype == t.dtype
+            assert torch.equal(got.view(torch.uint8), t.view(torch.uint8)) if t.dtype != torch.bool else torch.equal(got, t)
+        assert torch.signbit(all_gather(x)[0][0, 0])
+        y = all_reduce(x.to(torch.bfloat16), None)
+        assert y.dtype == torch.bfloat16 and torch.equal(y, x.to(torch.bfloat16))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_sharded_maskgit_step_matches_unwrapped(dev, nccl_group, tmp_path):

@@ -3,8 +3,9 @@
 specs and against the port's own single-process run.
 
 Spec parity, in one process: for a toy `MaskGitTransformer` and a toy
-`VQGanVAE`, on meshes {data: 8}, {data: 4, fsdp: 2}, {data: 2, tensor: 2}
-and the trivial one, every leaf's placement read back as a spec and put in
+`VQGanVAE`, on meshes {data: 8}, {data: 4, fsdp: 2}, {data: 2, tensor: 2},
+{data: 4, tensor: 2}, {data: 2, fsdp: 2, tensor: 2} and the trivial one,
+every leaf's placement read back as a spec and put in
 flax's layout through the weight bridge's names and transposes equals
 JAX's `fsdp_partition_specs` (with and without `DEFAULT_TP_RULES`) and
 `partition_specs_for` spec for the same leaf.
@@ -50,8 +51,11 @@ from tests.torch_threads import few_threads  # noqa: F401
 # spawned ranks (one thread each): two threads keep the cores from thrashing
 pytestmark = pytest.mark.usefixtures("few_threads")
 
-MESHES = [{"data": 8}, {"data": 4, "fsdp": 2}, {"data": 2, "tensor": 2}, {"data": 1}]
-MESH_IDS = ["data8", "data4-fsdp2", "data2-tensor2", "trivial"]
+MESHES = [
+    {"data": 8}, {"data": 4, "fsdp": 2}, {"data": 2, "tensor": 2}, {"data": 4, "tensor": 2},
+    {"data": 2, "fsdp": 2, "tensor": 2}, {"data": 1},
+]
+MESH_IDS = ["data8", "data4-fsdp2", "data2-tensor2", "data4-tensor2", "data2-fsdp2-tensor2", "trivial"]
 
 
 # -- spec parity with JAX, in one process ------------------------------------
@@ -339,11 +343,6 @@ def test_generate_over_a_mesh_matches_one_process(ranks):
     for r in got:
         np.testing.assert_array_equal(r["images"], want["images"])
         np.testing.assert_array_equal(r["scaled"], want["scaled"])
-
-
-def test_tensor_parallelism_is_refused():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        workers.maskgit_trainer("/nonexistent-never-made", shard_state=True, shard_state_rules=pmesh.DEFAULT_TP_RULES)
 
 
 # -- the pieces a rank's share rests on, in one process --------------------------------

@@ -264,9 +264,13 @@ def test_metrics_and_periodic_samples(tmp_path):
     assert finalized_steps(tmp_path / "mg" / "checkpoints") == [2]
 
 
-def test_refusals():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        MaskGitTrainer(_port_model(), num_train_steps=1, batch_size=B, shard_state_rules=DEFAULT_TP_RULES)
+def test_refusals(tmp_path):
+    # the TP rules act only on a sharded state, as in JAX's _maybe_shard_state:
+    # without shard_state nothing shards and every module computes whole
+    t = MaskGitTrainer(
+        _port_model(), num_train_steps=1, batch_size=B, shard_state_rules=DEFAULT_TP_RULES, results_folder=str(tmp_path)
+    )
+    assert not t.dp.sharded and all(getattr(m, "tensor_split", None) is None for m in t.maskgit.modules())
     with pytest.raises(ValueError, match="sample_texts"):
         MaskGitTrainer(_port_model(), num_train_steps=1, batch_size=B, save_results_every=1)
 

@@ -200,8 +200,8 @@ def _record_grads(opt, dp, names, into: list):
     opt.step = recording
 
 
-def run_gan(folder, quantizer, mesh, shard_state, steps=2, lr=1e-5):
-    t = gan_trainer(folder, quantizer, mesh=mesh, shard_state=shard_state, lr=lr)
+def run_gan(folder, quantizer, mesh, shard_state, steps=2, lr=1e-5, **kw):
+    t = gan_trainer(folder, quantizer, mesh=mesh, shard_state=shard_state, lr=lr, **kw)
     gen_grads, discr_grads = [], []
     _record_grads(t.gen_opt, t.gen_dp, t.gen_names, gen_grads)
     _record_grads(t.discr_opt, t.discr_dp, t.discr_names, discr_grads)
