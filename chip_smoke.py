@@ -51,6 +51,12 @@ read just after):
     against the unwrapped trainer and bf16 timed, a TP forward and
     `generate` against one process, a TP checkpoint read whole -- K2 on
     each rank's 4 heads, forward and backward, K1 on the gathered logits;
+  * `export`: the deployable generate program (`export_pipeline`,
+    `torch.export`) of the base model at b32 T18 and of the cascade at
+    b16 T18 + 18, saved and loaded (the base one by a fresh process whose
+    model code raises), with per-row guidance, an EMA-VQ super-res stage
+    and a program exported on the CPU for the card -- K1, K2 and K3 as
+    operators inside the program, its bytes equal to eager code's;
   * `serving`: the base model saved in the JAX package's checkpoint format
     and loaded into a fresh model (tensor- and image-equal), then served:
     `GeneratePipeline` at b16, T18, CFG 3 with T5 in front (warmup, timed
@@ -65,8 +71,10 @@ raises and the exit code is non-zero. The last line is
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
 selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
-t5, surfaces, serving, train, gan, cascade, eval, parallel, tensor, profile) while iterating; a
-subset prints its phases' lines and no result lines.
+t5, surfaces, serving, train, gan, cascade, eval, parallel, tensor, export, profile) while iterating; a
+subset prints its phases' lines and no result lines. `export_no_ops` runs
+only when named: the base program with and without `serving._drop_no_ops`
+(nodes, save, load and request times).
 """
 
 from __future__ import annotations
@@ -89,8 +97,10 @@ from pathlib import Path
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
     "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
-    "gan", "cascade", "eval", "parallel", "tensor", "profile",
+    "gan", "cascade", "eval", "parallel", "tensor", "export", "profile",
 )
+# run only when named in --phases: a measurement, not a path
+EXTRA_PHASES = ("export_no_ops",)
 KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "qknorm_attention_bwd", "vq_search", "flash_attention")
 
 # main-path shapes
@@ -1632,6 +1642,452 @@ def phase_tensor(torch, ctx):
         f"step ids {first_same} of {first.numel()} equal, 18-step grids {grid_agree:.4f} equal; bf16 request "
         f"{each('request_ms', c, '.0f')} ms a rank, {c[0]['pngs']} PNGs | (d) TP checkpoint read "
         f"in one process: bit-equal | {ctx.get('smi', '')} | {time.perf_counter() - t_phase:.1f} s"
+    )
+
+
+# `[export]` runs in four processes at once, since each export is Python
+# tracing on one core: this one exports, saves and checks the base model's
+# program (a); EXPORT_LOAD loads that program in a fresh process with the
+# model's entry points made to raise, so that nothing but the saved program
+# can make its images; EXPORT_PART runs (b) (`export_cascade`) in one
+# process and (c)-(e) (`export_others`) in another.
+EXPORT_LOAD = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = True  # the caller's flag; the artifact's f32 convolutions stay IEEE
+torch.backends.cudnn.deterministic = True  # one algorithm a convolution, as where the images were made
+from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE, load_exported_pipeline
+from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
+from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+
+
+def refuse(*args, **kwargs):
+    raise AssertionError("the artifact called the model code")
+
+
+MaskGit.generate = MaskGitTransformer.forward = VQGanVAE.decode_from_ids = refuse
+folder = sys.argv[2]
+deadline = time.monotonic() + 600  # started with the phase: wait for the program and its inputs
+while not os.path.exists(folder + "/ready"):
+    if time.monotonic() > deadline:
+        raise TimeoutError("no program to load")
+    time.sleep(0.1)
+call = torch.load(folder + "/call.pt", map_location="cuda")
+t = time.perf_counter()
+ep = load_exported_pipeline(folder + "/base")
+load_s = time.perf_counter() - t
+
+
+counted = dict(k1=fused_topk_gumbel_sample, k2=qknorm_attend, k3=nearest_code, k4=attend)
+
+
+def request(seed):
+    # each request's launches: the counters set to 0 just before it, read just after
+    for kernel in counted.values():
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = ep(call["leaves"], call["te"], call["tm"], seed)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, {tag: kernel.launches for tag, kernel in counted.items()}
+
+
+_, first_s, first = request(call["seed"] + 1)
+out, _, second = request(call["seed"])
+differ = int((out != call["want"]).sum())
+print(json.dumps(dict(load_s=load_s, first_call_s=first_s, differ=differ, first=first, second=second)))
+"""
+EXPORT_PART = r"""
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("chip_smoke_export", sys.argv[1])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+sys.path.insert(0, str(smoke.Path(sys.argv[1]).resolve().parent))
+import torch
+print(json.dumps(getattr(smoke, sys.argv[2])(torch)))
+"""
+
+
+class ExportCheck:
+    """What `[export]` shares between its processes: the kernels' launch
+    counts, byte comparisons against eager code, and the flags they run
+    under (cuDNN's TF32 on, as a caller may leave it, which the artifact's
+    IEEE scope must undo; and one algorithm a convolution, so that two runs
+    can be held byte for byte: the VAE's transposed convolutions may add in
+    any order otherwise)."""
+
+    TAGS = ("k1", "k2", "k3", "k4")
+
+    def __init__(self, torch):
+        from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
+        from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+        from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
+
+        self.torch = torch
+        self.counted = (fused_topk_gumbel_sample, qknorm_attend, nearest_code, attend)
+        self.launches = dict.fromkeys(self.TAGS, 0)
+        self.out = {}
+
+    def __enter__(self):
+        cudnn = self.torch.backends.cudnn
+        self.saved = cudnn.allow_tf32, cudnn.deterministic
+        cudnn.allow_tf32 = cudnn.deterministic = True
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.backends.cudnn.allow_tf32, self.torch.backends.cudnn.deterministic = self.saved
+
+    def counting(self, fn):
+        """fn()'s result and the launches of each kernel it made: the
+        counters are set to 0 just before it and read just after, and
+        added to this process's totals. Every call that may launch a kernel
+        in `[export]` goes through here."""
+        for c in self.counted:
+            c.launches = 0
+        result = fn()
+        self.torch.cuda.synchronize()
+        got = {t: c.launches for t, c in zip(self.TAGS, self.counted)}
+        for t in self.TAGS:
+            self.launches[t] += got[t]
+        return result, got
+
+    def equal(self, got, want, what):
+        differ = int((got != want).sum())
+        require(differ == 0, f"[export] {what}: {differ} of {want.numel()} bytes differ from eager code's; so far {self.out}")
+
+    def timed_ms(self, fn):
+        """fn()'s wall milliseconds, its launches counted."""
+
+        def timed():
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            self.torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1000
+
+        return self.counting(timed)[0]
+
+
+def export_inputs(torch, b, text_len=TEXT_LEN):
+    """Seeded text embeddings (b, text_len, TEXT_DIM) on the card, every
+    other prompt half as long (the key mask reaches K2), zero where masked."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    text = torch.randn(b, text_len, TEXT_DIM, generator=g, device="cuda")
+    mask = torch.ones(b, text_len, dtype=torch.bool, device="cuda")
+    mask[1::2, text_len // 2 :] = False
+    text[~mask] = 0.0
+    return text, mask
+
+
+def export_eager(torch, model, text, mask, seed, **kw):
+    """Eager `generate` at `[export]`'s settings, quantised as the program quantises."""
+    from muse_maskgit_pytorch_tpu_torch.serving import _quantize_u8
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(text_embeds=text, text_mask=mask, timesteps=STEPS, cond_scale=CFG) | kw
+    return _quantize_u8(model.generate(generator=gen, **kw))
+
+
+def export_cascade(torch) -> dict:
+    """`[export]` (b), in a process of its own: the cascade at b16 T18 +
+    18 with `cond_via="auto"` (ids here), against its stages run from
+    `child_generators`. Returns its figures and launches, JSON-ready."""
+    from muse_maskgit_pytorch_tpu_torch import Muse, export_pipeline
+    from muse_maskgit_pytorch_tpu_torch.models.maskgit import child_generators
+    from muse_maskgit_pytorch_tpu_torch.serving import _quantize_u8
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    with ExportCheck(torch) as check:
+        out = check.out
+        base = build_models(torch)
+        superres = build_superres(torch, base.vae)
+        muse = Muse(base, superres)
+        text, mask = export_inputs(torch, CAS_BATCH)
+
+        # -- (b) the cascade, handing ids over
+        t = time.perf_counter()
+        ep = export_pipeline(muse, batch_size=CAS_BATCH, text_len=TEXT_LEN, timesteps=STEPS, cond_scale=CFG)
+        out["cascade"] = dict(
+            batch=CAS_BATCH, steps=[STEPS, STEPS], cond_via=ep.meta["cond_via"], export_s=time.perf_counter() - t,
+            nodes=len(ep.program.graph.nodes),
+        )
+        require(ep.meta["cond_via"] == "ids", f"[export] (b) cond_via resolved to {ep.meta['cond_via']}")
+
+        def chain():
+            g_base, g_sr = child_generators(torch.Generator().manual_seed(7), "cuda")
+            kw = dict(text_embeds=text, text_mask=mask, timesteps=STEPS, cond_scale=CFG)
+            ids = base.generate(generator=g_base, return_ids=True, **kw)
+            return _quantize_u8(superres.generate(generator=g_sr, cond_token_ids=ids, **kw))
+
+        state = muse.state_dict()
+        want, _ = check.counting(chain)
+        check.counting(lambda: ep(state, text, mask, 100))  # warm: the program's module, cuBLAS
+        got, per_request = check.counting(lambda: ep(state, text, mask, torch.Generator().manual_seed(7)))
+        check.equal(got, want, "(b) the cascade against its stages run eagerly")
+        require(
+            (per_request["k1"], per_request["k2"]) == (2 * STEPS, 2 * STEPS * DEPTH * 2), f"[export] (b) launches {per_request}"
+        )
+        out["cascade"].update(
+            launches_per_request=per_request, artifact_ms=check.timed_ms(lambda: ep(state, text, mask, 8)),
+            eager_ms=check.timed_ms(chain),
+        )
+    out["cascade"]["process_s"] = time.perf_counter() - t_start
+    return dict(out=out, launches=check.launches)
+
+
+def export_others(torch) -> dict:
+    """`[export]` (c)-(e), in a process of their own: (c) per-row guidance
+    (`dynamic_cond_scale`) on the base model, T cut to 2, against eager's
+    (1, b) tensor; (d) a small EMA-VQ standalone super-res stage, K3 once a
+    call; (e) a toy program exported on the CPU for the card against the
+    same toy exported there. Returns their figures and launches."""
+    from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE, export_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    with ExportCheck(torch) as check:
+        out = check.out
+        base = build_models(torch)
+        text, mask = export_inputs(torch, CAS_BATCH)
+
+        # -- (c) per-row guidance as a program input
+        t = time.perf_counter()
+        ep = export_pipeline(base, batch_size=CAS_BATCH, text_len=TEXT_LEN, timesteps=2, dynamic_cond_scale=True)
+        out["dynamic_cond_scale"] = dict(batch=CAS_BATCH, steps=2, export_s=time.perf_counter() - t)
+        scales = torch.linspace(1.0, 5.0, CAS_BATCH, device="cuda")
+        got, _ = check.counting(lambda: ep(base.state_dict(), text, mask, 3, cond_scale=scales))
+        want, _ = check.counting(lambda: export_eager(torch, base, text, mask, 3, timesteps=2, cond_scale=scales[None]))
+        check.equal(got, want, "(c) per-row scales against eager generate's (1, b) tensor")
+        del ep, base
+
+        # -- (d) a small EMA-VQ standalone super-res stage: K3 encodes its conditioning images
+        gen = torch.Generator().manual_seed(3)
+        vq_vae = VQGanVAE(
+            dim=64, layers=2, codebook_size=1024, use_vgg_and_gan=False, lookup_free_quantization=False,
+            vq_kwargs=dict(EMA_VQ_KW, codebook_dim=64, kmeans_init=False), generator=gen,
+        )
+        tr = MaskGitTransformer(
+            num_tokens=1024, dim=128, seq_len=64, depth=2, dim_head=DIM_HEAD, heads=2, text_embed_dim=TEXT_DIM,
+            generator=gen,
+        )
+        sr = MaskGit(image_size=32, cond_image_size=16, transformer=tr, vae=vq_vae, cond_vae=vq_vae).eval()
+        t = time.perf_counter()
+        ep = export_pipeline(sr, batch_size=CAS_BATCH, text_len=TEXT_LEN, timesteps=STEPS, cond_scale=CFG)
+        export_s = time.perf_counter() - t
+        cond = torch.rand(CAS_BATCH, 16, 16, 3, generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+        got, per_request = check.counting(lambda: ep(sr.state_dict(), text, mask, 5, cond_images=cond))
+        want, _ = check.counting(lambda: export_eager(torch, sr, text, mask, 5, cond_images=cond))
+        check.equal(got, want, "(d) the EMA-VQ super-res stage")
+        require(per_request["k3"] == 1 and per_request["k1"] == STEPS, f"[export] (d) launches {per_request}")
+        out["ema_vq_superres"] = dict(batch=CAS_BATCH, export_s=export_s, launches_per_request=per_request)
+        del ep, sr
+
+        # -- (e) a toy program exported on the CPU for the card
+        def toy(device):
+            gen = torch.Generator().manual_seed(6)
+            tr = MaskGitTransformer(
+                num_tokens=1024, dim=128, seq_len=16, depth=2, dim_head=DIM_HEAD, heads=2, text_embed_dim=TEXT_DIM,
+                generator=gen, device=device,
+            )
+            vae = VQGanVAE(dim=16, layers=2, codebook_size=1024, use_vgg_and_gan=False, generator=gen, device=device)
+            return MaskGit(image_size=16, transformer=tr, vae=vae, device=device).eval()
+
+        on_card = toy("cuda")
+        t = time.perf_counter()
+        ep_cpu = export_pipeline(toy("cpu"), batch_size=4, text_len=8, timesteps=4, platforms=("cuda",))
+        export_s = time.perf_counter() - t
+        ep_card = export_pipeline(on_card, batch_size=4, text_len=8, timesteps=4)
+        te4, tm4 = text[:4, :8], torch.ones(4, 8, dtype=torch.bool, device="cuda")
+        got, per_request = check.counting(lambda: ep_cpu(on_card.state_dict(), te4, tm4, 2))
+        want, _ = check.counting(lambda: ep_card(on_card.state_dict(), te4, tm4, 2))
+        require(ep_cpu.meta["platforms"] == ["cuda"] and got.device.type == "cuda", "[export] (e) not a card program")
+        check.equal(got, want, "(e) the CPU-exported program against the card's export")
+        require(per_request["k1"] == 4 and per_request["k2"] == 4 * 2 * 2, f"[export] (e) launches {per_request}")
+        out["cpu_exported_toy"] = dict(export_s=export_s, launches_per_request=per_request)
+    out["cpu_exported_toy"]["process_s"] = time.perf_counter() - t_start
+    return dict(out=out, launches=check.launches)
+
+
+def phase_export_no_ops(torch, ctx):
+    """[export_no_ops], run only when named (`--phases
+    env,build,export_no_ops`): what `serving._drop_no_ops` buys. The base
+    b32 T18 program is exported once with the pass made a no-op and saved;
+    the pass is then applied to that same program, which is saved again.
+    Both are loaded (the one with the pass first, so a warmer process
+    favours the other), their images held byte for byte against eager
+    code's, and their requests timed alternating, each program warmed
+    once first."""
+    import shutil
+
+    from muse_maskgit_pytorch_tpu_torch import serving
+
+    t_phase = time.perf_counter()
+    folder = Path(__file__).resolve().parent / "build" / "export_no_ops"
+    shutil.rmtree(folder, ignore_errors=True)
+    fig = {"without": {}, "with": {}}
+    try:
+        with ExportCheck(torch) as check:
+            base = ctx.get("maskgit") or build_models(torch)
+            ctx["maskgit"] = base
+            text, mask = export_inputs(torch, BATCH)
+            state = base.state_dict()
+            drop = serving._drop_no_ops
+            serving._drop_no_ops = lambda program: None
+            try:
+                t = time.perf_counter()
+                ep = serving.export_pipeline(base, batch_size=BATCH, text_len=TEXT_LEN, timesteps=STEPS, cond_scale=CFG)
+                export_s = time.perf_counter() - t
+            finally:
+                serving._drop_no_ops = drop
+            for name in ("without", "with"):
+                if name == "with":
+                    t = time.perf_counter()
+                    drop(ep.program)
+                    fig[name]["pass_s"] = time.perf_counter() - t
+                t = time.perf_counter()
+                ep.save(folder / name)
+                fig[name].update(
+                    nodes=len(ep.program.graph.nodes), save_s=time.perf_counter() - t,
+                    program_bytes=(folder / name / "program.pt2").stat().st_size,
+                )
+            del ep
+            want, _ = check.counting(lambda: export_eager(torch, base, text, mask, 7))
+            loaded = {}
+            for name in ("with", "without"):
+                t = time.perf_counter()
+                loaded[name] = serving.load_exported_pipeline(folder / name)
+                fig[name]["load_s"] = time.perf_counter() - t
+                fig[name]["first_call_ms"] = check.timed_ms(lambda: loaded[name](state, text, mask, 100))
+                got, per_request = check.counting(lambda: loaded[name](state, text, mask, 7))
+                check.equal(got, want, f"the program {name} the pass")
+                require(per_request == dict(k1=STEPS, k2=STEPS * DEPTH * 2, k3=0, k4=0), f"[export_no_ops] launches {per_request}")
+                fig[name]["request_ms"] = []
+            for i in range(3):
+                for name in ("without", "with"):
+                    fig[name]["request_ms"].append(check.timed_ms(lambda: loaded[name](state, text, mask, 20 + i)))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    ctx["export_no_ops"] = fig
+    parts = []
+    for name in ("without", "with"):
+        f = fig[name]
+        parts.append(
+            f"{name} the pass: {f['nodes']} nodes, save {f['save_s']:.1f} s, program.pt2 "
+            f"{f['program_bytes'] / 2**20:.1f} MiB, load {f['load_s']:.1f} s, first call {f['first_call_ms']:.1f} ms, "
+            f"requests {', '.join(f'{x:.1f}' for x in f['request_ms'])} ms (median "
+            f"{statistics.median(f['request_ms']):.1f})"
+        )
+    log(
+        f"[export_no_ops] base b{BATCH} T{STEPS} cfg{CFG:g}, exported once in {export_s:.1f} s, the pass "
+        f"{fig['with']['pass_s']:.2f} s | {' | '.join(parts)} | both byte-equal to eager generate, K1 +{STEPS} K2 "
+        f"+{STEPS * DEPTH * 2} a request | {ctx.get('smi', '')} | {time.perf_counter() - t_phase:.1f} s"
+    )
+
+
+def phase_export(torch, ctx):
+    """[export]: the deployable generate program (`serving.export_pipeline`:
+    `torch.export`, K1 / K2 / K3 as `muse_torch` operators, the parameters
+    an input) on the card, its bytes held against eager code's: (a) the
+    base model at b32 T18, exported, saved, and loaded by a fresh process
+    whose model entry points raise (EXPORT_LOAD), K1 and K2 launched from
+    the program, img/s beside eager; beside it, in a process of its own,
+    (b)-(e) (`export_rest`)."""
+    import shutil
+
+    from muse_maskgit_pytorch_tpu_torch import export_pipeline
+
+    t_phase = time.perf_counter()
+    script = Path(__file__).resolve()
+    folder = script.parent / "build" / "export_smoke"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    spawn = lambda code, *args: subprocess.Popen(  # noqa: E731
+        [sys.executable, "-c", code, *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+    parts = [spawn(EXPORT_PART, str(script), name) for name in ("export_cascade", "export_others")]
+    loader = spawn(EXPORT_LOAD, str(script.parent), str(folder))
+    try:
+        with ExportCheck(torch) as check:
+            out = check.out
+            base = ctx.get("maskgit") or build_models(torch)
+            ctx["maskgit"] = base
+            text, mask = export_inputs(torch, BATCH)
+            state = base.state_dict()
+
+            def eager(seed):
+                return export_eager(torch, base, text, mask, seed)
+
+            t = time.perf_counter()
+            ep = export_pipeline(base, batch_size=BATCH, text_len=TEXT_LEN, timesteps=STEPS, cond_scale=CFG)
+            out["base"] = dict(batch=BATCH, steps=STEPS, export_s=time.perf_counter() - t, nodes=len(ep.program.graph.nodes))
+            t = time.perf_counter()
+            ep.save(folder / "base")
+            out["base"].update(save_s=time.perf_counter() - t, program_bytes=(folder / "base" / "program.pt2").stat().st_size)
+            want, _ = check.counting(lambda: eager(7))
+            torch.save(dict(leaves=list(state.values()), te=text, tm=mask, seed=7, want=want), folder / "call.pt")
+            (folder / "ready").touch()
+            check.counting(lambda: ep(state, text, mask, 100))  # warm in this process: the program's module, cuBLAS
+            got, per_request = check.counting(lambda: ep(state, text, mask, 7))
+            check.equal(got, want, "(a) the artifact in this process")
+            require(per_request == dict(k1=STEPS, k2=STEPS * DEPTH * 2, k3=0, k4=0), f"[export] (a) launches {per_request}")
+            out["base"]["launches_per_request"] = per_request
+
+            stdout, stderr = loader.communicate(timeout=600)
+            require(loader.returncode == 0, f"[export] (a) the fresh process failed:\n{stderr[-3000:]}")
+            fresh = json.loads(stdout.strip().splitlines()[-1])
+            out["base"]["fresh_process"] = fresh
+            require(fresh["differ"] == 0, f"[export] (a) the loaded artifact's images differ from eager code's: {out}")
+            for request in (fresh["first"], fresh["second"]):
+                require(request == per_request, f"[export] (a) launches in the fresh process {fresh}")
+            others = []
+            for part in parts:
+                stdout, stderr = part.communicate(timeout=900)
+                require(part.returncode == 0, f"[export] (b)-(e) failed:\n{stderr[-3000:]}")
+                others.append(json.loads(stdout.strip().splitlines()[-1]))
+                out.update(others[-1]["out"])
+            # timed last, alone on the card: eager and artifact requests alternating
+            eager_ms, artifact_ms = [], []
+            for i in range(3):
+                eager_ms.append(check.timed_ms(lambda: eager(20 + i)))
+                artifact_ms.append(check.timed_ms(lambda: ep(state, text, mask, 20 + i)))
+            out["base"].update(
+                eager_ms=eager_ms, artifact_ms=artifact_ms, eager_img_s=BATCH / statistics.median(eager_ms) * 1000,
+                artifact_img_s=BATCH / statistics.median(artifact_ms) * 1000,
+            )
+        launches = check.launches
+        for tag in ExportCheck.TAGS:  # counts read in each process
+            launches[tag] += fresh["first"][tag] + fresh["second"][tag] + sum(part["launches"][tag] for part in others)
+    finally:
+        for proc in (*parts, loader):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(folder, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    ctx["export"] = out
+    ctx["export_launches"] = launches
+    ctx["export_per_request"] = out["base"]["launches_per_request"]
+    b, c, f = out["base"], out["cascade"], out["base"]["fresh_process"]
+    log(
+        f"[export] (a) base b{BATCH} T{STEPS} cfg{CFG:g}: export {b['export_s']:.1f} s, {b['nodes']} nodes, save "
+        f"{b['save_s']:.1f} s, program.pt2 {b['program_bytes'] / 2**20:.1f} MiB (no parameter inside); a fresh "
+        f"process with the model code made to raise: load {f['load_s']:.1f} s, first call {f['first_call_s']:.1f} s, "
+        f"bytes equal to eager generate's (cuDNN TF32 on by the caller), K1 +{f['second']['k1']} K2 +{f['second']['k2']} a request; here, alone "
+        f"on the card: artifact {b['artifact_img_s']:.3f} img/s ({', '.join(f'{x:.1f}' for x in b['artifact_ms'])} "
+        f"ms) vs eager {b['eager_img_s']:.3f} img/s ({', '.join(f'{x:.1f}' for x in b['eager_ms'])} ms) | beside "
+        f"it, a process of {c['process_s']:.1f} s: (b) cascade b{CAS_BATCH} T{STEPS}+{STEPS} ids: export "
+        f"{c['export_s']:.1f} s, {c['nodes']} nodes, bytes equal to the stages run eagerly, K1 "
+        f"+{c['launches_per_request']['k1']} K2 +{c['launches_per_request']['k2']}, {c['artifact_ms']:.1f} ms vs "
+        f"eager {c['eager_ms']:.1f} | and one of {out['cpu_exported_toy']['process_s']:.1f} s: (c) dynamic_cond_scale "
+        f"b{CAS_BATCH} T2, scales 1..5 a row: equal to eager's (1, "
+        f"b), export {out['dynamic_cond_scale']['export_s']:.1f} s | (d) EMA-VQ standalone super-res: equal, K3 "
+        f"+{out['ema_vq_superres']['launches_per_request']['k3']} a call | (e) toy exported on the CPU for the card: "
+        f"equal to the card's export, K1 +{out['cpu_exported_toy']['launches_per_request']['k1']} K2 "
+        f"+{out['cpu_exported_toy']['launches_per_request']['k2']} | {ctx.get('smi', '')} | {out['phase_s']:.1f} s"
     )
 
 
@@ -3981,7 +4437,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
-        if p not in ALL_PHASES:
+        if p not in ALL_PHASES + EXTRA_PHASES:
             parser.error(f"unknown phase {p!r}")
 
     # the port must come from this checkout; without it there is nothing to run
@@ -4018,8 +4474,9 @@ def main(argv=None) -> int:
         ctx[tag]["launches"] += (
             ctx["cascade_launches"][tag] + ctx["surface_launches"][tag] + ctx["serving_launches"][tag]
             + ctx["train_launches"][tag] + ctx["gan_launches"][tag] + ctx["eval_launches"][tag]
-            + ctx["parallel_launches"][tag] + ctx["tensor_launches"][tag]
+            + ctx["parallel_launches"][tag] + ctx["tensor_launches"][tag] + ctx["export_launches"][tag]
         )
+        ctx[tag]["launches_per_export_request"] = ctx["export_per_request"][tag]
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
         ctx[tag]["launches_per_eval_request"] = ctx["eval_per_request"][tag]
     rows = [
@@ -4031,7 +4488,7 @@ def main(argv=None) -> int:
     keys = (
         "launches", "launches_per_request", "launches_per_cascade_request", "launches_per_surface_request",
         "launches_per_serving_batch", "launches_per_train_step", "launches_per_gan_step", "launches_per_eval_request",
-        "max_abs_err", "ms",
+        "launches_per_export_request", "max_abs_err", "ms",
         "plain_ms", "bound_ms",
         "bound_by", "library_ms",
     )
@@ -4057,7 +4514,7 @@ def main(argv=None) -> int:
                 "cascade": ctx["cascade"], "t5_ms": ctx["t5_ms"], "surfaces": ctx["surfaces"],
                 "vaes_share_weights_ms": ctx["vaes_share_weights_ms"], "serving": ctx["serving"],
                 "train": ctx["train"], "gan": ctx["gan"], "eval": ctx["eval"], "parallel": ctx["parallel"],
-                "tensor": ctx["tensor"],
+                "tensor": ctx["tensor"], "export": ctx["export"],
                 "k1_row_offset": ctx["k1_row_offset"],
             }
         ),

@@ -23,12 +23,15 @@ converters of `utils.convert` reading local files only, and
 `utils.metrics.profile_trace`); and data-parallel and FSDP training and
 serving over a `torch.distributed` process group (`parallel`: the JAX
 package's mesh functions, both trainers' `mesh=` / `shard_state=`,
-`GeneratePipeline(mesh=)`). The example command lines are
+`GeneratePipeline(mesh=)`); and the deployable generate program
+(`export_pipeline`, `ExportedPipeline`, `load_exported_pipeline`:
+`torch.export` with the kernels as operators). The example command lines are
 `muse_maskgit_pytorch_tpu_torch.examples.<name>`, each run with
 `python -m`. Their four hand-written CUDA kernels (`ops.sampling_kernel`,
 `ops.attention`, `ops.vq`) are built from `csrc/` on first use. The public
 modules below take `device=` and are built on the GPU ("cuda") unless the
-caller asks for the CPU. See ROADMAP.md for what is still to come.
+caller asks for the CPU. `__all__` holds every name of the JAX package's
+`__all__`; the rest are the port's own additions.
 """
 
 from muse_maskgit_pytorch_tpu_torch.models import (  # noqa: F401
@@ -59,7 +62,12 @@ from muse_maskgit_pytorch_tpu_torch.utils.eval import (  # noqa: F401
     make_vgg_extractor,
 )
 from muse_maskgit_pytorch_tpu_torch.utils.from_jax import load_jax_state  # noqa: F401
-from muse_maskgit_pytorch_tpu_torch.serving import GeneratePipeline  # noqa: F401
+from muse_maskgit_pytorch_tpu_torch.serving import (  # noqa: F401
+    ExportedPipeline,
+    GeneratePipeline,
+    export_pipeline,
+    load_exported_pipeline,
+)
 from muse_maskgit_pytorch_tpu_torch.serving_http import GenerateServer  # noqa: F401
 from muse_maskgit_pytorch_tpu_torch.training import (  # noqa: F401
     MaskGitTrainer,
@@ -71,3 +79,45 @@ from muse_maskgit_pytorch_tpu_torch.training import (  # noqa: F401
     lr_schedule,
     write_shard,
 )
+
+
+# the JAX package's `__all__` and the port's own public names
+__all__ = [
+    "compute_feature_stats",
+    "Discriminator",
+    "ema_init",
+    "ema_update",
+    "export_pipeline",
+    "ExportedPipeline",
+    "FeatureStats",
+    "fid_score",
+    "frechet_distance",
+    "FSQ",
+    "GeneratePipeline",
+    "GenerateServer",
+    "LFQ",
+    "load_exported_pipeline",
+    "load_jax_state",
+    "lr_schedule",
+    "make_inception_extractor",
+    "make_vgg_extractor",
+    "MaskGit",
+    "MaskGitTrainer",
+    "MaskGitTransformer",
+    "Muse",
+    "PreemptionGuard",
+    "SelfCritic",
+    "ShardLoader",
+    "t5_encode_text",
+    "T5Encoder",
+    "TokenCritic",
+    "TrainDraws",
+    "Transformer",
+    "vaes_share_weights",
+    "VectorQuantizeEMA",
+    "VGG16",
+    "VQDraws",
+    "VQGanVAE",
+    "VQGanVAETrainer",
+    "write_shard",
+]

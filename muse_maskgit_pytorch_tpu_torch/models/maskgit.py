@@ -12,8 +12,8 @@ jitted function; here it is a Python loop that never waits on the device.
 Everything the loop branches on is computed on the host once per call: the
 per-step mask counts and temperatures (bit-equal to the JAX scan's f32
 values, `utils.sampling`), the compact segment plan, and one (T,) int32
-tensor of per-step sampler seeds drawn from the caller's `torch.Generator`,
-which the sampler kernel reads from device memory.
+tensor of per-step sampler seeds drawn from the caller's `torch.Generator`
+(or given: `step_seeds`), which the sampler kernel reads from device memory.
 
 Each step attends with K2 through the transformer and samples with K1
 (`ops.sampling_kernel.fused_topk_gumbel_sample`, the JAX package's
@@ -43,7 +43,7 @@ from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models.transformer import MaskGitTransformer, SelfCritic, TokenCritic
 from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE, _strip_towers
-from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample, philox_uniform
 from muse_maskgit_pytorch_tpu_torch.parallel.batch import row_offset, rows_from
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.images import to_pil_images
@@ -63,6 +63,25 @@ from muse_maskgit_pytorch_tpu_torch.utils.sampling import (
 )
 
 SEED_HIGH = 2**31 - 1
+# the Philox stream of a token critic's noise (K1's noise is stream 0)
+CRITIC_NOISE_STREAM = 1
+
+
+def step_seeds(generator, timesteps: int, device) -> torch.Tensor:
+    """The per-step sampler seeds of one `generate` call: (T,) int32 on
+    `device`, drawn from `generator` (a `torch.Generator` on that device;
+    seed 0 when None), or `generator` itself where it is already such a
+    tensor (`serving.export_pipeline` makes it an input of its program)."""
+    if isinstance(generator, torch.Tensor):
+        if generator.shape != (timesteps,) or generator.dtype != torch.int32 or generator.device != torch.device(device):
+            raise ValueError(
+                f"seeds must be a ({timesteps},) int32 tensor on {device}, got {tuple(generator.shape)} "
+                f"{generator.dtype} on {generator.device}"
+            )
+        return generator
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return torch.randint(0, SEED_HIGH, (timesteps,), generator=generator, device=device, dtype=torch.int32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -487,7 +506,7 @@ class MaskGit(nn.Module):
     def generate(
         self,
         texts=None,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[Union[torch.Generator, torch.Tensor]] = None,
         *,
         text_embeds: Optional[torch.Tensor] = None,
         text_mask: Optional[torch.Tensor] = None,
@@ -525,8 +544,9 @@ class MaskGit(nn.Module):
 
         `generator`: a `torch.Generator` on the embeddings' device; the
         per-step seeds are drawn from it once per call (seed 0 when
-        omitted). `injected_gumbel_noise` (T, b, seq, vocab) replaces the
-        sampler's own noise, for parity runs.
+        omitted). Or the (T,) int32 seeds themselves (`step_seeds`): they
+        are all the randomness of a call. `injected_gumbel_noise` (T, b,
+        seq, vocab) replaces the sampler's own noise, for parity runs.
 
         `sampler`: "fused" is K1 (the top-k threshold by ten rounds of
         bisection, inside the kernel); "xla" is the exact `top_k` filter, a
@@ -555,8 +575,9 @@ class MaskGit(nn.Module):
         Token critics (`MaskGit(token_critic=...)` or `self_token_critic`)
         score each step's tokens for the next remask, unless
         `force_not_use_token_critic`; `critic_noise_scale` scales the
-        uniform noise they add, annealed like the temperature and drawn
-        from the step's own generator (seeded with the step's seed).
+        uniform noise they add, annealed like the temperature: Philox4x32-10
+        keyed on (the step's seed, the global row), on the device
+        (`ops.sampling_kernel.philox_uniform`, stream `CRITIC_NOISE_STREAM`).
         `can_remask_prev_masked` lets unmasked tokens be remasked (needs
         `no_mask_token_prob > 0`; compact decode is then off without a
         critic).
@@ -574,10 +595,10 @@ class MaskGit(nn.Module):
 
         Under `parallel.batch.rows_from(start)` these rows are rows `start
         ...` of a global batch that other processes decode the rest of from
-        the same `generator` (data-parallel serving): K1 keys its noise on
-        the global row, so each row samples what it would in the whole
-        batch. The "xla" sampler and a critic's noise draw per call, so they
-        refuse a nonzero start."""
+        the same `generator` (data-parallel serving): K1 and a critic's noise
+        key on the global row, so each row samples what it would in the
+        whole batch. The "xla" sampler draws per call, so it refuses a
+        nonzero start."""
         del attn_impl
         if sampler not in ("auto", "fused", "xla"):
             raise ValueError(f"sampler must be 'auto', 'fused' or 'xla', got {sampler!r}")
@@ -644,26 +665,18 @@ class MaskGit(nn.Module):
             for s, e, kb in _compact_segments(self.noise_schedule, seq_len, timesteps):
                 step_kb[s:e] = [None if kb >= seq_len else kb] * (e - s)
 
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        seeds = torch.randint(
-            0, SEED_HIGH, (timesteps,), generator=generator, device=device, dtype=torch.int32
-        )
+        seeds = step_seeds(generator, timesteps, device)
         if injected_gumbel_noise is not None:
             injected_gumbel_noise = injected_gumbel_noise.to(device)
         critic_noise_scale = critic_noise_scale if use_critic else 0.0
         first_row = row_offset()
-        if first_row and (sampler != "fused" or critic_noise_scale):
+        if first_row and sampler != "fused":
             raise ValueError(
-                "rows_from keys K1's noise on the global row; the 'xla' sampler and a critic's noise draw per "
-                "call: decode such a batch whole"
+                "rows_from keys K1's noise on the global row; the 'xla' sampler draws per call: decode such a "
+                "batch whole"
             )
-        # the one host read of these paths, before the loop: a generator per step
-        step_seeds = (
-            seeds.tolist()
-            if (sampler == "xla" and injected_gumbel_noise is None) or critic_noise_scale
-            else None
-        )
+        # the one host read of this path, before the loop: a generator per step
+        host_seeds = seeds.tolist() if sampler == "xla" and injected_gumbel_noise is None else None
 
         ids = self._decode(
             text_embeds=text_embeds,
@@ -672,7 +685,7 @@ class MaskGit(nn.Module):
             cond_ids=cond_ids,
             grid=(fh, fw),
             seeds=seeds,
-            step_seeds=step_seeds,
+            host_seeds=host_seeds,
             step_kb=step_kb,
             noise=injected_gumbel_noise,
             temperature=temperature,
@@ -695,7 +708,7 @@ class MaskGit(nn.Module):
         return self.vae.decode_from_ids(ids)
 
     def _decode(
-        self, *, text_embeds, text_mask, neg_text_embeds, cond_ids, grid, seeds, step_seeds, step_kb, noise,
+        self, *, text_embeds, text_mask, neg_text_embeds, cond_ids, grid, seeds, host_seeds, step_kb, noise,
         temperature, cond_scale, scales, topk_filter_thres, cfg_fold, null_fold, sampler, can_remask,
         use_critic, critic_noise_scale, known_ids, known_mask, progress, row_offset=0,
     ) -> torch.Tensor:
@@ -785,9 +798,7 @@ class MaskGit(nn.Module):
             step_scale = scales[i] if scheduled else cond_scale
             count = int(counts[i])
             g = noise[i] if noise is not None else None
-            gen = (
-                torch.Generator(device=device).manual_seed(step_seeds[i]) if step_seeds is not None else None
-            )
+            gen = torch.Generator(device=device).manual_seed(host_seeds[i]) if host_seeds is not None else None
             if kb is None:
                 # full body: remask the least-confident positions
                 budgets = count
@@ -877,7 +888,9 @@ class MaskGit(nn.Module):
                     pos_grid=grid,
                 )[..., 0].float()
                 if critic_noise_scale:
-                    u = torch.rand((b, seq_len), generator=gen, device=device)
+                    u = philox_uniform(
+                        seeds[i], b, seq_len, device, row_offset=row_offset, stream=CRITIC_NOISE_STREAM
+                    )
                     scores = scores + (u - 0.5) * critic_noise_scale * float(anneal[i])
             elif kb is None:
                 scores = 1.0 - prob

@@ -22,7 +22,9 @@ bounds it on the H100 and how its design answers that):
 
 The bf16 paths of both share one Hopper flash-attention core,
 `csrc/attention_core.cuh`. Each wrapper launches its kernel for CUDA tensors
-and runs the plain version for CPU tensors.
+and runs the plain version for CPU tensors; K2's forward does so as the
+operator `muse_torch::qknorm_attend` (`ops/_library.py`), so a traced
+program keeps the choice for the device it runs on.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from muse_maskgit_pytorch_tpu_torch.ops import _build
+from muse_maskgit_pytorch_tpu_torch.ops import _build, _library
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
@@ -256,10 +258,35 @@ def _heads_contiguous(t: torch.Tensor) -> torch.Tensor:
     return _aligned(t)
 
 
+def _qknorm_check(q, k, v, null_k, null_v, q_scale, k_scale, bias):
+    """K2's contract on the card, checked at every launch: the public
+    wrapper, the gradient route and the operator (which a traced program or
+    `torch.ops.muse_torch.qknorm_attend` reaches without the wrapper) all
+    pass here."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"qknorm_attend takes f32 or bf16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share a dtype")
+    if q.dim() != 4 or q.shape[-1] != KERNEL_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}, got q {tuple(q.shape)}")
+    b, n, h, d = q.shape
+    m = k.shape[1] if k.dim() == 4 else -1
+    if k.shape != (b, m, h, d) or v.shape != (b, m, h, d):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if null_k.shape != (h, d) or null_v.shape != (h, d) or q_scale.numel() != d or k_scale.numel() != d:
+        raise ValueError(f"null_k / null_v must be ({h}, {d}) and q_scale / k_scale ({d},)")
+    if bias is not None and (bias.shape != (b, m) or bias.dtype != torch.float32):
+        raise ValueError(f"the key bias must be ({b}, {m}) f32, got {tuple(bias.shape)} {bias.dtype}")
+    others = (k, v, null_k, null_v, q_scale, k_scale) + ((bias,) if bias is not None else ())
+    if q.device.type != "cuda" or any(t.device != q.device for t in others):
+        raise ValueError("qknorm_attend: K2 takes all its inputs on one CUDA device")
+
+
 def _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale: float, with_lse: bool = False):
-    """Launch K2 on CUDA tensors (checked by `qknorm_attend`). With
+    """Launch K2 on CUDA tensors, checked by `_qknorm_check`. With
     `with_lse`, returns (out, lse): lse (b, h, n) f32 is each row's
     logsumexp over the null position and the keys, for the backward."""
+    _qknorm_check(q, k, v, null_k, null_v, q_scale, k_scale, bias)
     b, n, h, d = q.shape
     m = k.shape[1]
     q, k, v = _heads_contiguous(q), _heads_contiguous(k), _heads_contiguous(v)
@@ -517,6 +544,30 @@ def qknorm_attend_with_lse(
         return _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale, with_lse=True)
 
 
+def _qknorm_cpu(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale):
+    return _qknorm_plain(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale).contiguous()
+
+
+def _qknorm_cuda(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale):
+    return _qknorm_launch(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale)
+
+
+def _qknorm_fake(q, k, v, null_k, null_v, q_scale, k_scale, bias, scale):
+    return q.new_empty(q.shape)
+
+
+# K2's forward without the row logsumexp: the CPU implementation is the
+# plain version; the gradient route (`_QKNormAttention`) launches the
+# forward with the logsumexp itself
+_qknorm_op = _library.define(
+    "qknorm_attend(Tensor q, Tensor k, Tensor v, Tensor null_k, Tensor null_v, Tensor q_scale, "
+    "Tensor k_scale, Tensor? bias, float scale) -> Tensor",
+    _qknorm_cpu,
+    _qknorm_cuda,
+    _qknorm_fake,
+)
+
+
 def qknorm_attend(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -537,32 +588,17 @@ def qknorm_attend(
 
     Where gradients are on and an input needs one, the call goes through
     `_QKNormAttention` (K2 forward with the row logsumexp, K2's backward
-    kernel); else K2 runs alone and nothing is saved."""
-    inputs = (q, k, v, null_k, null_v, q_scale, k_scale)
-    b, n, h, d = q.shape
-    m = k.shape[1]
-    wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
-    if q.device.type == "cpu":
-        if wants_grad:
-            return _QKNormAttention.apply(*inputs, key_mask_bias(mask, b, m, q.device), float(scale))
-        return qknorm_attend_plain(*inputs, mask, scale)
-    if q.device.type != "cuda":
+    kernel); else it is the operator `muse_torch::qknorm_attend`
+    (`ops/_library.py`): K2 alone on CUDA tensors, nothing saved, and the
+    plain version on CPU tensors. Every launch of K2's forward counts in
+    `qknorm_attend.launches`."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"qknorm_attend: unsupported device {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"qknorm_attend takes f32 or bf16, got {q.dtype}")
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}, got {d}")
-    if k.shape != (b, m, h, d) or v.shape != (b, m, h, d):
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    for t in inputs[1:]:
-        if t.device != q.device:
-            raise ValueError("qknorm_attend: all inputs must be on one device")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share a dtype")
-    bias = key_mask_bias(mask, b, m, q.device)
-    if wants_grad:
+    inputs = (q, k, v, null_k, null_v, q_scale, k_scale)
+    bias = key_mask_bias(mask, q.shape[0], k.shape[1], q.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return _QKNormAttention.apply(*inputs, bias, float(scale))
-    return _qknorm_launch(*inputs, bias, scale)
+    return _qknorm_op(*inputs, bias, float(scale))
 
 
 qknorm_attend.launches = 0

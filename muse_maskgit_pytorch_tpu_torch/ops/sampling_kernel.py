@@ -23,7 +23,8 @@ draws its noise, which only the columns at or above the threshold need.
 See the header of `csrc/sampling_kernel.cu`; `sample_part_clocks` reports
 where a row's clocks go.
 
-`fused_topk_gumbel_sample` launches the kernel for CUDA tensors and runs
+`fused_topk_gumbel_sample` is the operator `muse_torch::fused_topk_gumbel_sample`
+(`ops/_library.py`): it launches the kernel for CUDA tensors and runs
 `fused_topk_gumbel_sample_plain` (the same function in plain PyTorch, with
 the same arguments) for CPU tensors.
 """
@@ -35,7 +36,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from muse_maskgit_pytorch_tpu_torch.ops import _build
+from muse_maskgit_pytorch_tpu_torch.ops import _build, _library
 
 NEG_INF = -1e30
 # 10 rounds pin the top-k threshold to a rank slack of V / 2^10 (64 of
@@ -74,20 +75,29 @@ def philox4x32_10(x0, x1, x2, x3, k0, k1):
     return x0, x1, x2, x3
 
 
-def philox_gumbel(seed: int, rows: int, V: int, device=None, row_offset: int = 0) -> torch.Tensor:
-    """(rows, V) f32 gumbel noise from the kernel's Philox4x32-10 stream:
-    key (seed, row_offset + row), counter (column // 4, 0, 0, 0), output word column % 4,
-    top 23 bits -> u = bits * 2^-23 + 2^-24 (strictly below 1, unlike the
-    TPU kernel's 24-bit form, which rounds to 1.0 and gives g = +inf),
-    g = -log(-log(u))."""
-    groups = (V + 3) // 4
+def philox_uniform(seed, rows: int, cols: int, device=None, row_offset: int = 0, stream: int = 0) -> torch.Tensor:
+    """(rows, cols) f32 uniforms from the kernel's Philox4x32-10 stream:
+    key (seed, row_offset + row), counter (column // 4, stream, 0, 0),
+    output word column % 4, top 23 bits -> u = bits * 2^-23 + 2^-24, so
+    0 < u < 1. `seed` is an int, or an integer tensor of one element that is
+    read where it lies (no host read, so a traced program keeps it an
+    input). K1's noise is stream 0; a token critic's noise is stream 1."""
+    groups = (cols + 3) // 4
     x0 = torch.arange(groups, device=device, dtype=torch.int64).expand(rows, groups)
     zero = torch.zeros_like(x0)
+    x1 = zero + stream if stream else zero
+    k0 = seed.reshape(()).to(torch.int64) & _U32 if isinstance(seed, torch.Tensor) else int(seed) & _U32
     k1 = torch.arange(row_offset, row_offset + rows, device=device, dtype=torch.int64)[:, None] & _U32
-    words = philox4x32_10(x0, zero, zero, zero, int(seed) & _U32, k1)
-    bits = torch.stack(words, dim=-1).reshape(rows, groups * 4)[:, :V]
-    u = (bits >> 9).to(torch.float32) * (1.0 / (1 << 23)) + (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    words = philox4x32_10(x0, x1, zero, zero, k0, k1)
+    bits = torch.stack(words, dim=-1).reshape(rows, groups * 4)[:, :cols]
+    return (bits >> 9).to(torch.float32) * (1.0 / (1 << 23)) + (1.0 / (1 << 24))
+
+
+def philox_gumbel(seed, rows: int, V: int, device=None, row_offset: int = 0) -> torch.Tensor:
+    """(rows, V) f32 gumbel noise g = -log(-log(u)) of K1's stream
+    (`philox_uniform`, stream 0). u stays strictly below 1, unlike the TPU
+    kernel's 24-bit form, which rounds to 1.0 and gives g = +inf."""
+    return -torch.log(-torch.log(philox_uniform(seed, rows, V, device, row_offset)))
 
 
 def topk_threshold_plain(l: torch.Tensor, k: int) -> torch.Tensor:
@@ -162,7 +172,7 @@ def fused_topk_gumbel_sample_plain(
     if noise is not None:
         g = noise[:rows].float()
     else:
-        g = philox_gumbel(int(seed.reshape(-1)[0]), rows, V, device=l.device, row_offset=row_offset)
+        g = philox_gumbel(seed.reshape(-1)[0], rows, V, device=l.device, row_offset=row_offset)
     # a (rows, 1) tensor, not a python scalar: CUDA would turn division by a
     # host scalar into a multiply by its reciprocal, which rounds differently
     temp = torch.full((rows, 1), max(float(temperature), 1e-10), device=l.device)
@@ -254,6 +264,93 @@ def sample_part_clocks(logits: torch.Tensor, k: int, temperature: float, seed: t
     return {name: c / rows_of_block0 for name, c in zip(PARTS, prob[rows:].tolist())}
 
 
+def _sample_cpu(logits, k, temperature, seed, noise, cfg_pair, cond_scale, cond_scale_t, row_offset):
+    scale = cond_scale_t if cond_scale_t is not None else cond_scale
+    return fused_topk_gumbel_sample_plain(logits, k, temperature, seed, noise, cfg_pair, scale, row_offset)
+
+
+def _sample_check(logits, k, seed, noise, cfg_pair, cond_scale_t):
+    """K1's contract on the card, checked at every launch: the public
+    wrapper and the operator (which a traced program or
+    `torch.ops.muse_torch.fused_topk_gumbel_sample` reaches without the
+    wrapper) both pass here."""
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"logits must be f32 or bf16, got {logits.dtype}")
+    if logits.dim() != 2:
+        raise ValueError(f"logits must be (rows, V), got {tuple(logits.shape)}")
+    rows, V = logits.shape
+    if cfg_pair:
+        if rows % 2:
+            raise ValueError("cfg_pair needs an even number of logits rows")
+        rows //= 2
+    if not 1 <= k <= V:
+        raise ValueError(f"k={k} outside [1, {V}]")
+    if seed.device != logits.device or seed.dtype != torch.int32 or seed.numel() < 1:
+        raise ValueError("seed must be an int32 tensor on the logits' device")
+    if noise is not None and (noise.device != logits.device or noise.shape[-1] != V or noise.shape[0] < rows):
+        raise ValueError(f"noise {tuple(noise.shape)} does not cover ({rows}, {V})")
+    if cfg_pair and cond_scale_t is not None:
+        if cond_scale_t.device != logits.device or cond_scale_t.dtype != torch.float32 or cond_scale_t.numel() != 1:
+            raise ValueError("cond_scale must be a float or a one-element f32 tensor on the logits' device")
+    if logits.device.type != "cuda":
+        raise ValueError("fused_topk_gumbel_sample: K1 takes its inputs on a CUDA device")
+
+
+def _sample_cuda(logits, k, temperature, seed, noise, cfg_pair, cond_scale, cond_scale_t, row_offset):
+    """Launch K1, checked by `_sample_check`."""
+    _sample_check(logits, k, seed, noise, cfg_pair, cond_scale_t)
+    logits = logits.contiguous()
+    rows, V = logits.shape
+    rows //= 2 if cfg_pair else 1
+    if noise is not None:
+        noise = noise[:rows].to(torch.float32).contiguous()
+    seed = seed.reshape(-1)[:1].contiguous()
+    scale = None
+    if cfg_pair:
+        if cond_scale_t is not None:
+            scale = cond_scale_t.reshape(1).contiguous()
+        else:
+            scale = torch.full((1,), cond_scale, dtype=torch.float32, device=logits.device)
+    idx = torch.empty(rows, dtype=torch.int32, device=logits.device)
+    prob = torch.empty(rows, dtype=torch.float32, device=logits.device)
+    lib = _lib()
+    err = lib.muse_sample_launch(
+        logits.data_ptr(),
+        noise.data_ptr() if noise is not None else None,
+        seed.data_ptr(),
+        idx.data_ptr(),
+        prob.data_ptr(),
+        rows,
+        V,
+        k,
+        temperature,
+        scale.data_ptr() if scale is not None else None,
+        1 if logits.dtype == torch.bfloat16 else 0,
+        1 if cfg_pair else 0,
+        row_offset,
+        torch.cuda.current_stream(logits.device).cuda_stream,
+    )
+    _build.check(lib.muse_sample_error_string, err, "fused_topk_gumbel_sample")
+    fused_topk_gumbel_sample.launches += 1
+    return idx, prob
+
+
+def _sample_fake(logits, k, temperature, seed, noise, cfg_pair, cond_scale, cond_scale_t, row_offset):
+    rows = logits.shape[0] // (2 if cfg_pair else 1)
+    return logits.new_empty(rows, dtype=torch.int32), logits.new_empty(rows, dtype=torch.float32)
+
+
+# `cond_scale_t`, where given, is the one-element f32 scale on the device
+# and `cond_scale` is unused; the CPU implementation is the plain version
+_sample_op = _library.define(
+    "fused_topk_gumbel_sample(Tensor logits, int k, float temperature, Tensor seed, Tensor? noise, "
+    "bool cfg_pair, float cond_scale, Tensor? cond_scale_t, int row_offset) -> (Tensor, Tensor)",
+    _sample_cpu,
+    _sample_cuda,
+    _sample_fake,
+)
+
+
 def fused_topk_gumbel_sample(
     logits: torch.Tensor,
     k: int,
@@ -276,62 +373,18 @@ def fused_topk_gumbel_sample(
     noise: optional (rows, V) gumbel noise that replaces the Philox stream.
     row_offset: the Philox stream's first row (a data-parallel rank that
     samples rows of a global batch passes the global index of its first).
-    Returns (idx int32 (rows,), prob f32 (rows,))."""
-    if logits.device.type == "cpu":
-        return fused_topk_gumbel_sample_plain(
-            logits, k, temperature, seed, noise, cfg_pair, cond_scale, row_offset
-        )
-    if logits.device.type != "cuda":
+    Returns (idx int32 (rows,), prob f32 (rows,)).
+
+    The call is the operator `muse_torch::fused_topk_gumbel_sample`
+    (`ops/_library.py`): the kernel on CUDA tensors, which counts its
+    launches in `fused_topk_gumbel_sample.launches`, and the plain version
+    on CPU tensors."""
+    scale_t = cond_scale if isinstance(cond_scale, torch.Tensor) else None
+    scale = 1.0 if scale_t is not None else float(cond_scale)
+    args = (int(k), float(temperature), seed, noise, bool(cfg_pair), scale, scale_t, int(row_offset))
+    if logits.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_topk_gumbel_sample: unsupported device {logits.device}")
-    if logits.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"logits must be f32 or bf16, got {logits.dtype}")
-    if logits.dim() != 2:
-        raise ValueError(f"logits must be (rows, V), got {tuple(logits.shape)}")
-    logits = logits.contiguous()
-    rows, V = logits.shape
-    if cfg_pair:
-        if rows % 2:
-            raise ValueError("cfg_pair needs an even number of logits rows")
-        rows //= 2
-    if not 1 <= k <= V:
-        raise ValueError(f"k={k} outside [1, {V}]")
-    if seed.device != logits.device or seed.dtype != torch.int32 or seed.numel() < 1:
-        raise ValueError("seed must be an int32 tensor on the logits' device")
-    if noise is not None:
-        if noise.device != logits.device or noise.shape[-1] != V or noise.shape[0] < rows:
-            raise ValueError(f"noise {tuple(noise.shape)} does not cover ({rows}, {V})")
-        noise = noise[:rows].to(torch.float32).contiguous()
-    seed = seed.reshape(-1)[:1].contiguous()
-    scale = None
-    if cfg_pair:
-        if isinstance(cond_scale, torch.Tensor):
-            if cond_scale.device != logits.device or cond_scale.dtype != torch.float32 or cond_scale.numel() != 1:
-                raise ValueError("cond_scale must be a float or a one-element f32 tensor on the logits' device")
-            scale = cond_scale.reshape(1).contiguous()
-        else:
-            scale = torch.full((1,), float(cond_scale), dtype=torch.float32, device=logits.device)
-    idx = torch.empty(rows, dtype=torch.int32, device=logits.device)
-    prob = torch.empty(rows, dtype=torch.float32, device=logits.device)
-    lib = _lib()
-    err = lib.muse_sample_launch(
-        logits.data_ptr(),
-        noise.data_ptr() if noise is not None else None,
-        seed.data_ptr(),
-        idx.data_ptr(),
-        prob.data_ptr(),
-        rows,
-        V,
-        int(k),
-        float(temperature),
-        scale.data_ptr() if scale is not None else None,
-        1 if logits.dtype == torch.bfloat16 else 0,
-        1 if cfg_pair else 0,
-        int(row_offset),
-        torch.cuda.current_stream(logits.device).cuda_stream,
-    )
-    _build.check(lib.muse_sample_error_string, err, "fused_topk_gumbel_sample")
-    fused_topk_gumbel_sample.launches += 1
-    return idx, prob
+    return _sample_op(logits, *args)
 
 
 fused_topk_gumbel_sample.launches = 0

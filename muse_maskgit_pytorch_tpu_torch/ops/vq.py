@@ -11,8 +11,9 @@ default, so the argmax is the euclidean nearest code; for cosine search pass
 l2-normalised x and codebook with `cb_sq = 0`. Ties go to the lowest code
 index, as `jnp.argmax` and the Pallas kernel resolve them.
 
-`nearest_code` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors. The result is an argmax, so nothing here is
+`nearest_code`, the operator `muse_torch::nearest_code`
+(`ops/_library.py`), launches the kernel for CUDA tensors and runs the
+plain version for CPU tensors. The result is an argmax, so nothing here is
 differentiable.
 """
 
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from muse_maskgit_pytorch_tpu_torch.ops import _build
+from muse_maskgit_pytorch_tpu_torch.ops import _build, _library
 
 KERNEL_MAX_DIM = 256
 _ROWS_PER_BLOCK = 128  # csrc/vq_search.cu BM
@@ -91,29 +92,31 @@ def _k_splits(n: int, k: int, device: torch.device) -> int:
     return max(1, min(-(-k // _CODES_PER_TILE), sms // row_tiles))
 
 
-def nearest_code(
-    x: torch.Tensor, codebook: torch.Tensor, cb_sq: Optional[torch.Tensor] = None
-) -> torch.Tensor:
-    """Fused distance + argmax. x (n, d), codebook (K, d), optional cb_sq
-    (K,) -> int32 (n,) ids. Inputs are read as f32, as the JAX kernel casts
-    them; the kernel takes d a multiple of 4, at most 256."""
-    if x.device.type == "cpu":
-        return nearest_code_plain(x, codebook, cb_sq)
-    if x.device.type != "cuda":
-        raise ValueError(f"nearest_code: unsupported device {x.device}")
+def _nearest_check(x, codebook, cb_sq):
+    """K3's contract on the card, checked at every launch: the public
+    wrapper and the operator (which a traced program or
+    `torch.ops.muse_torch.nearest_code` reaches without the wrapper) both
+    pass here."""
     if x.dim() != 2 or codebook.dim() != 2 or x.shape[1] != codebook.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and codebook {tuple(codebook.shape)} must be (n, d), (K, d)")
-    n, d = x.shape
+    d = x.shape[1]
     k = codebook.shape[0]
     if d % 4 or d > KERNEL_MAX_DIM or k == 0:
         raise ValueError(f"the CUDA kernel takes d a multiple of 4 up to {KERNEL_MAX_DIM} and K > 0, got d {d}, K {k}")
-    if codebook.device != x.device or (cb_sq is not None and cb_sq.device != x.device):
-        raise ValueError("nearest_code: all inputs must be on one device")
-    x = x.detach().float().contiguous()
-    codebook = codebook.detach().float().contiguous()
-    cb_sq = (codebook * codebook).sum(dim=-1) if cb_sq is None else cb_sq.detach().float().contiguous()
-    if cb_sq.shape != (k,):
+    if cb_sq is not None and cb_sq.shape != (k,):
         raise ValueError(f"cb_sq must be ({k},), got {tuple(cb_sq.shape)}")
+    if x.device.type != "cuda" or codebook.device != x.device or (cb_sq is not None and cb_sq.device != x.device):
+        raise ValueError("nearest_code: K3 takes all its inputs on one CUDA device")
+
+
+def _nearest_cuda(x, codebook, cb_sq):
+    """Launch K3, checked by `_nearest_check`."""
+    _nearest_check(x, codebook, cb_sq)
+    n, d = x.shape
+    k = codebook.shape[0]
+    x = x.float().contiguous()
+    codebook = codebook.float().contiguous()
+    cb_sq = (codebook * codebook).sum(dim=-1) if cb_sq is None else cb_sq.float().contiguous()
     out = torch.empty(n, dtype=torch.int32, device=x.device)
     if n == 0:
         return out
@@ -126,6 +129,36 @@ def nearest_code(
     _build.check(lib.muse_vq_search_error_string, err, "nearest_code")
     nearest_code.launches += 1
     return out
+
+
+def _nearest_cpu(x, codebook, cb_sq):
+    return nearest_code_plain(x, codebook, cb_sq)
+
+
+def _nearest_fake(x, codebook, cb_sq):
+    return x.new_empty(x.shape[0], dtype=torch.int32)
+
+
+_nearest_op = _library.define(
+    "nearest_code(Tensor x, Tensor codebook, Tensor? cb_sq) -> Tensor", _nearest_cpu, _nearest_cuda, _nearest_fake
+)
+
+
+def nearest_code(
+    x: torch.Tensor, codebook: torch.Tensor, cb_sq: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Fused distance + argmax. x (n, d), codebook (K, d), optional cb_sq
+    (K,) -> int32 (n,) ids. Inputs are read as f32, as the JAX kernel casts
+    them; the kernel takes d a multiple of 4, at most 256.
+
+    The call is the operator `muse_torch::nearest_code` (`ops/_library.py`):
+    the kernel on CUDA tensors, counted in `nearest_code.launches`, and the
+    plain version on CPU tensors."""
+    x, codebook = x.detach(), codebook.detach()
+    cb_sq = cb_sq.detach() if cb_sq is not None else None
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nearest_code: unsupported device {x.device}")
+    return _nearest_op(x, codebook, cb_sq)
 
 
 nearest_code.launches = 0

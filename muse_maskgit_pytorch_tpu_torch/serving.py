@@ -21,22 +21,40 @@ axis, else its first, as in the JAX package; the ranks of a `tensor` axis
 that a model is split over (`parallel.tensor.shard_module`) decode the
 same rows together.
 
-Not ported: `export_pipeline` / `ExportedPipeline` (ROADMAP A12b) and the
-persistent compile cache (nothing to cache: the kernels are built once per
-checkout, `ops/_build.py`).
+`export_pipeline` traces the fixed-shape generate program (a `MaskGit` or
+a whole `Muse` cascade, through the uint8 quantisation) once with
+`torch.export` into an `ExportedPipeline`: a program that `save` writes and
+`load_exported_pipeline` reads back without the model classes, its
+parameters passed in at each call. K1, K2 and K3 are PyTorch operators in
+it (`ops/_library.py`), so the program launches the kernels on the card.
+
+Not ported: the persistent compile cache (nothing to cache: the kernels are
+built once per checkout, `ops/_build.py`).
 """
 
 from __future__ import annotations
 
+import json
 import time
-from typing import List, Optional, Sequence, Union
+from pathlib import Path
+from typing import List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.export.passes import move_to_device_pass
+from torch.nn.utils.stateless import _reparametrize_module
 
-from muse_maskgit_pytorch_tpu_torch.models.maskgit import SEED_HIGH, MaskGit, Muse, child_generators, vaes_share_weights
+from muse_maskgit_pytorch_tpu_torch.models._layers import _cudnn_ieee
+from muse_maskgit_pytorch_tpu_torch.models.maskgit import (
+    SEED_HIGH,
+    MaskGit,
+    Muse,
+    child_generators,
+    step_seeds,
+    vaes_share_weights,
+)
 from muse_maskgit_pytorch_tpu_torch.models.t5 import t5_encode_text_with_mask
-from muse_maskgit_pytorch_tpu_torch.ops import _build
+from muse_maskgit_pytorch_tpu_torch.ops import _build, attention, sampling_kernel, vq  # noqa: F401 (the operators)
 from muse_maskgit_pytorch_tpu_torch.parallel.batch import rows_from
 from muse_maskgit_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS, axis_coordinate, mesh_axes
 from muse_maskgit_pytorch_tpu_torch.parallel.tensor import all_gather
@@ -465,3 +483,284 @@ class GeneratePipeline:
         if self.stats["generate_seconds"] == 0:
             return None
         return self.stats["images"] / self.stats["generate_seconds"]
+
+
+# ---------------------------------------------------------------------------
+# AOT export: a deployable generate program (torch.export)
+# ---------------------------------------------------------------------------
+
+
+class ExportedPipeline:
+    """A saved, ahead-of-time-exported generate program.
+
+    `export_pipeline` traces the whole fixed-shape sampling program (a base
+    `MaskGit` or a `Muse` cascade: the decode loop, the samplers, the VAE
+    decode and the uint8 quantisation on the device) once with
+    `torch.export` into an `ExportedProgram`. A serving host needs only
+    PyTorch, this package's operators (`ops/_library.py`: K1, K2 and K3,
+    built at their first use), the saved program and the parameters: no
+    tracing and no model classes.
+
+    The parameters travel outside the program, as the flat list of the
+    model's `state_dict()` values in order: the program holds none of them.
+
+    Call as `exported(state, text_embeds, text_mask, key)`: `state` is the
+    state dict of a model built like the exported one (or its values as a
+    list); `key` a `torch.Generator` or an int seed, turned into the
+    per-step seeds on the host as `generate` draws them (a cascade first
+    splits it with `child_generators`), so the program's images equal eager
+    `generate`'s bit for bit. Returns uint8 (batch, H, W, 3) on the
+    program's device.
+    """
+
+    def __init__(self, program: torch.export.ExportedProgram, meta: dict):
+        self.program = program
+        self.meta = dict(meta)
+        self._module = None
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device(self.meta["platforms"][0])
+
+    def _seeds(self, key) -> torch.Tensor:
+        """The program's seeds input from `key`: (T,) int32, or (2, T) for
+        a cascade, on the program's device."""
+        timesteps, device = self.meta["timesteps"], self.device
+        if not isinstance(key, torch.Generator):
+            key = torch.Generator(device=device).manual_seed(int(key))
+        if self.meta["kind"] == "muse":
+            return torch.stack([step_seeds(g, timesteps, device) for g in child_generators(key, device)])
+        return step_seeds(key, timesteps, key.device).to(device)
+
+    def __call__(self, state, text_embeds, text_mask, key, cond_images=None, cond_scale=None):
+        leaves = tuple(state.values()) if isinstance(state, Mapping) else tuple(state)
+        n_expected = self.meta["n_state_leaves"]
+        if len(leaves) != n_expected:
+            raise ValueError(
+                f"state has {len(leaves)} leaves, the exported program expects {n_expected}: was the model built "
+                "with the same architecture as at export time?"
+            )
+        device = self.device
+        leaves = tuple(t.to(device) for t in leaves)
+        args = [
+            leaves,
+            torch.as_tensor(text_embeds, dtype=torch.float32, device=device),
+            torch.as_tensor(text_mask, dtype=torch.bool, device=device),
+            self._seeds(key),
+        ]
+        if self.meta["dynamic_cond_scale"]:
+            # a scalar broadcasts, a (batch,) vector gives each row its own
+            # scale, None is the default recorded at export time
+            scale = self.meta["cond_scale"] if cond_scale is None else cond_scale
+            scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
+            args.append(scale.broadcast_to((self.meta["batch_size"],)).contiguous())
+        elif cond_scale is not None:
+            raise ValueError(
+                "this artifact bakes a static cond_scale; re-export with dynamic_cond_scale=True for per-call guidance"
+            )
+        if self.meta["needs_cond_images"]:
+            if cond_images is None:
+                raise ValueError(
+                    "this artifact was exported from a conditioned (super-res) MaskGit: pass "
+                    "cond_images=(batch, H, W, 3)"
+                )
+            args.append(torch.as_tensor(cond_images, dtype=torch.float32, device=device))
+        elif cond_images is not None:
+            raise ValueError("cond_images passed but the exported program takes none")
+        if self._module is None:
+            self._module = self.program.module()
+        # the graph keeps each convolution but not `conv_ieee`'s scope: f32
+        # convolutions run in IEEE f32 whatever the caller's cuDNN TF32 flag
+        with torch.inference_mode(), _cudnn_ieee():
+            return self._module(*args)
+
+    def save(self, path) -> str:
+        """Write `<path>/program.pt2` (`torch.export.save`) and
+        `<path>/meta.json`."""
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        torch.export.save(self.program, path / "program.pt2")
+        (path / "meta.json").write_text(json.dumps(self.meta, indent=2))
+        return str(path)
+
+    @classmethod
+    def load(cls, path) -> "ExportedPipeline":
+        path = Path(path)
+        program = torch.export.load(path / "program.pt2")
+        return cls(program, json.loads((path / "meta.json").read_text()))
+
+
+def _drop_no_ops(program: torch.export.ExportedProgram) -> None:
+    """Remove what eager code does not run: the metadata asserts that
+    export puts beside each `.to`, and the casts to the dtype a tensor
+    already has (eager `.to` returns the tensor itself there). At the main
+    path's width (b32 T18) it takes the graph from 21705 nodes to 15669
+    and, on an H100, the program's save, load and request times down with
+    them (`chip_smoke.py --phases env,build,export_no_ops`)."""
+    graph = program.graph
+    aten = torch.ops.aten
+    for node in list(graph.nodes):
+        if node.op != "call_function":
+            continue
+        if node.target == aten._assert_tensor_metadata.default:
+            graph.erase_node(node)
+        elif node.target == aten.to.dtype and len(node.args) == 2 and not node.kwargs:
+            src = node.args[0]
+            same = src.meta["val"].dtype == node.meta["val"].dtype
+            if same and all(user.op != "output" for user in node.users):
+                node.replace_all_uses_with(src)
+                graph.erase_node(node)
+    program.graph_module.recompile()
+
+
+def _state_slots(model: torch.nn.Module) -> dict:
+    """{state_dict name: its index} with one name per parameter or buffer
+    slot: a module held under two names (a MaskGit's `vae` and `cond_vae`
+    when they are one VAE) is swapped once, so it is restored once."""
+    seen, names = set(), {}
+    for i, name in enumerate(model.state_dict()):
+        prefix, _, attr = name.rpartition(".")
+        slot = (id(model.get_submodule(prefix)), attr)
+        if slot not in seen:
+            seen.add(slot)
+            names[name] = i
+    return names
+
+
+class _Program(torch.nn.Module):
+    """The traced root: holds no module, so the model's tensors reach the
+    trace only as the leaves input."""
+
+    def __init__(self, run):
+        super().__init__()
+        self.run = run
+
+    def forward(self, *args):
+        return self.run(*args)
+
+
+def export_pipeline(
+    model: Union[MaskGit, Muse],
+    *,
+    batch_size: int = 16,
+    text_len: int = 64,
+    timesteps: int = 18,
+    cond_scale: float = 3.0,
+    temperature: float = 1.0,
+    sampler: str = "auto",
+    platforms: Optional[Sequence[str]] = None,
+    dynamic_cond_scale: bool = False,
+    cond_via: str = "auto",
+) -> ExportedPipeline:
+    """AOT-export the fixed-shape generate program (see `ExportedPipeline`).
+
+    The program's inputs are the state leaves, text embeddings (batch,
+    text_len, D) f32, their mask (batch, text_len) bool and the seeds (T,)
+    int32 ((2, T) for a `Muse`); then, with `dynamic_cond_scale`, a
+    (batch,) f32 guidance scale per row (`cond_scale` only names the
+    default recorded in meta), and for a standalone super-res `MaskGit`
+    the (batch, s, s, 3) f32 conditioning images. It is traced where the
+    model lies (`torch.export.export`, non-strict) and moved to
+    `platforms` (one of "cuda", "cpu"; default: the model's device) with
+    `torch.export.passes.move_to_device_pass`: the kernels are operators
+    that the dispatcher routes by device when the program runs, so a
+    program traced on the CPU and moved to the card launches them there.
+
+    `cond_via` ("auto", "pixels" or "ids") is a cascade's hand-off between
+    its stages, resolved here as `GeneratePipeline(cond_via=)` resolves it.
+    `sampler="xla"` is refused: it draws each step's noise from a host
+    generator seeded by a host read of the seeds, which a traced program
+    cannot hold; its noise made on the device instead is the plain Philox
+    over every logit, about 317 ms a step at (8192, 65536) on an H100.
+    """
+    if sampler not in ("auto", "fused", "xla"):
+        raise ValueError(f"sampler must be 'auto', 'fused' or 'xla', got {sampler!r}")
+    if sampler == "xla":
+        raise ValueError(
+            "sampler='xla' draws its noise from host generators seeded by a host read of the seeds, which an "
+            "exported program cannot hold (the plain Philox over the logits on the device takes about 317 ms a "
+            "step at (8192, 65536) on an H100): export sampler='fused' (K1)"
+        )
+    if cond_via not in ("auto", "pixels", "ids"):
+        raise ValueError(f"cond_via must be auto/pixels/ids, got {cond_via!r}")
+    is_cascade = isinstance(model, Muse)
+    if not is_cascade and cond_via != "auto":
+        raise ValueError("cond_via is a cascade inter-stage knob; this export is a single MaskGit")
+    via_ids = False
+    if is_cascade:
+        base, superres = model.base_maskgit, model.superres_maskgit
+        shared = vaes_share_weights(superres.cond_vae, base.vae)
+        if cond_via == "ids" and not shared:
+            raise ValueError("cond_via='ids' requires a shared cascade VAE")
+        via_ids = shared if cond_via == "auto" else cond_via == "ids"
+    standalone_cond = not is_cascade and model.resize_image_for_cond_image
+    device = next(model.parameters()).device
+    platforms = list(platforms) if platforms else [device.type]
+    if len(platforms) != 1 or platforms[0] not in ("cuda", "cpu"):
+        raise ValueError(f"platforms must name one of 'cuda', 'cpu', got {platforms!r}")
+
+    state = model.state_dict()
+    slots = _state_slots(model)
+    gen_kw = dict(timesteps=timesteps, temperature=temperature, sampler=sampler)
+
+    def run(leaves, text_embeds, text_mask, seeds, *rest):
+        rest = list(rest)
+        scale = rest.pop(0)[None, :] if dynamic_cond_scale else cond_scale
+        common = dict(text_embeds=text_embeds, text_mask=text_mask, cond_scale=scale, **gen_kw)
+        with _reparametrize_module(model, {name: leaves[i] for name, i in slots.items()}):
+            if is_cascade:
+                low = base.generate(generator=seeds[0], return_ids=via_ids, **common)
+                sr_cond = dict(cond_token_ids=low) if via_ids else dict(cond_images=low.clamp(0.0, 1.0))
+                images = superres.generate(generator=seeds[1], **sr_cond, **common)
+            else:
+                images = model.generate(generator=seeds, cond_images=rest[0] if standalone_cond else None, **common)
+        return _quantize_u8(images)
+
+    tr = (base if is_cascade else model).transformer
+    ctx_dim = tr.text_embed_dim
+    example = [
+        tuple(t.detach() for t in state.values()),
+        torch.zeros(batch_size, text_len, ctx_dim, device=device),
+        torch.ones(batch_size, text_len, dtype=torch.bool, device=device),
+        torch.zeros((2, timesteps) if is_cascade else (timesteps,), dtype=torch.int32, device=device),
+    ]
+    if dynamic_cond_scale:
+        example.append(torch.full((batch_size,), float(cond_scale), device=device))
+    if standalone_cond:
+        s = model.cond_image_size
+        example.append(torch.zeros(batch_size, s, s, 3, device=device))
+    with torch.no_grad():
+        program = torch.export.export(_Program(run), tuple(example), strict=False)
+    held = [s.target for s in program.graph_signature.input_specs if s.kind.name in ("PARAMETER", "BUFFER")]
+    storages = {t.untyped_storage().data_ptr() for t in state.values()}
+    held += [k for k, t in program.constants.items() if isinstance(t, torch.Tensor) and t.untyped_storage().data_ptr() in storages]
+    if held:
+        raise RuntimeError(f"the exported program holds model tensors: {held[:5]}")
+    program.example_inputs = None  # they hold the parameters: keep them out of the artifact
+    _drop_no_ops(program)
+    if platforms[0] != device.type:
+        program = move_to_device_pass(program, platforms[0])
+    meta = {
+        "kind": "muse" if is_cascade else "maskgit",
+        "batch_size": batch_size,
+        "text_len": text_len,
+        "text_embed_dim": int(ctx_dim),
+        "timesteps": timesteps,
+        "cond_scale": cond_scale,
+        "temperature": temperature,
+        "sampler": sampler,
+        "n_state_leaves": len(state),
+        "needs_cond_images": bool(standalone_cond),
+        "dynamic_cond_scale": bool(dynamic_cond_scale),
+        "cond_via": ("ids" if via_ids else "pixels") if is_cascade else None,
+        "platforms": platforms,
+        "image_size": int((model.superres_maskgit if is_cascade else model).image_size),
+    }
+    return ExportedPipeline(program, meta)
+
+
+def load_exported_pipeline(path) -> ExportedPipeline:
+    """Load an artifact written by `ExportedPipeline.save`. It needs the
+    `muse_torch` operators, which this module's imports register, and none
+    of the model classes."""
+    return ExportedPipeline.load(path)

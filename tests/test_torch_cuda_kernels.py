@@ -16,7 +16,7 @@ import contextlib
 import pytest
 import torch
 
-from muse_maskgit_pytorch_tpu_torch import LFQ, MaskGitTransformer, VQGanVAE
+from muse_maskgit_pytorch_tpu_torch import LFQ, MaskGit, MaskGitTransformer, VQGanVAE
 from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel, vq
 
 # bf16 attention: against the plain version with the TPU kernels' roundings,
@@ -952,3 +952,112 @@ def test_fid_towers_on_the_card_match_the_cpu(dev, tower):
     assert got.device.type == "cuda" and got.shape == ref.shape
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
     assert torch.equal(on_card(x.to(dev)), got)
+
+
+# -- the kernels as operators, and launched from an exported program ------------
+
+
+def test_registered_operators_match_the_plain_versions(dev):
+    """`muse_torch::*` called directly on CUDA tensors launches each kernel
+    once: K1's ids and K3's ids bit-equal to the plain versions (K3 on a
+    codebook of well-separated codes, so no near tie), K2 bf16 at the
+    existing limit against its TPU-rounding plain version."""
+    ops = torch.ops.muse_torch
+    g = torch.Generator(device=dev).manual_seed(5)
+    logits = (torch.randn(2 * 33, 4096, generator=g, device=dev) * 3).to(torch.bfloat16)
+    seed = torch.full((1,), 7, dtype=torch.int32, device=dev)
+    scale = torch.full((1,), 3.0, device=dev)
+    before = sampling_kernel.fused_topk_gumbel_sample.launches
+    idx, prob = ops.fused_topk_gumbel_sample(logits, 410, 0.9, seed, None, True, 1.0, scale, 3)
+    assert sampling_kernel.fused_topk_gumbel_sample.launches == before + 1
+    pidx, pprob = sampling_kernel.fused_topk_gumbel_sample_plain(logits, 410, 0.9, seed, None, True, scale, 3)
+    assert torch.equal(idx, pidx)
+    torch.testing.assert_close(prob, pprob, rtol=1e-5, atol=0)
+
+    b, n, m, h, d = 3, 70, 45, 2, 64
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16) for s in (n, m, m))
+    null_k, null_v = (torch.randn(h, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    q_scale, k_scale = (torch.rand(d, generator=g, device=dev) + 0.5 for _ in range(2))
+    mask = torch.rand(b, m, generator=g, device=dev) > 0.3
+    bias = attention.key_mask_bias(mask, b, m, dev)
+    before = attention.qknorm_attend.launches
+    out = ops.qknorm_attend(q, k, v, null_k, null_v, q_scale, k_scale, bias, 8.0)
+    assert attention.qknorm_attend.launches == before + 1
+    ref = attention.qknorm_attend_plain(q, k, v, null_k, null_v, q_scale, k_scale, mask, 8.0, round_to=torch.bfloat16)
+    assert float((out.float() - ref.float()).abs().max()) <= BF16_VS_ROUNDED
+
+    codes = _unit(torch.randn(512, 64, generator=g, device=dev))
+    x = codes[torch.randint(0, 512, (300,), generator=g, device=dev)] + 0.01 * torch.randn(300, 64, generator=g, device=dev)
+    before = vq.nearest_code.launches
+    ids = ops.nearest_code(x, codes, None)
+    assert vq.nearest_code.launches == before + 1
+    assert torch.equal(ids, vq.nearest_code_plain(x, codes))
+
+
+def _toy_maskgit(device):
+    gen = torch.Generator().manual_seed(0)
+    tr = MaskGitTransformer(
+        num_tokens=1024, dim=128, seq_len=16, depth=2, dim_head=64, heads=2, text_embed_dim=32, device=device,
+        generator=gen,
+    )
+    vae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=1024, device=device, generator=gen)
+    return MaskGit(image_size=16, transformer=tr, vae=vae, device=device).eval()
+
+
+@pytest.mark.parametrize("where", ["card", "cpu"], ids=["exported_on_the_card", "exported_on_the_cpu"])
+def test_exported_program_launches_the_kernels(dev, where, tmp_path):
+    """A generate program exported on the card, or on the CPU and moved
+    there (`platforms=("cuda",)`), saved and loaded: each call launches K1
+    once a step and K2 twice a layer a step, counted by the wrappers'
+    counters, and its images equal eager `generate` with cuDNN's TF32 left
+    on by the caller."""
+    from muse_maskgit_pytorch_tpu_torch import export_pipeline, load_exported_pipeline
+    from muse_maskgit_pytorch_tpu_torch.serving import _quantize_u8
+
+    model = _toy_maskgit(dev)
+    source = model if where == "card" else _toy_maskgit("cpu")
+    ep = export_pipeline(source, batch_size=4, text_len=6, timesteps=3, platforms=("cuda",))
+    loaded = load_exported_pipeline(ep.save(tmp_path / "artifact"))
+    te = torch.randn(4, 6, 32, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    tm = torch.ones(4, 6, dtype=torch.bool, device=dev)
+    k1, k2 = sampling_kernel.fused_topk_gumbel_sample, attention.qknorm_attend
+    before = k1.launches, k2.launches
+    with _cudnn_flags(True):
+        got = loaded(model.state_dict(), te, tm, 9)
+        want = model.generate(generator=torch.Generator(device=dev).manual_seed(9), text_embeds=te, text_mask=tm, timesteps=3)
+    assert (k1.launches - before[0], k2.launches - before[1]) == (3 + 3, 3 * 2 * 2 * 2)  # artifact + eager
+    assert got.device.type == "cuda" and torch.equal(got, _quantize_u8(want))
+
+
+def test_an_exported_program_is_held_to_the_kernels_contract(dev):
+    """A program exported on the CPU for the card from a model of head dim
+    16 (the CPU tests' toys are that narrow) reaches K2 through the
+    operator, not the public wrapper: the operator's CUDA implementation
+    refuses it before any launch, as eager code is refused. Direct operator
+    calls are checked alike."""
+    from muse_maskgit_pytorch_tpu_torch import export_pipeline
+
+    gen = torch.Generator().manual_seed(0)
+    tr = MaskGitTransformer(
+        num_tokens=256, dim=32, seq_len=16, depth=1, dim_head=16, heads=2, text_embed_dim=32, device="cpu",
+        generator=gen,
+    )
+    vae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=256, device="cpu", generator=gen)
+    model = MaskGit(image_size=16, transformer=tr, vae=vae, device="cpu").eval()
+    ep = export_pipeline(model, batch_size=2, text_len=4, timesteps=1, platforms=("cuda",))
+    state = [t.to(dev) for t in model.state_dict().values()]
+    te, tm = torch.randn(2, 4, 32, device=dev), torch.ones(2, 4, dtype=torch.bool, device=dev)
+    before = attention.qknorm_attend.launches
+    with pytest.raises(ValueError, match="head dim 64"):
+        ep(state, te, tm, 0)
+    with pytest.raises(ValueError, match="head dim 64"):
+        model.to(dev).generate(generator=torch.Generator(device=dev).manual_seed(0), text_embeds=te, text_mask=tm, timesteps=1)
+    assert attention.qknorm_attend.launches == before
+    ops = torch.ops.muse_torch
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        ops.fused_topk_gumbel_sample(torch.zeros(4, 64, dtype=torch.float16, device=dev), 4, 1.0, seed, None, False, 1.0, None, 0)
+    with pytest.raises(ValueError, match="even number"):
+        ops.fused_topk_gumbel_sample(torch.zeros(5, 64, device=dev), 4, 1.0, seed, None, True, 1.0, None, 0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.nearest_code(torch.zeros(5, 6, device=dev), torch.zeros(7, 6, device=dev), None)
