@@ -55,8 +55,10 @@ read just after):
     `torch.export`) of the base model at b32 T18 and of the cascade at
     b16 T18 + 18, saved and loaded (the base one by a fresh process whose
     model code raises), with per-row guidance, an EMA-VQ super-res stage
-    and a program exported on the CPU for the card -- K1, K2 and K3 as
-    operators inside the program, its bytes equal to eager code's;
+    and a program exported on the CPU for the card, and the base model's
+    program with the exact sampler (`sampler="xla"`) -- K1, K2, K3 and the
+    exact sampler's noise kernel as operators inside the program, its bytes
+    equal to eager code's;
   * `serving`: the base model saved in the JAX package's checkpoint format
     and loaded into a fresh model (tensor- and image-equal), then served:
     `GeneratePipeline` at b16, T18, CFG 3 with T5 in front (warmup, timed
@@ -266,14 +268,21 @@ def plain_path(attend=None):
     from muse_maskgit_pytorch_tpu_torch.models import maskgit, quantizers, transformer
     from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel, vq
 
-    saved = transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample, quantizers.nearest_code
+    saved = (
+        transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample, maskgit.philox_gumbel_noise,
+        quantizers.nearest_code,
+    )
     transformer.qknorm_attend = attend or attention.qknorm_attend_plain
     maskgit.fused_topk_gumbel_sample = sampling_kernel.fused_topk_gumbel_sample_plain
+    maskgit.philox_gumbel_noise = sampling_kernel.philox_gumbel_noise_plain
     quantizers.nearest_code = vq.nearest_code_plain
     try:
         yield
     finally:
-        transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample, quantizers.nearest_code = saved
+        (
+            transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample, maskgit.philox_gumbel_noise,
+            quantizers.nearest_code,
+        ) = saved
 
 
 def attend_f64(q, k, v, null_k, null_v, q_scale, k_scale, mask=None, scale=8.0):
@@ -528,6 +537,105 @@ def phase_k1(torch, ctx):
         f"ms vs plain {dev_scale_plain_ms:.3f} ms, bound {pair_bound:.3f} ms (bytes); "
         f"f32 ({rows}, {VOCAB}) {f32_ms:.3f} ms, bound {f32_bound:.3f} ms (bytes); SM clocks a row by part "
         f"(instrumented build, {sum(parts.values()):.0f} in all): {parts_s}"
+    )
+    k1_noise(torch, ctx, logits, seed)
+
+
+def ulps(torch, a, b) -> int:
+    """The largest distance between a and b (f32 or bf16, same shape) in
+    units in the last place of their dtype, over floats mapped to ordered
+    integers; row blocks keep the int64 copies small."""
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+    magnitude = 2 ** (8 * a.element_size() - 1) - 1
+
+    def ordered(x):
+        i = x.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & magnitude), i)
+
+    step = max(1, (1 << 26) // a.shape[-1])
+    return max(int((ordered(a[r : r + step]) - ordered(b[r : r + step])).abs().max()) for r in range(0, a.shape[0], step))
+
+
+# the noise kernel against its plain version: the same Philox bits, then
+# logf (built without fast math) against torch.log, expected bit-equal on
+# the card; held at 2 ulps of the dtype
+GUMBEL_ULPS = 2
+
+
+def k1_noise(torch, ctx, logits, seed):
+    """[k1], the exact sampler's noise (`philox_gumbel_noise`, the operator
+    `muse_torch::philox_gumbel`, a second kernel of `sampling_kernel.cu`):
+    against its plain version at the base and super-res step-0 shapes in
+    bf16 and f32 and at V = 1001 with a row offset of 37; K1 given its f32
+    output against K1 keyed on the same seed (ids and probabilities
+    equal); its time by graph replay beside its bound, the plain version's
+    and `torch.rand` + two logs (the one-call library stand-in, timed by
+    CUDA events)."""
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import (
+        fused_topk_gumbel_sample as sample,
+        philox_gumbel_noise as noise_op,
+        philox_gumbel_noise_plain as noise_plain,
+    )
+
+    dev = "cuda"
+    rows, sr_rows = BATCH * SEQ, CAS_BATCH * SR_SEQ
+    checks, worst_ulps, err = [], 0, 0.0
+    for n, V, off in ((rows, VOCAB, 0), (sr_rows, VOCAB, 0), (133, 1001, 37)):
+        for dtype in (torch.bfloat16, torch.float32):
+            got = noise_op(seed, n, V, row_offset=off, dtype=dtype)
+            want = noise_plain(seed, n, V, off, dtype)
+            torch.cuda.synchronize()
+            require(got.shape == (n, V) and got.dtype == dtype, f"philox_gumbel_noise {tuple(got.shape)} {got.dtype}")
+            u = ulps(torch, got, want)
+            require(u <= GUMBEL_ULPS, f"philox_gumbel_noise ({n}, {V}) {dtype}: {u} ulps from its plain version")
+            worst_ulps = max(worst_ulps, u)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            checks.append(f"({n}, {V}{f', offset {off}' if off else ''}) {str(dtype)[6:]} {u}")
+            del got, want
+    # K1 reading the noise kernel's output draws what K1 keyed on the seed draws
+    noise = noise_op(seed, rows, VOCAB)
+    idx, prob = sample(logits, TOPK, 1.0, seed)
+    nidx, nprob = sample(logits, TOPK, 1.0, seed, noise=noise)
+    torch.cuda.synchronize()
+    require(
+        torch.equal(idx, nidx) and torch.equal(prob, nprob), "K1 on philox_gumbel_noise's output differs from K1 on its seed"
+    )
+    del noise
+
+    # time: by graph replay (a launch and nothing else), at both step-0 shapes
+    times = {}
+    for n in (rows, sr_rows):
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{str(dtype)[6:]}_rows_{n}"
+            ms = graph_ms(lambda: noise_op(seed, n, VOCAB, dtype=dtype), iters=10)
+            gen = torch.Generator(device=dev).manual_seed(0)
+
+            def library():
+                u = torch.rand(n, VOCAB, generator=gen, device=dev, dtype=dtype)
+                return -torch.log(-torch.log(u))
+
+            lib_ms = cuda_ms(library, iters=5, warmup=1)
+            events_ms = cuda_ms(lambda: noise_op(seed, n, VOCAB, dtype=dtype), iters=5, warmup=1)
+            # the bytes written; its integer Philox and logf work has no
+            # entry in the card's table of peak rates
+            b_ms, b_by = bound(0, n * VOCAB * (2 if dtype == torch.bfloat16 else 4) + 4, PEAK_F32)
+            times[tag] = dict(ms=ms, events_ms=events_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    plain_ms = cuda_ms(lambda: noise_plain(seed, rows, VOCAB, 0, torch.bfloat16), iters=2, warmup=1)
+    main = times[f"bfloat16_rows_{rows}"]
+    ctx["pg"] = dict(
+        max_abs_err=err, max_ulps=worst_ulps, ms=main["ms"], plain_ms=plain_ms, bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"], routes=times,
+    )
+    times_s = "; ".join(
+        f"{tag.replace('_rows_', ' ')} rows {t['ms']:.3f} ms by graph replay ({t['events_ms']:.3f} by events), bound "
+        f"{t['bound_ms']:.3f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.0%} of it, torch.rand + two logs "
+        f"{t['library_ms']:.3f} ms"
+        for tag, t in times.items()
+    )
+    log(
+        f"[k1] philox_gumbel_noise ok: ulps from the plain version {', '.join(checks)} (held <= {GUMBEL_ULPS}), max "
+        f"abs err {err:.3g}; K1 on its f32 output = K1 on the seed ({rows}, {VOCAB}) bf16, ids and probs; "
+        f"{times_s}; plain ({rows}, {VOCAB}) bf16 {plain_ms:.3f} ms | {ctx.get('smi', '')}"
     )
 
 
@@ -972,7 +1080,7 @@ def kernel_total(rows, part):
 
 def phase_generate(torch, ctx):
     from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
-    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample, philox_gumbel_noise
 
     t0 = time.perf_counter()
     maskgit = ctx.get("maskgit") or build_models(torch)
@@ -996,7 +1104,7 @@ def phase_generate(torch, ctx):
     request(100)  # warm-up: cuBLAS / cuDNN choose their algorithms
     t_warm = time.perf_counter() - t0
 
-    counted = (fused_topk_gumbel_sample, qknorm_attend, attend)  # K1, K2, K4
+    counted = (fused_topk_gumbel_sample, qknorm_attend, attend, philox_gumbel_noise)  # K1, K2, K4, the exact noise
     for fn in counted:
         fn.launches = 0
     times, per_request = [], []
@@ -1007,13 +1115,14 @@ def phase_generate(torch, ctx):
         times.append(dt)
         require(tuple(img.shape) == (BATCH, 256, 256, 3), f"image shape {tuple(img.shape)}")
         require(bool(torch.isfinite(img).all()), "non-finite pixels")
-    for k1, k2, k4 in per_request:
+    for k1, k2, k4, pg in per_request:
         require(k1 == STEPS, f"K1 launched {k1} times in a request, expected {STEPS}")
         require(k2 == STEPS * DEPTH * 2, f"K2 launched {k2} times in a request, expected {STEPS * DEPTH * 2}")
         require(k4 == 0, f"K4 launched {k4} times in a request, expected 0")
+        require(pg == 0, f"the exact sampler's noise launched {pg} times in a fused request")
     ctx["k1"]["launches"], ctx["k2"]["launches"] = fused_topk_gumbel_sample.launches, qknorm_attend.launches
     ctx["k1"]["launches_per_request"], ctx["k2"]["launches_per_request"] = per_request[0][:2]
-    ctx["k4_per_request"] = per_request[0][2]
+    ctx["k4_per_request"], ctx["pg_per_request"] = per_request[0][2:]
     img_s = BATCH / statistics.median(times)
 
     with plain_path():
@@ -1025,7 +1134,8 @@ def phase_generate(torch, ctx):
         f"[generate] b{BATCH} T{STEPS} cfg{CFG:g} 256px: {img_s:.3f} img/s (median of "
         f"{', '.join(f'{t * 1000:.1f}' for t in times)} ms) | plain kernels {plain_img_s:.3f} img/s "
         f"({', '.join(f'{t * 1000:.1f}' for t in ptimes)} ms) | K1 +{per_request[0][0]}, "
-        f"K2 +{per_request[0][1]}, K4 +{per_request[0][2]} launches per request | {ctx['smi']} | models built "
+        f"K2 +{per_request[0][1]}, K4 +{per_request[0][2]}, philox_gumbel_noise +{per_request[0][3]} launches per "
+        f"request | {ctx['smi']} | models built "
         f"{t_build:.1f}s, warm-up {t_warm:.1f}s"
     )
 
@@ -1650,7 +1760,7 @@ def phase_tensor(torch, ctx):
 # program (a); EXPORT_LOAD loads that program in a fresh process with the
 # model's entry points made to raise, so that nothing but the saved program
 # can make its images; EXPORT_PART runs (b) (`export_cascade`) in one
-# process and (c)-(e) (`export_others`) in another.
+# process and (c)-(f) (`export_others`) in another.
 EXPORT_LOAD = r"""
 import json, os, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -1660,7 +1770,7 @@ torch.backends.cudnn.allow_tf32 = True  # the caller's flag; the artifact's f32 
 torch.backends.cudnn.deterministic = True  # one algorithm a convolution, as where the images were made
 from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE, load_exported_pipeline
 from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
-from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample, philox_gumbel_noise
 from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
 
 
@@ -1681,7 +1791,7 @@ ep = load_exported_pipeline(folder + "/base")
 load_s = time.perf_counter() - t
 
 
-counted = dict(k1=fused_topk_gumbel_sample, k2=qknorm_attend, k3=nearest_code, k4=attend)
+counted = dict(k1=fused_topk_gumbel_sample, k2=qknorm_attend, k3=nearest_code, k4=attend, pg=philox_gumbel_noise)
 
 
 def request(seed):
@@ -1719,15 +1829,15 @@ class ExportCheck:
     can be held byte for byte: the VAE's transposed convolutions may add in
     any order otherwise)."""
 
-    TAGS = ("k1", "k2", "k3", "k4")
+    TAGS = ("k1", "k2", "k3", "k4", "pg")  # pg: the exact sampler's noise, `philox_gumbel_noise`
 
     def __init__(self, torch):
         from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
-        from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample
+        from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample, philox_gumbel_noise
         from muse_maskgit_pytorch_tpu_torch.ops.vq import nearest_code
 
         self.torch = torch
-        self.counted = (fused_topk_gumbel_sample, qknorm_attend, nearest_code, attend)
+        self.counted = (fused_topk_gumbel_sample, qknorm_attend, nearest_code, attend, philox_gumbel_noise)
         self.launches = dict.fromkeys(self.TAGS, 0)
         self.out = {}
 
@@ -1840,12 +1950,17 @@ def export_cascade(torch) -> dict:
 
 
 def export_others(torch) -> dict:
-    """`[export]` (c)-(e), in a process of their own: (c) per-row guidance
+    """`[export]` (c)-(f), in a process of their own: (c) per-row guidance
     (`dynamic_cond_scale`) on the base model, T cut to 2, against eager's
-    (1, b) tensor; (d) a small EMA-VQ standalone super-res stage, K3 once a
-    call; (e) a toy program exported on the CPU for the card against the
-    same toy exported there. Returns their figures and launches."""
+    (1, b) tensor; (f) the exact sampler (`sampler="xla"`) on the base model
+    at b32 T18 CFG 3, its noise the operator `muse_torch::philox_gumbel`
+    once a step, against eager `generate(sampler="xla")`, and eager rows
+    16..31 under `rows_from(16)` against those rows of the whole batch; (d)
+    a small EMA-VQ standalone super-res stage, K3 once a call; (e) a toy
+    program exported on the CPU for the card against the same toy exported
+    there. Returns their figures and launches."""
     from muse_maskgit_pytorch_tpu_torch import MaskGit, MaskGitTransformer, VQGanVAE, export_pipeline
+    from muse_maskgit_pytorch_tpu_torch.parallel.batch import rows_from
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1862,7 +1977,39 @@ def export_others(torch) -> dict:
         got, _ = check.counting(lambda: ep(base.state_dict(), text, mask, 3, cond_scale=scales))
         want, _ = check.counting(lambda: export_eager(torch, base, text, mask, 3, timesteps=2, cond_scale=scales[None]))
         check.equal(got, want, "(c) per-row scales against eager generate's (1, b) tensor")
-        del ep, base
+        del ep
+
+        # -- (f) the exact sampler at the base cell's width
+        text, mask = export_inputs(torch, BATCH)
+        t = time.perf_counter()
+        ep = export_pipeline(base, batch_size=BATCH, text_len=TEXT_LEN, timesteps=STEPS, cond_scale=CFG, sampler="xla")
+        export_s = time.perf_counter() - t
+        state = base.state_dict()
+        want, eager_launches = check.counting(lambda: export_eager(torch, base, text, mask, 9, sampler="xla"))
+        got, per_request = check.counting(lambda: ep(state, text, mask, 9))
+        check.equal(got, want, "(f) the exact-sampler program against eager generate(sampler='xla')")
+        expected = dict(k1=0, k2=STEPS * DEPTH * 2, k3=0, k4=0, pg=STEPS)
+        require(per_request == eager_launches == expected, f"[export] (f) launches {per_request}, eager {eager_launches}")
+        half = BATCH // 2
+
+        def ids(start):
+            gen = torch.Generator(device="cuda").manual_seed(9)
+            with rows_from(start):
+                return base.generate(
+                    generator=gen, text_embeds=text[start:], text_mask=mask[start:], timesteps=STEPS, cond_scale=CFG,
+                    sampler="xla", return_ids=True,
+                )
+
+        whole, _ = check.counting(lambda: ids(0))
+        part, _ = check.counting(lambda: ids(half))
+        differ = int((part != whole[half:]).sum())
+        require(differ == 0, f"[export] (f) rows {half}..{BATCH - 1} under rows_from({half}): {differ} ids differ")
+        out["exact_sampler"] = dict(
+            batch=BATCH, steps=STEPS, export_s=export_s, nodes=len(ep.program.graph.nodes),
+            launches_per_request=per_request, rows_from=half, rows_from_equal=True,
+        )
+        del ep, base, text, mask
+        text, mask = export_inputs(torch, CAS_BATCH)
 
         # -- (d) a small EMA-VQ standalone super-res stage: K3 encodes its conditioning images
         gen = torch.Generator().manual_seed(3)
@@ -1964,7 +2111,7 @@ def phase_export_no_ops(torch, ctx):
                 fig[name]["first_call_ms"] = check.timed_ms(lambda: loaded[name](state, text, mask, 100))
                 got, per_request = check.counting(lambda: loaded[name](state, text, mask, 7))
                 check.equal(got, want, f"the program {name} the pass")
-                require(per_request == dict(k1=STEPS, k2=STEPS * DEPTH * 2, k3=0, k4=0), f"[export_no_ops] launches {per_request}")
+                require(per_request == dict(k1=STEPS, k2=STEPS * DEPTH * 2, k3=0, k4=0, pg=0), f"[export_no_ops] launches {per_request}")
                 fig[name]["request_ms"] = []
             for i in range(3):
                 for name in ("without", "with"):
@@ -1994,8 +2141,8 @@ def phase_export(torch, ctx):
     an input) on the card, its bytes held against eager code's: (a) the
     base model at b32 T18, exported, saved, and loaded by a fresh process
     whose model entry points raise (EXPORT_LOAD), K1 and K2 launched from
-    the program, img/s beside eager; beside it, in a process of its own,
-    (b)-(e) (`export_rest`)."""
+    the program, img/s beside eager; beside it, (b) and (c)-(f) in
+    processes of their own (`export_cascade`, `export_others`)."""
     import shutil
 
     from muse_maskgit_pytorch_tpu_torch import export_pipeline
@@ -2033,7 +2180,7 @@ def phase_export(torch, ctx):
             check.counting(lambda: ep(state, text, mask, 100))  # warm in this process: the program's module, cuBLAS
             got, per_request = check.counting(lambda: ep(state, text, mask, 7))
             check.equal(got, want, "(a) the artifact in this process")
-            require(per_request == dict(k1=STEPS, k2=STEPS * DEPTH * 2, k3=0, k4=0), f"[export] (a) launches {per_request}")
+            require(per_request == dict(k1=STEPS, k2=STEPS * DEPTH * 2, k3=0, k4=0, pg=0), f"[export] (a) launches {per_request}")
             out["base"]["launches_per_request"] = per_request
 
             stdout, stderr = loader.communicate(timeout=600)
@@ -2046,7 +2193,7 @@ def phase_export(torch, ctx):
             others = []
             for part in parts:
                 stdout, stderr = part.communicate(timeout=900)
-                require(part.returncode == 0, f"[export] (b)-(e) failed:\n{stderr[-3000:]}")
+                require(part.returncode == 0, f"[export] (b)-(f) failed:\n{stderr[-3000:]}")
                 others.append(json.loads(stdout.strip().splitlines()[-1]))
                 out.update(others[-1]["out"])
             # timed last, alone on the card: eager and artifact requests alternating
@@ -2071,7 +2218,7 @@ def phase_export(torch, ctx):
     ctx["export"] = out
     ctx["export_launches"] = launches
     ctx["export_per_request"] = out["base"]["launches_per_request"]
-    b, c, f = out["base"], out["cascade"], out["base"]["fresh_process"]
+    b, c, f, x = out["base"], out["cascade"], out["base"]["fresh_process"], out["exact_sampler"]
     log(
         f"[export] (a) base b{BATCH} T{STEPS} cfg{CFG:g}: export {b['export_s']:.1f} s, {b['nodes']} nodes, save "
         f"{b['save_s']:.1f} s, program.pt2 {b['program_bytes'] / 2**20:.1f} MiB (no parameter inside); a fresh "
@@ -2087,7 +2234,11 @@ def phase_export(torch, ctx):
         f"b), export {out['dynamic_cond_scale']['export_s']:.1f} s | (d) EMA-VQ standalone super-res: equal, K3 "
         f"+{out['ema_vq_superres']['launches_per_request']['k3']} a call | (e) toy exported on the CPU for the card: "
         f"equal to the card's export, K1 +{out['cpu_exported_toy']['launches_per_request']['k1']} K2 "
-        f"+{out['cpu_exported_toy']['launches_per_request']['k2']} | {ctx.get('smi', '')} | {out['phase_s']:.1f} s"
+        f"+{out['cpu_exported_toy']['launches_per_request']['k2']} | (f) sampler=\"xla\" base b{BATCH} T{STEPS}: "
+        f"export {x['export_s']:.1f} s, {x['nodes']} nodes, bytes equal to eager generate(sampler=\"xla\"), "
+        f"philox_gumbel_noise +{x['launches_per_request']['pg']} K2 +{x['launches_per_request']['k2']} K1 "
+        f"+{x['launches_per_request']['k1']} a request; eager rows {x['rows_from']}..{BATCH - 1} under "
+        f"rows_from({x['rows_from']}) equal to the whole batch's | {ctx.get('smi', '')} | {out['phase_s']:.1f} s"
     )
 
 
@@ -2338,6 +2489,15 @@ def phase_parity(torch, ctx):
     # by design (the bisection threshold keeps a few more candidates, and
     # the exact path takes the chosen probability in bf16); printed only
     xla_vs_fused = (generate(maskgit, "xla")() == generate(maskgit)()).float().mean().item()
+    # with no noise injected, both draw K1's stream from the same seeds (the
+    # exact sampler through `philox_gumbel_noise`); printed only
+    def drawn(sampler):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        return maskgit.generate(
+            text_embeds=text, timesteps=STEPS, cond_scale=CFG, sampler=sampler, generator=gen, return_ids=True
+        )
+
+    xla_vs_fused_drawn = (drawn("xla") == drawn("fused")).float().mean().item()
     f32 = build_models(torch, dtype=torch.float32, with_vae=False)
     f32_full = agreement(generate(f32), floors=False)[0]
     del f32, noise
@@ -2433,7 +2593,8 @@ def phase_parity(torch, ctx):
         f"{COND_TOKENS} conditioning tokens) b{sbs}: f32 generate T{STEPS} {sr_f32_full:.4f} (checked >= 0.99), "
         f"bf16 step 0 {sr0:.4f} | {sr_floor0:.4f} | {sr_f64_0:.4f}, bf16 step 9 {sr9:.4f} | {sr_floor9:.4f} | "
         f"{sr_f64_9:.4f} (checked >= floor - 0.01); sampler=\"xla\" vs \"fused\" bf16 generate b{b} "
-        f"T{STEPS}, same noise: {xla_vs_fused:.4f} (printed: they differ by design); sampling surfaces, f32 "
+        f"T{STEPS}, same noise: {xla_vs_fused:.4f} (printed: they differ by design), each drawing its own noise "
+        f"from one seed, K1's stream in both: {xla_vs_fused_drawn:.4f} (printed); sampling surfaces, f32 "
         f"b{sb} T{STEPS}: {surfaces_s} (checked >= 0.99)"
     )
 
@@ -4452,13 +4613,19 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
     import muse_maskgit_pytorch_tpu_torch  # noqa: F401
+    from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import philox_gumbel_noise
 
     ctx = {"k1": {}, "k2": {}, "k3": {}, "k4": {}}
     t_start = time.perf_counter()
     phase_env(torch, ctx)
+    # the exact sampler's noise kernel: its launches in each phase of this
+    # process (`[export]` counts its own processes' launches itself)
+    pg_by_phase = {}
     for name in phases:
         if name != "env":
+            philox_gumbel_noise.launches = 0
             globals()[f"phase_{name}"](torch, ctx)
+            pg_by_phase[name] = philox_gumbel_noise.launches
     log(f"[done] {', '.join(phases)} in {time.perf_counter() - t_start:.1f} s")
     if set(phases) != set(ALL_PHASES):
         return 0  # a subset measures too little for the result lines
@@ -4479,6 +4646,27 @@ def main(argv=None) -> int:
         ctx[tag]["launches_per_export_request"] = ctx["export_per_request"][tag]
         ctx[tag]["launches_per_cascade_request"] = ctx["cascade_per_request"][tag]
         ctx[tag]["launches_per_eval_request"] = ctx["eval_per_request"][tag]
+    # the noise kernel runs on the exact sampler's path only: one decode in
+    # `[parity]` and `[export]` (f); never on a fused path
+    for name in ALL_PHASES:
+        if name not in ("env", "build", "k1", "parity", "export"):
+            require(pg_by_phase[name] == 0, f"[{name}] launched philox_gumbel_noise {pg_by_phase[name]} times")
+    require(pg_by_phase["parity"] == STEPS, f"[parity]'s exact-sampler request launched {pg_by_phase['parity']}")
+    pg = ctx["pg"]
+    pg.update(
+        launches=pg_by_phase["parity"] + ctx["export_launches"]["pg"],
+        launches_per_request=ctx["pg_per_request"],
+        launches_per_exact_sampler_request=ctx["export"]["exact_sampler"]["launches_per_request"]["pg"],
+        launches_per_export_request=ctx["export_per_request"]["pg"],
+        **{
+            key: pg_by_phase[name]
+            for key, name in (
+                ("launches_per_cascade_request", "cascade"), ("launches_per_surface_request", "surfaces"),
+                ("launches_per_serving_batch", "serving"), ("launches_per_train_step", "train"),
+                ("launches_per_gan_step", "gan"), ("launches_per_eval_request", "eval"),
+            )
+        },
+    )
     rows = [
         ("k1", "fused_topk_gumbel_sample", "sampling_kernel.cu", "sampling_kernel.py:57"),
         ("k2", "qknorm_attend", "qknorm_attention.cu", "attention.py:242"),
@@ -4508,6 +4696,13 @@ def main(argv=None) -> int:
         )
         for tag, name, src, tpu in rows
     ]
+    kernels.append(
+        dict(
+            name="philox_gumbel_noise", route="cuda", source="muse_maskgit_pytorch_tpu_torch/csrc/sampling_kernel.cu",
+            # no Pallas kernel: the JAX package's exact sampler draws jax.random.gumbel in XLA
+            replaces="muse_maskgit_pytorch_tpu/utils/sampling.py:48", **pg,
+        )
+    )
     print(
         json.dumps(
             {

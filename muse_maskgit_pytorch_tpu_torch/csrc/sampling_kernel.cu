@@ -17,6 +17,10 @@
 //   5. the first-index argmax of l / max(temp, 1e-10) + g over l >= thresh,
 //      and prob = exp(l[idx] - lse).
 //
+// A second entry point, `muse_philox_gumbel_launch`, writes the noise of
+// step 4 out as a (rows, V) array, for the exact sampler (see
+// `philox_gumbel_kernel` at the end of the file).
+//
 // What bounds it on the H100. By bytes, the main path's step 0 (32*256 rows x
 // 65536 bf16 = 1.07 GB, read once from HBM) needs 0.32 ms at 3.35 TB/s: 5.2 us
 // a row for each of the 132 SMs. The kernel takes about 1.1 ms there (NVIDIA
@@ -833,9 +837,76 @@ cudaError_t dispatch_global(bool pair, int V, bool aligned, bool has_noise, Args
               : dispatch_noise<T, GlobalRow<T, false, 1>>(has_noise, args...);
 }
 
+// -- the exact sampler's noise: K1's stream, written out ------------------------
+//
+// out[r, c] = bits_to_gumbel(word c % 4 of philox4x32_10(c / 4, seed,
+// row_offset + r)), rounded once to T: at every (row, column) the noise that
+// K1 draws inside its body. It replaces no TPU kernel (the JAX package's
+// exact sampler draws `jax.random.gumbel` in XLA); `sampler="xla"` reads it
+// so that its noise lives on the device, keyed on the global row, and a
+// traced program can hold it. One thread a Philox call, four columns, stored
+// as one 16-byte (f32) or 8-byte (bf16) write where V % 4 == 0. What bounds
+// it on the H100: not the bytes written (0.32 ms for (8192, 65536) bf16 at
+// 3.35 TB/s) but the instructions, some 20 a value for Philox and two IEEE
+// logf (this file is built without fast math, so the values are the plain
+// version's and K1's bit for bit).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(256)
+philox_gumbel_kernel(const int* __restrict__ seed_ptr, T* __restrict__ out, int rows, int V, int row_offset) {
+  const int groups = (V + 3) >> 2;
+  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gi >= groups) return;
+  const uint32_t seed = (uint32_t)seed_ptr[0];
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const uint4 b = philox4x32_10((uint32_t)gi, seed, (uint32_t)(row_offset + row));
+    const float g0 = bits_to_gumbel(b.x), g1 = bits_to_gumbel(b.y), g2 = bits_to_gumbel(b.z), g3 = bits_to_gumbel(b.w);
+    T* dst = out + (size_t)row * V + 4 * (size_t)gi;
+    if constexpr (VEC && sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(g0, g1, g2, g3);
+    } else if constexpr (VEC) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(g0, g1), hi = __floats2bfloat162_rn(g2, g3);
+      uint2 w;
+      w.x = *reinterpret_cast<const uint32_t*>(&lo);
+      w.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(dst) = w;
+    } else {
+      const float g[4] = {g0, g1, g2, g3};
+      const int c0 = 4 * gi;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j < V) {
+          if constexpr (sizeof(T) == 4) dst[j] = g[j]; else dst[j] = __float2bfloat16_rn(g[j]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_gumbel(const void* seed, void* out, int rows, int V, int row_offset, cudaStream_t stream) {
+  const int groups = (V + 3) / 4;
+  const dim3 block(256);
+  const dim3 grid((groups + 255) / 256, rows < 65535 ? rows : 65535);
+  const bool vec = V % 4 == 0 && reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0;
+  if (vec)
+    philox_gumbel_kernel<T, true><<<grid, block, 0, stream>>>(static_cast<const int*>(seed), static_cast<T*>(out), rows, V, row_offset);
+  else
+    philox_gumbel_kernel<T, false><<<grid, block, 0, stream>>>(static_cast<const int*>(seed), static_cast<T*>(out), rows, V, row_offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// seed: one int32 in device memory; out: (rows, V), dtype 0 = f32, 1 = bf16.
+// Returns cudaGetLastError().
+int muse_philox_gumbel_launch(const void* seed, void* out, int rows, int V, int row_offset, int dtype, void* stream) {
+  if (rows <= 0 || V <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_gumbel<__nv_bfloat16>(seed, out, rows, V, row_offset, s)
+                    : launch_gumbel<float>(seed, out, rows, V, row_offset, s);
+}
 
 // logits: (rows, V), or (2 * rows, V) cond rows then null rows when
 // cfg_pair; dtype 0 = f32, 1 = bf16. noise: (rows, V) f32 or null. seed: one

@@ -18,7 +18,7 @@ tensor of per-step sampler seeds drawn from the caller's `torch.Generator`
 Each step attends with K2 through the transformer and samples with K1
 (`ops.sampling_kernel.fused_topk_gumbel_sample`, the JAX package's
 `sampler="fused"`) or, with `sampler="xla"`, by the exact `top_k` filter in
-plain PyTorch.
+plain PyTorch on K1's noise stream written out (`philox_gumbel_noise`).
 
 `MaskGit.forward` is the training objective (the JAX `MaskGit.__call__`):
 the masked-token cross entropy, plus a token critic's binary cross entropy.
@@ -43,7 +43,11 @@ from torch import nn
 
 from muse_maskgit_pytorch_tpu_torch.models.transformer import MaskGitTransformer, SelfCritic, TokenCritic
 from muse_maskgit_pytorch_tpu_torch.models.vqgan_vae import VQGanVAE, _strip_towers
-from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample, philox_uniform
+from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import (
+    fused_topk_gumbel_sample,
+    philox_gumbel_noise,
+    philox_uniform,
+)
 from muse_maskgit_pytorch_tpu_torch.parallel.batch import row_offset, rows_from
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.images import to_pil_images
@@ -555,8 +559,10 @@ class MaskGit(nn.Module):
         "xla" with injected noise, as in the JAX package, and "fused"
         otherwise: the JAX package's vocabulary threshold was measured on a
         TPU, this package measured none, so without injected noise "auto" is
-        always K1. "xla" draws each step's noise from a generator seeded
-        with that step's seed.
+        always K1. Both draw the same noise: Philox4x32-10 keyed on (the
+        step's seed, the global row of the (b, positions) logits), on the
+        device (`ops.sampling_kernel.philox_gumbel_noise` for "xla"), in the
+        logits' dtype for "xla" as the JAX package draws it.
 
         `cond_scale`: a python number (constant guidance), a `(start, end)`
         ramp over the steps, or a tensor (numpy array): a scalar, (T,) per
@@ -595,10 +601,9 @@ class MaskGit(nn.Module):
 
         Under `parallel.batch.rows_from(start)` these rows are rows `start
         ...` of a global batch that other processes decode the rest of from
-        the same `generator` (data-parallel serving): K1 and a critic's noise
-        key on the global row, so each row samples what it would in the
-        whole batch. The "xla" sampler draws per call, so it refuses a
-        nonzero start."""
+        the same `generator` (data-parallel serving): both samplers and a
+        critic's noise key on the global row, so each row samples what it
+        would in the whole batch."""
         del attn_impl
         if sampler not in ("auto", "fused", "xla"):
             raise ValueError(f"sampler must be 'auto', 'fused' or 'xla', got {sampler!r}")
@@ -670,13 +675,6 @@ class MaskGit(nn.Module):
             injected_gumbel_noise = injected_gumbel_noise.to(device)
         critic_noise_scale = critic_noise_scale if use_critic else 0.0
         first_row = row_offset()
-        if first_row and sampler != "fused":
-            raise ValueError(
-                "rows_from keys K1's noise on the global row; the 'xla' sampler draws per call: decode such a "
-                "batch whole"
-            )
-        # the one host read of this path, before the loop: a generator per step
-        host_seeds = seeds.tolist() if sampler == "xla" and injected_gumbel_noise is None else None
 
         ids = self._decode(
             text_embeds=text_embeds,
@@ -685,7 +683,6 @@ class MaskGit(nn.Module):
             cond_ids=cond_ids,
             grid=(fh, fw),
             seeds=seeds,
-            host_seeds=host_seeds,
             step_kb=step_kb,
             noise=injected_gumbel_noise,
             temperature=temperature,
@@ -708,7 +705,7 @@ class MaskGit(nn.Module):
         return self.vae.decode_from_ids(ids)
 
     def _decode(
-        self, *, text_embeds, text_mask, neg_text_embeds, cond_ids, grid, seeds, host_seeds, step_kb, noise,
+        self, *, text_embeds, text_mask, neg_text_embeds, cond_ids, grid, seeds, step_kb, noise,
         temperature, cond_scale, scales, topk_filter_thres, cfg_fold, null_fold, sampler, can_remask,
         use_critic, critic_noise_scale, known_ids, known_mask, progress, row_offset=0,
     ) -> torch.Tensor:
@@ -798,7 +795,6 @@ class MaskGit(nn.Module):
             step_scale = scales[i] if scheduled else cond_scale
             count = int(counts[i])
             g = noise[i] if noise is not None else None
-            gen = torch.Generator(device=device).manual_seed(host_seeds[i]) if host_seeds is not None else None
             if kb is None:
                 # full body: remask the least-confident positions
                 budgets = count
@@ -863,7 +859,10 @@ class MaskGit(nn.Module):
                     safe_temp = torch.full((), max(float(temps[i]), 1e-10), device=device)
                     pred = first_argmax(filtered.float() / safe_temp + g)
                 else:
-                    pred = gumbel_sample(filtered, float(temps[i]), gen)
+                    # K1's stream, keyed as K1 keys it: the flattened (b,
+                    # npos) rows from the global row_offset * npos
+                    g = philox_gumbel_noise(seeds[i : i + 1], b * npos, vocab, row_offset * npos, logits.dtype)
+                    pred = gumbel_sample(filtered, float(temps[i]), noise=g.reshape(b, npos, vocab))
                 # the softmax in the logits' own dtype, as the JAX package takes it
                 prob = torch.softmax(logits, dim=-1).gather(-1, pred[..., None])[..., 0].float()
 

@@ -27,6 +27,11 @@ where a row's clocks go.
 (`ops/_library.py`): it launches the kernel for CUDA tensors and runs
 `fused_topk_gumbel_sample_plain` (the same function in plain PyTorch, with
 the same arguments) for CPU tensors.
+
+`philox_gumbel_noise` is the operator `muse_torch::philox_gumbel`: K1's
+noise stream written out as a (rows, V) array by a second kernel of the same
+source, for the exact sampler (`sampler="xla"`), so that both samplers draw
+the same noise at any (row, column).
 """
 
 from __future__ import annotations
@@ -214,6 +219,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.muse_sample_error_string.argtypes = [ctypes.c_int]
         lib.muse_sample_error_string.restype = ctypes.c_char_p
+        lib.muse_philox_gumbel_launch.argtypes = [p, p, i, i, i, i, p]
+        lib.muse_philox_gumbel_launch.restype = ctypes.c_int
     return lib
 
 
@@ -388,3 +395,87 @@ def fused_topk_gumbel_sample(
 
 
 fused_topk_gumbel_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the exact sampler's noise: K1's stream written out
+# ---------------------------------------------------------------------------
+
+
+def philox_gumbel_noise_plain(
+    seed: torch.Tensor, rows: int, V: int, row_offset: int = 0, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Plain version of `philox_gumbel_noise`: `philox_gumbel` on the
+    seed's device, rounded once to `dtype`."""
+    return philox_gumbel(seed.reshape(-1)[0], rows, V, device=seed.device, row_offset=row_offset).to(dtype)
+
+
+def _gumbel_check(seed, rows, V, row_offset, dtype):
+    """The noise kernel's contract on the card, checked at every launch."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"philox_gumbel_noise: dtype must be f32 or bf16, got {dtype}")
+    if seed.dtype != torch.int32 or seed.numel() != 1:
+        raise ValueError("philox_gumbel_noise: seed must be a one-element int32 tensor")
+    if rows <= 0 or V <= 0:
+        raise ValueError(f"philox_gumbel_noise: rows and V must be positive, got ({rows}, {V})")
+    if row_offset < 0 or row_offset + rows > 2**31 - 1:
+        raise ValueError(f"philox_gumbel_noise: rows [{row_offset}, {row_offset + rows}) outside [0, 2^31 - 1)")
+    if seed.device.type != "cuda":
+        raise ValueError("philox_gumbel_noise: the kernel takes its seed on a CUDA device")
+
+
+def _gumbel_cpu(seed, rows, V, row_offset, dtype):
+    return philox_gumbel_noise_plain(seed, rows, V, row_offset, dtype)
+
+
+def _gumbel_cuda(seed, rows, V, row_offset, dtype):
+    """Launch the noise kernel, checked by `_gumbel_check`."""
+    _gumbel_check(seed, rows, V, row_offset, dtype)
+    out = torch.empty(rows, V, dtype=dtype, device=seed.device)
+    lib = _lib()
+    err = lib.muse_philox_gumbel_launch(
+        seed.reshape(1).contiguous().data_ptr(),
+        out.data_ptr(),
+        rows,
+        V,
+        row_offset,
+        1 if dtype == torch.bfloat16 else 0,
+        torch.cuda.current_stream(seed.device).cuda_stream,
+    )
+    _build.check(lib.muse_sample_error_string, err, "philox_gumbel_noise")
+    philox_gumbel_noise.launches += 1
+    return out
+
+
+def _gumbel_fake(seed, rows, V, row_offset, dtype):
+    return seed.new_empty((rows, V), dtype=dtype)
+
+
+_gumbel_op = _library.define(
+    "philox_gumbel(Tensor seed, int rows, int V, int row_offset, ScalarType dtype) -> Tensor",
+    _gumbel_cpu,
+    _gumbel_cuda,
+    _gumbel_fake,
+)
+
+
+def philox_gumbel_noise(
+    seed: torch.Tensor, rows: int, V: int, row_offset: int = 0, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(rows, V) gumbel noise of K1's stream on the seed's device: at each
+    (row, column) the value that K1 draws there with the same seed and
+    `row_offset` (Philox4x32-10 keyed on (seed, row_offset + row), counter
+    column // 4, word column % 4, then -log(-log(u))), rounded once to
+    `dtype` (f32 or bf16). seed: a one-element int32 tensor, read where it
+    lies, so the host never waits and a traced program keeps it an input.
+
+    The call is the operator `muse_torch::philox_gumbel` (`ops/_library.py`):
+    the kernel `philox_gumbel_kernel` of `csrc/sampling_kernel.cu` on a CUDA
+    seed, which counts its launches in `philox_gumbel_noise.launches`, and
+    `philox_gumbel_noise_plain` on a CPU one."""
+    if seed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"philox_gumbel_noise: unsupported device {seed.device}")
+    return _gumbel_op(seed, int(rows), int(V), int(row_offset), dtype)
+
+
+philox_gumbel_noise.launches = 0

@@ -25,8 +25,9 @@ same rows together.
 a whole `Muse` cascade, through the uint8 quantisation) once with
 `torch.export` into an `ExportedPipeline`: a program that `save` writes and
 `load_exported_pipeline` reads back without the model classes, its
-parameters passed in at each call. K1, K2 and K3 are PyTorch operators in
-it (`ops/_library.py`), so the program launches the kernels on the card.
+parameters passed in at each call. K1, K2, K3 and the exact sampler's
+noise are PyTorch operators in it (`ops/_library.py`), so the program
+launches the kernels on the card.
 
 Not ported: the persistent compile cache (nothing to cache: the kernels are
 built once per checkout, `ops/_build.py`).
@@ -497,9 +498,9 @@ class ExportedPipeline:
     `MaskGit` or a `Muse` cascade: the decode loop, the samplers, the VAE
     decode and the uint8 quantisation on the device) once with
     `torch.export` into an `ExportedProgram`. A serving host needs only
-    PyTorch, this package's operators (`ops/_library.py`: K1, K2 and K3,
-    built at their first use), the saved program and the parameters: no
-    tracing and no model classes.
+    PyTorch, this package's operators (`ops/_library.py`: K1, K2, K3 and
+    the exact sampler's noise, built at their first use), the saved
+    program and the parameters: no tracing and no model classes.
 
     The parameters travel outside the program, as the flat list of the
     model's `state_dict()` values in order: the program holds none of them.
@@ -668,19 +669,13 @@ def export_pipeline(
 
     `cond_via` ("auto", "pixels" or "ids") is a cascade's hand-off between
     its stages, resolved here as `GeneratePipeline(cond_via=)` resolves it.
-    `sampler="xla"` is refused: it draws each step's noise from a host
-    generator seeded by a host read of the seeds, which a traced program
-    cannot hold; its noise made on the device instead is the plain Philox
-    over every logit, about 317 ms a step at (8192, 65536) on an H100.
+    `sampler` is `generate`'s: "auto" (K1, as no noise is injected here),
+    "fused" (K1) or "xla", the exact sampler, whose noise is the operator
+    `muse_torch::philox_gumbel` reading its step's seed from the seeds
+    input, so that program too makes no host read and equals eager code.
     """
     if sampler not in ("auto", "fused", "xla"):
         raise ValueError(f"sampler must be 'auto', 'fused' or 'xla', got {sampler!r}")
-    if sampler == "xla":
-        raise ValueError(
-            "sampler='xla' draws its noise from host generators seeded by a host read of the seeds, which an "
-            "exported program cannot hold (the plain Philox over the logits on the device takes about 317 ms a "
-            "step at (8192, 65536) on an H100): export sampler='fused' (K1)"
-        )
     if cond_via not in ("auto", "pixels", "ids"):
         raise ValueError(f"cond_via must be auto/pixels/ids, got {cond_via!r}")
     is_cascade = isinstance(model, Muse)

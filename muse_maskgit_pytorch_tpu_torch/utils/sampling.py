@@ -47,6 +47,9 @@ def linear_schedule(t):
     return 1.0 - t
 
 
+NOISE_SCHEDULES = {"cosine": cosine_schedule, "linear": linear_schedule}
+
+
 def step_times(timesteps: int, jitted: bool = True) -> np.ndarray:
     """float32 step times t_i of `jnp.linspace(0.0, 1.0, timesteps)`:
     as the jitted decode scan computes them (`i * (1 / (T - 1))`), or as an

@@ -671,6 +671,54 @@ def test_sampler_row_offset(dev):
     assert (idx_off == pidx_off).float().mean().item() >= 0.95
 
 
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between a and b in units in the last place of
+    their dtype (f32 or bf16), over floats mapped to ordered integers."""
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+
+    def ordered(x):
+        i = x.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & (2 ** (8 * x.element_size() - 1) - 1)), i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+# the exact sampler's noise kernel and its plain version: the same Philox
+# bits, then logf (built without fast math) against torch.log, which are
+# expected to agree bit for bit on the card; held at 2 ulps of the dtype
+GUMBEL_ULPS = 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows, V, offset", [(37, 1001, 37), (8192, 65536, 0)])
+def test_philox_gumbel_noise_matches_plain(dev, dtype, rows, V, offset):
+    seed = torch.tensor([20240], dtype=torch.int32, device=dev)
+    before = sampling_kernel.philox_gumbel_noise.launches
+    got = sampling_kernel.philox_gumbel_noise(seed, rows, V, row_offset=offset, dtype=dtype)
+    want = sampling_kernel.philox_gumbel_noise_plain(seed, rows, V, offset, dtype)
+    torch.cuda.synchronize()
+    assert sampling_kernel.philox_gumbel_noise.launches == before + 1
+    assert got.dtype == dtype and got.shape == (rows, V) and bool(torch.isfinite(got).all())
+    assert _ulps(got, want) <= GUMBEL_ULPS
+    # the rows of a data-parallel rank are those rows of the whole
+    part = sampling_kernel.philox_gumbel_noise(seed, rows - 5, V, row_offset=offset + 5, dtype=dtype)
+    assert torch.equal(part, got[5:])
+
+
+@pytest.mark.parametrize("rows, V", [(37, 1001), (8192, 65536)])
+def test_sampler_with_the_noise_kernel_equals_its_own_stream(dev, rows, V):
+    """K1 given the noise kernel's f32 output draws what K1 keyed on the
+    same seed draws: the same noise at every (row, column)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    logits = (torch.randn(rows, V, generator=g, device=dev) * 3).to(torch.bfloat16)
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    k = max(V // 10, 1)
+    noise = sampling_kernel.philox_gumbel_noise(seed, rows, V, row_offset=11)
+    idx, prob = sampling_kernel.fused_topk_gumbel_sample(logits, k, 0.9, seed, row_offset=11)
+    nidx, nprob = sampling_kernel.fused_topk_gumbel_sample(logits, k, 0.9, seed, noise=noise)
+    assert torch.equal(idx, nidx) and torch.equal(prob, nprob)
+
+
 @pytest.fixture
 def nccl_group(dev):
     """A process group of one NCCL rank on 127.0.0.1, destroyed after."""

@@ -3,10 +3,10 @@
 (dim 32, depth 2, seq 16, vocab 256, T 2):
 
   * against the JAX package's `export_pipeline` with the same weights
-    (bridged, `to_jax_state`) at `temperature=1e-6`, where the noise cannot choose a token:
-    the uint8 images within one level, `meta` equal but for `platforms` and
-    `n_state_leaves`;
-  * against the port's eager `generate`, for a `MaskGit`, a `Muse` cascade
+    (bridged, `to_jax_state`) at `temperature=1e-6`, where the noise cannot choose a token,
+    with K1 and with the exact sampler (`sampler="xla"`): the uint8 images
+    within one level, `meta` equal but for `platforms` and `n_state_leaves`;
+  * against the port's eager `generate`, for a `MaskGit` with either sampler, a `Muse` cascade
     handing over pixels and ids, per-row guidance, a standalone super-res
     stage and a token critic with its noise on (device-keyed Philox, also
     under `rows_from`): byte-equal in this process, and after `save` and a
@@ -14,9 +14,10 @@
     program input, so the images are byte-equal across the file). That
     process is started with the module and loads each artifact as its test
     saves it, beside the tests that follow;
-  * the graph: K1 and K2 as `muse_torch` operators, no `aten.randint`, no
-    parameter inside; the operators' CUDA implementations hold their
-    kernels' contract themselves.
+  * the graph: K1 (or the exact sampler's noise) and K2 as `muse_torch`
+    operators, no `aten.rand` or `aten.randint`, no parameter inside; the
+    operators' CUDA implementations hold their kernels' contract
+    themselves.
 """
 
 import json
@@ -189,13 +190,29 @@ def base(fresh):
     return _artifact(fresh, "base", make)
 
 
+@pytest.fixture(scope="module")
+def base_xla(base, fresh):
+    """`base`'s model exported with the exact sampler."""
+
+    def make():
+        model = base[0]
+        ep = export_pipeline(model, batch_size=B, text_len=L, timesteps=T, sampler="xla")
+        want = _eager(model, 11, sampler="xla")
+        fresh.submit("base-xla", ep, model.state_dict(), 11, want)
+        return model, ep, want
+
+    return _artifact(fresh, "base-xla", make)
+
+
 # -- (a) against the JAX package's artifact --------------------------------------
 
 
-def test_images_and_meta_match_jax_export():
-    # the JAX model is built abstractly and takes the port's weights through
-    # the bridge's inverse (`to_jax_state`): a random init of it on the CPU
-    # dispatches op by op and takes about 15 s here
+@pytest.fixture(scope="module")
+def jax_pair():
+    """The port's toy and the JAX package's with its weights. The JAX model
+    is built abstractly and takes the port's weights through the bridge's
+    inverse (`to_jax_state`): a random init of it on the CPU dispatches op
+    by op and takes about 15 s here."""
     pm = _maskgit()
 
     def build():
@@ -205,8 +222,13 @@ def test_images_and_meta_match_jax_export():
 
     graphdef, state = nnx.split(nnx.eval_shape(build))
     state.replace_by_pure_dict(to_jax_state(pm))
-    jm = nnx.merge(graphdef, state)
-    kw = dict(batch_size=B, text_len=L, timesteps=T, cond_scale=3.0, temperature=1e-6)
+    return pm, nnx.merge(graphdef, state)
+
+
+@pytest.mark.parametrize("sampler", ["auto", "xla"])
+def test_images_and_meta_match_jax_export(sampler, jax_pair):
+    pm, jm = jax_pair
+    kw = dict(batch_size=B, text_len=L, timesteps=T, cond_scale=3.0, temperature=1e-6, sampler=sampler)
     jep, pep = jax_export_pipeline(jm, **kw), export_pipeline(pm, **kw)
     te, tm = _inputs()
     want = np.asarray(jep(nnx.split(jm)[1], jnp.asarray(te.numpy()), jnp.asarray(tm.numpy()), jax.random.PRNGKey(3)))
@@ -216,6 +238,7 @@ def test_images_and_meta_match_jax_export():
     skip = {"platforms", "n_state_leaves"}
     assert {k: v for k, v in pep.meta.items() if k not in skip} == {k: v for k, v in jep.meta.items() if k not in skip}
     assert pep.meta["platforms"] == ["cpu"] and pep.meta["n_state_leaves"] == len(pm.state_dict())
+    assert pep.meta["sampler"] == sampler
 
 
 # -- (b) byte-equal to eager code across save and load -------------------------------
@@ -235,6 +258,18 @@ def test_artifact_equals_eager_generate_after_save_and_load(base, fresh):
     # no parameter inside: the file is a fraction of the state's bytes
     state_bytes = sum(t.numel() * t.element_size() for t in state.values())
     assert (fresh.folder / "base" / "program.pt2").stat().st_size < state_bytes
+
+
+def test_exact_sampler_artifact_equals_eager_generate(base_xla):
+    """`sampler="xla"`: its noise is `muse_torch::philox_gumbel` on the
+    seeds input, so the program equals eager `generate(sampler="xla")`
+    byte for byte; the fresh process's load is
+    `test_load_in_a_fresh_process_without_the_model_code[base-xla]`."""
+    model, ep, want = base_xla
+    te, tm = _inputs()
+    state = model.state_dict()
+    assert ep.meta["sampler"] == "xla" and torch.equal(ep(state, te, tm, 11), want)
+    assert not torch.equal(ep(state, te, tm, 12), want)  # the seeds reach the noise
 
 
 # -- (c) the cascade in both hand-offs ------------------------------------------------
@@ -340,8 +375,6 @@ def test_errors(base):
         ep(leaves[:-1], te, tm, 0)
     with pytest.raises(ValueError, match="takes none"):
         ep(leaves, te, tm, 0, cond_images=torch.zeros(B, 16, 16, 3))
-    with pytest.raises(ValueError, match="xla"):
-        export_pipeline(model, batch_size=B, text_len=L, timesteps=T, sampler="xla")
     with pytest.raises(ValueError, match="platforms"):
         export_pipeline(model, batch_size=B, text_len=L, timesteps=T, platforms=("tpu",))
 
@@ -360,10 +393,13 @@ def test_standalone_superres_takes_cond_images():
 # -- (f) what the graph holds -------------------------------------------------------------
 
 
-def test_graph_holds_the_operators_and_no_parameter(base):
-    _, ep, _ = base
+@pytest.mark.parametrize("name", ["base", "base-xla"])
+def test_graph_holds_the_operators_and_no_parameter(name, request):
+    _, ep, _ = request.getfixturevalue(name.replace("-", "_"))
     targets = [str(n.target) for n in ep.program.graph.nodes if n.op == "call_function"]
-    assert targets.count("muse_torch.fused_topk_gumbel_sample.default") == T
+    exact = name == "base-xla"  # K1, or the exact sampler's noise, once a step
+    assert targets.count("muse_torch.fused_topk_gumbel_sample.default") == (0 if exact else T)
+    assert targets.count("muse_torch.philox_gumbel.default") == (T if exact else 0)
     assert targets.count("muse_torch.qknorm_attend.default") == T * 2 * 2  # steps x depth x (self, cross)
     assert not [t for t in targets if "rand" in t]  # the randomness is the seeds input
     kinds = {s.kind.name for s in ep.program.graph_signature.input_specs}
@@ -411,14 +447,28 @@ def _bad_k3():
     ]
 
 
+def _bad_gumbel():
+    seed = torch.zeros(1, dtype=torch.int32)
+    return [
+        (TypeError, "f32 or bf16", (seed, 4, 64, 0, torch.float16)),
+        (ValueError, "one-element int32", (seed.long(), 4, 64, 0, torch.float32)),
+        (ValueError, "one-element int32", (torch.zeros(2, dtype=torch.int32), 4, 64, 0, torch.float32)),
+        (ValueError, "positive", (seed, 0, 64, 0, torch.float32)),
+        (ValueError, "positive", (seed, 4, 0, 0, torch.float32)),
+        (ValueError, "outside", (seed, 4, 64, -1, torch.float32)),
+        (ValueError, "CUDA", (seed, 4, 64, 0, torch.bfloat16)),
+    ]
+
+
 @pytest.mark.parametrize(
     "launch, cases",
     [
         (lambda: sampling_kernel._sample_cuda, _bad_k1),
         (lambda: attention._qknorm_cuda, _bad_k2),
         (lambda: vq._nearest_cuda, _bad_k3),
+        (lambda: sampling_kernel._gumbel_cuda, _bad_gumbel),
     ],
-    ids=["k1", "k2", "k3"],
+    ids=["k1", "k2", "k3", "philox_gumbel"],
 )
 def test_cuda_implementations_check_their_arguments(launch, cases):
     """A program reaches each kernel through the operator's CUDA
@@ -435,7 +485,7 @@ def test_cuda_implementations_check_their_arguments(launch, cases):
 # -- (g) each saved artifact loaded without the model classes --------------------------
 
 
-@pytest.mark.parametrize("name", ["base", "cascade-pixels", "cascade-auto", "critic"])
+@pytest.mark.parametrize("name", ["base", "base-xla", "cascade-pixels", "cascade-auto", "critic"])
 def test_load_in_a_fresh_process_without_the_model_code(name, fresh, request):
     """The fresh process loaded the artifact with `MaskGit.generate`,
     `MaskGitTransformer.forward`, `TokenCritic.forward` and
@@ -445,7 +495,7 @@ def test_load_in_a_fresh_process_without_the_model_code(name, fresh, request):
     if name.startswith("cascade"):
         _cascade(fresh, name.split("-")[1])
     else:
-        request.getfixturevalue("critic_artifact" if name == "critic" else "base")
+        request.getfixturevalue({"critic": "critic_artifact", "base-xla": "base_xla"}.get(name, "base"))
     _, ep, _ = fresh.artifacts[name]
     result = fresh.result(name)
     assert "error" not in result, result.get("error")

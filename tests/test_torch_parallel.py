@@ -362,13 +362,22 @@ def test_philox_row_offset_is_the_global_rows():
     assert torch.equal(idx_off, idx[5:]) and torch.equal(prob_off, prob[5:])
 
 
-def test_generate_row_offset_refuses_per_call_noise():
+def test_generate_row_offset_xla_sampler_equals_the_whole_batch():
+    """The exact sampler's noise is K1's stream keyed on the global row
+    (`philox_gumbel_noise`): rows 2-3 decoded under `rows_from(2)` are rows
+    2-3 of the whole batch of 4, through the compact steps too."""
     from muse_maskgit_pytorch_tpu_torch.parallel.batch import rows_from
 
     model = workers.pipeline_model()
-    te, tm = workers.generate_inputs(2)
-    with rows_from(2), pytest.raises(ValueError, match="rows_from"):
-        model.generate(text_embeds=te, text_mask=tm, timesteps=2, sampler="xla")
+    te, tm = workers.generate_inputs(4)
+    kw = dict(timesteps=4, sampler="xla", return_ids=True)
+    whole = model.generate(generator=torch.Generator().manual_seed(6), text_embeds=te, text_mask=tm, **kw)
+    with rows_from(2):
+        part = model.generate(generator=torch.Generator().manual_seed(6), text_embeds=te[2:], text_mask=tm[2:], **kw)
+    assert torch.equal(part, whole[2:])
+    # the rows' own noise: decoded as a batch of their own, they differ
+    alone = model.generate(generator=torch.Generator().manual_seed(6), text_embeds=te[2:], text_mask=tm[2:], **kw)
+    assert not torch.equal(alone, whole[2:])
 
 
 def test_loss_denominator_and_draw_rows():
