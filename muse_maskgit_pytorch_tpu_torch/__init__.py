@@ -25,7 +25,10 @@ serving over a `torch.distributed` process group (`parallel`: the JAX
 package's mesh functions, both trainers' `mesh=` / `shard_state=`,
 `GeneratePipeline(mesh=)`); and the deployable generate program
 (`export_pipeline`, `ExportedPipeline`, `load_exported_pipeline`:
-`torch.export` with the kernels as operators). The example command lines are
+`torch.export` with the kernels as operators). A `torch.profiler` trace of
+the generate and train paths (`utils.metrics.profile_trace`, a benchmark's
+traced run) carries their `muse.*` spans (`utils.metrics.span`), listed in
+`PERF.md`, section 3. The example command lines are
 `muse_maskgit_pytorch_tpu_torch.examples.<name>`, each run with
 `python -m`. Their four hand-written CUDA kernels (`ops.sampling_kernel`,
 `ops.attention`, `ops.vq`) are built from `csrc/` on first use. The public

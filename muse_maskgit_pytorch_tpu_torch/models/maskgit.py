@@ -51,6 +51,7 @@ from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import (
 from muse_maskgit_pytorch_tpu_torch.parallel.batch import row_offset, rows_from
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.images import to_pil_images
+from muse_maskgit_pytorch_tpu_torch.utils.metrics import span
 from muse_maskgit_pytorch_tpu_torch.utils.sampling import (
     batch_random_mask,
     cosine_schedule,
@@ -409,7 +410,7 @@ class MaskGit(nn.Module):
         self_cond_embed = None
         if self.transformer.self_cond:
             if float(draws.self_cond_u) < self.self_cond_prob:
-                with torch.no_grad():
+                with torch.no_grad(), span("muse.self_cond"):
                     _, self_cond_embed = self.transformer(
                         x, text_embeds=text_embeds, text_mask=text_mask, conditioning_token_ids=cond_token_ids,
                         pos_grid=pos_grid, skip_head=True,
@@ -702,7 +703,8 @@ class MaskGit(nn.Module):
         ).reshape(-1, fh, fw)
         if return_ids or not exists(self.vae):
             return ids
-        return self.vae.decode_from_ids(ids)
+        with span("muse.vae_decode"):
+            return self.vae.decode_from_ids(ids)
 
     def _decode(
         self, *, text_embeds, text_mask, neg_text_embeds, cond_ids, grid, seeds, step_kb, noise,
@@ -733,46 +735,47 @@ class MaskGit(nn.Module):
         # step: its K/V are projected once. With a negative prompt the two
         # CFG halves attend different texts, padded to one length, and the
         # cache holds both
-        neg_text_mask = None
-        if neg_text_embeds is not None:
-            ctx_kv, (text_embeds, text_mask), (neg_text_embeds, neg_text_mask) = (
-                transformer.precompute_context_kv_neg(
-                    text_embeds=text_embeds, neg_text_embeds=neg_text_embeds, text_mask=text_mask,
-                    conditioning_token_ids=cond_ids,
-                )
-            )
-            demask = functools.partial(
-                transformer.forward_with_neg_prompt, neg_text_embeds=neg_text_embeds, neg_text_mask=neg_text_mask
-            )
-        else:
-            demask = transformer.forward_with_cond_scale
-            ctx_kv = transformer.precompute_context_kv(
-                text_embeds=text_embeds, conditioning_token_ids=cond_ids
-            )
-            if cfg_on:
-                ctx_kv = _double_ctx_kv(ctx_kv)
-
-        if use_critic:
-            critic = self.token_critic
-            # a SelfCritic runs the generator's own trunk: it shares its cache
+        with span("muse.context_kv"):
+            neg_text_mask = None
             if neg_text_embeds is not None:
-                critic_fn = functools.partial(
-                    critic.forward_with_neg_prompt, neg_text_embeds=neg_text_embeds, neg_text_mask=neg_text_mask
-                )
-                critic_kv = ctx_kv if isinstance(critic, SelfCritic) else critic.precompute_context_kv_neg(
-                    text_embeds=text_embeds, neg_text_embeds=neg_text_embeds, text_mask=text_mask,
-                    neg_text_mask=neg_text_mask, conditioning_token_ids=cond_ids,
-                )[0]
-            else:
-                critic_fn = critic.forward_with_cond_scale
-                if isinstance(critic, SelfCritic):
-                    critic_kv = ctx_kv
-                else:
-                    critic_kv = critic.precompute_context_kv(
-                        text_embeds=text_embeds, conditioning_token_ids=cond_ids
+                ctx_kv, (text_embeds, text_mask), (neg_text_embeds, neg_text_mask) = (
+                    transformer.precompute_context_kv_neg(
+                        text_embeds=text_embeds, neg_text_embeds=neg_text_embeds, text_mask=text_mask,
+                        conditioning_token_ids=cond_ids,
                     )
-                    if cfg_on:
-                        critic_kv = _double_ctx_kv(critic_kv)
+                )
+                demask = functools.partial(
+                    transformer.forward_with_neg_prompt, neg_text_embeds=neg_text_embeds, neg_text_mask=neg_text_mask
+                )
+            else:
+                demask = transformer.forward_with_cond_scale
+                ctx_kv = transformer.precompute_context_kv(
+                    text_embeds=text_embeds, conditioning_token_ids=cond_ids
+                )
+                if cfg_on:
+                    ctx_kv = _double_ctx_kv(ctx_kv)
+
+            if use_critic:
+                critic = self.token_critic
+                # a SelfCritic runs the generator's own trunk: it shares its cache
+                if neg_text_embeds is not None:
+                    critic_fn = functools.partial(
+                        critic.forward_with_neg_prompt, neg_text_embeds=neg_text_embeds, neg_text_mask=neg_text_mask
+                    )
+                    critic_kv = ctx_kv if isinstance(critic, SelfCritic) else critic.precompute_context_kv_neg(
+                        text_embeds=text_embeds, neg_text_embeds=neg_text_embeds, text_mask=text_mask,
+                        neg_text_mask=neg_text_mask, conditioning_token_ids=cond_ids,
+                    )[0]
+                else:
+                    critic_fn = critic.forward_with_cond_scale
+                    if isinstance(critic, SelfCritic):
+                        critic_kv = ctx_kv
+                    else:
+                        critic_kv = critic.precompute_context_kv(
+                            text_embeds=text_embeds, conditioning_token_ids=cond_ids
+                        )
+                        if cfg_on:
+                            critic_kv = _double_ctx_kv(critic_kv)
 
         if known_mask is not None:
             # editing: known positions hold the source tokens and a score
@@ -790,116 +793,121 @@ class MaskGit(nn.Module):
         )
 
         for i, kb in enumerate(step_kb):
-            if progress:
-                print(f"maskgit decode step {i + 1}/{timesteps}", flush=True)
-            step_scale = scales[i] if scheduled else cond_scale
-            count = int(counts[i])
-            g = noise[i] if noise is not None else None
-            if kb is None:
-                # full body: remask the least-confident positions
-                budgets = count
-                if known_mask is not None:
-                    # min(max(floor(p * n_editable), 1), n_editable) in f32, per row
-                    budgets = torch.minimum(
-                        torch.floor(n_editable.float() * float(fractions[i])).clamp_(min=1).long(), n_editable
+            with span("muse.step"):
+                if progress:
+                    print(f"maskgit decode step {i + 1}/{timesteps}", flush=True)
+                step_scale = scales[i] if scheduled else cond_scale
+                count = int(counts[i])
+                g = noise[i] if noise is not None else None
+                with span("muse.remask"):
+                    if kb is None:
+                        # full body: remask the least-confident positions
+                        budgets = count
+                        if known_mask is not None:
+                            # min(max(floor(p * n_editable), 1), n_editable) in f32, per row
+                            budgets = torch.minimum(
+                                torch.floor(n_editable.float() * float(fractions[i])).clamp_(min=1).long(), n_editable
+                            )
+                        remask = mask_by_topk_scores(scores, budgets)
+                        x_in = ids.masked_fill(remask, mask_id)
+                        npos, gather_pos = seq_len, None
+                    else:
+                        # compact body: the head and the sampler see only the kb
+                        # highest-score candidates (ties at the lowest index, like
+                        # `lax.top_k`); the first `count` of them are remasked
+                        cand = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :kb]
+                        sel = cand[:, : min(count, kb)]
+                        remask = torch.zeros_like(ids, dtype=torch.bool).scatter_(1, sel, True)
+                        x_in = ids.masked_fill(remask, mask_id)
+                        npos, gather_pos = kb, cand
+                        if g is not None:
+                            g = torch.take_along_dim(g, cand[..., None], dim=1)
+
+                with span("muse.trunk"):
+                    logits, embed = demask(
+                        x_in,
+                        text_embeds=text_embeds,
+                        text_mask=text_mask,
+                        conditioning_token_ids=cond_ids,
+                        self_cond_embed=self_cond,
+                        cond_scale=step_scale,
+                        return_embed=True,
+                        return_raw_double=fuse_cfg,
+                        cfg_fold=cfg_fold,
+                        null_fold=null_fold,
+                        gather_positions=gather_pos,
+                        context_kv=ctx_kv,
+                        pos_grid=grid,
                     )
-                remask = mask_by_topk_scores(scores, budgets)
-                x_in = ids.masked_fill(remask, mask_id)
-                npos, gather_pos = seq_len, None
-            else:
-                # compact body: the head and the sampler see only the kb
-                # highest-score candidates (ties at the lowest index, like
-                # `lax.top_k`); the first `count` of them are remasked
-                cand = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :kb]
-                sel = cand[:, : min(count, kb)]
-                remask = torch.zeros_like(ids, dtype=torch.bool).scatter_(1, sel, True)
-                x_in = ids.masked_fill(remask, mask_id)
-                npos, gather_pos = kb, cand
-                if g is not None:
-                    g = torch.take_along_dim(g, cand[..., None], dim=1)
+                    if self.self_cond:
+                        self_cond = embed.to(self_cond.dtype)
 
-            logits, embed = demask(
-                x_in,
-                text_embeds=text_embeds,
-                text_mask=text_mask,
-                conditioning_token_ids=cond_ids,
-                self_cond_embed=self_cond,
-                cond_scale=step_scale,
-                return_embed=True,
-                return_raw_double=fuse_cfg,
-                cfg_fold=cfg_fold,
-                null_fold=null_fold,
-                gather_positions=gather_pos,
-                context_kv=ctx_kv,
-                pos_grid=grid,
-            )
-            if self.self_cond:
-                self_cond = embed.to(self_cond.dtype)
+                with span("muse.sample"):
+                    if sampler == "fused":
+                        rows = (2 * b if fuse_cfg else b) * npos
+                        pred, prob = fused_topk_gumbel_sample(
+                            logits.reshape(rows, vocab),
+                            k,
+                            float(temps[i]),
+                            seeds[i : i + 1],
+                            noise=g.reshape(b * npos, vocab) if g is not None else None,
+                            cfg_pair=fuse_cfg,
+                            # the kernel reads a scheduled scale from device memory
+                            cond_scale=(scales[i : i + 1] if scheduled else cond_scale) if fuse_cfg else 1.0,
+                            row_offset=row_offset * npos,
+                        )
+                        pred = pred.reshape(b, npos).long()
+                        prob = prob.reshape(b, npos)
+                    else:
+                        filtered = top_k(logits, topk_filter_thres)
+                        if g is not None:
+                            # a tensor, not a python scalar, divides: CUDA would turn
+                            # the latter into a multiply by its reciprocal
+                            safe_temp = torch.full((), max(float(temps[i]), 1e-10), device=device)
+                            pred = first_argmax(filtered.float() / safe_temp + g)
+                        else:
+                            # K1's stream, keyed as K1 keys it: the flattened (b,
+                            # npos) rows from the global row_offset * npos
+                            g = philox_gumbel_noise(seeds[i : i + 1], b * npos, vocab, row_offset * npos, logits.dtype)
+                            pred = gumbel_sample(filtered, float(temps[i]), noise=g.reshape(b, npos, vocab))
+                        # the softmax in the logits' own dtype, as the JAX package takes it
+                        prob = torch.softmax(logits, dim=-1).gather(-1, pred[..., None])[..., 0].float()
 
-            if sampler == "fused":
-                rows = (2 * b if fuse_cfg else b) * npos
-                pred, prob = fused_topk_gumbel_sample(
-                    logits.reshape(rows, vocab),
-                    k,
-                    float(temps[i]),
-                    seeds[i : i + 1],
-                    noise=g.reshape(b * npos, vocab) if g is not None else None,
-                    cfg_pair=fuse_cfg,
-                    # the kernel reads a scheduled scale from device memory
-                    cond_scale=(scales[i : i + 1] if scheduled else cond_scale) if fuse_cfg else 1.0,
-                    row_offset=row_offset * npos,
-                )
-                pred = pred.reshape(b, npos).long()
-                prob = prob.reshape(b, npos)
-            else:
-                filtered = top_k(logits, topk_filter_thres)
-                if g is not None:
-                    # a tensor, not a python scalar, divides: CUDA would turn
-                    # the latter into a multiply by its reciprocal
-                    safe_temp = torch.full((), max(float(temps[i]), 1e-10), device=device)
-                    pred = first_argmax(filtered.float() / safe_temp + g)
-                else:
-                    # K1's stream, keyed as K1 keys it: the flattened (b,
-                    # npos) rows from the global row_offset * npos
-                    g = philox_gumbel_noise(seeds[i : i + 1], b * npos, vocab, row_offset * npos, logits.dtype)
-                    pred = gumbel_sample(filtered, float(temps[i]), noise=g.reshape(b, npos, vocab))
-                # the softmax in the logits' own dtype, as the JAX package takes it
-                prob = torch.softmax(logits, dim=-1).gather(-1, pred[..., None])[..., 0].float()
+                with span("muse.scores"):
+                    if kb is None:
+                        is_mask = x_in == mask_id
+                        ids = torch.where(is_mask, pred, x_in)
+                    else:
+                        n_sel = sel.shape[1]
+                        ids = ids.scatter(1, sel, pred[:, :n_sel])
 
-            if kb is None:
-                is_mask = x_in == mask_id
-                ids = torch.where(is_mask, pred, x_in)
-            else:
-                n_sel = sel.shape[1]
-                ids = ids.scatter(1, sel, pred[:, :n_sel])
-
-            if use_critic:
-                # the critic's fake odds of every token of the full grid
-                scores = critic_fn(
-                    ids,
-                    text_embeds=text_embeds,
-                    text_mask=text_mask,
-                    conditioning_token_ids=cond_ids,
-                    cond_scale=step_scale,
-                    cfg_fold=cfg_fold,
-                    null_fold=null_fold,
-                    context_kv=critic_kv,
-                    pos_grid=grid,
-                )[..., 0].float()
-                if critic_noise_scale:
-                    u = philox_uniform(
-                        seeds[i], b, seq_len, device, row_offset=row_offset, stream=CRITIC_NOISE_STREAM
-                    )
-                    scores = scores + (u - 0.5) * critic_noise_scale * float(anneal[i])
-            elif kb is None:
-                scores = 1.0 - prob
-                if not can_remask:
-                    scores = scores.masked_fill(~is_mask, -1e5)
-            else:
-                scores = torch.full_like(scores, -1e5).scatter_(1, sel, 1.0 - prob[:, :n_sel])
-            if known_mask is not None:
-                # known positions stay out of reach of every scoring path
-                scores = scores.masked_fill(known_mask, -1e5)
+                    if use_critic:
+                        # the critic's fake odds of every token of the full grid
+                        scores = critic_fn(
+                            ids,
+                            text_embeds=text_embeds,
+                            text_mask=text_mask,
+                            conditioning_token_ids=cond_ids,
+                            cond_scale=step_scale,
+                            cfg_fold=cfg_fold,
+                            null_fold=null_fold,
+                            context_kv=critic_kv,
+                            pos_grid=grid,
+                        )[..., 0].float()
+                        if critic_noise_scale:
+                            u = philox_uniform(
+                                seeds[i], b, seq_len, device, row_offset=row_offset, stream=CRITIC_NOISE_STREAM
+                            )
+                            scores = scores + (u - 0.5) * critic_noise_scale * float(anneal[i])
+                    elif kb is None:
+                        scores = 1.0 - prob
+                        if not can_remask:
+                            scores = scores.masked_fill(~is_mask, -1e5)
+                    else:
+                        scores = torch.full_like(scores, -1e5).scatter_(1, sel, 1.0 - prob[:, :n_sel])
+                    if known_mask is not None:
+                        # known positions stay out of reach of every scoring path
+                        scores = scores.masked_fill(known_mask, -1e5)
         return ids
 
     # -- best-of-K re-ranked generation ---------------------------------------
@@ -953,7 +961,10 @@ class MaskGit(nn.Module):
         best = first_argmax(scores)
         winners = ids.reshape(b, k, gh, gw)[torch.arange(b, device=ids.device), best]
         best_scores = scores.gather(1, best[:, None])[:, 0]
-        images = self.vae.decode_from_ids(winners).clamp(0.0, 1.0) if decode else None
+        images = None
+        if decode:
+            with span("muse.vae_decode"):
+                images = self.vae.decode_from_ids(winners).clamp(0.0, 1.0)
         return winners, best_scores, images
 
     @torch.inference_mode()
@@ -1209,29 +1220,32 @@ class Muse(nn.Module):
 
         via_ids = cond_via == "ids"
         kw = dict(cond_scale=cond_scale, temperature=temperature, timesteps=timesteps, image_size=image_size)
-        if rerank_candidates > 1:
-            base_out = base.generate_reranked(
-                texts=texts, generator=g_base, num_candidates=rerank_candidates, score_method=rerank_score,
-                return_ids=via_ids, **kw,
-            )
-        else:
-            base_out = base.generate(texts=texts, generator=g_base, return_ids=via_ids, **kw)
-        if via_ids:
-            lowres_image = None
-            sr_cond = dict(cond_token_ids=base_out)
-        else:
-            # the decoder's output is clamped before it conditions the next stage
-            lowres_image = base_out.clamp(0.0, 1.0)
-            sr_cond = dict(cond_images=lowres_image)
+        with span("muse.base"):
+            if rerank_candidates > 1:
+                base_out = base.generate_reranked(
+                    texts=texts, generator=g_base, num_candidates=rerank_candidates, score_method=rerank_score,
+                    return_ids=via_ids, **kw,
+                )
+            else:
+                base_out = base.generate(texts=texts, generator=g_base, return_ids=via_ids, **kw)
+            if via_ids:
+                lowres_image = None
+                sr_cond = dict(cond_token_ids=base_out)
+            else:
+                # the decoder's output is clamped before it conditions the next stage
+                lowres_image = base_out.clamp(0.0, 1.0)
+                sr_cond = dict(cond_images=lowres_image)
 
-        superres_image = superres.generate(
-            texts=texts, generator=g_sr, cond_scale=cond_scale, temperature=temperature,
-            timesteps=default(superres_timesteps, timesteps), image_size=sr_size, **sr_cond,
-        ).clamp(0.0, 1.0)
+        with span("muse.superres"):
+            superres_image = superres.generate(
+                texts=texts, generator=g_sr, cond_scale=cond_scale, temperature=temperature,
+                timesteps=default(superres_timesteps, timesteps), image_size=sr_size, **sr_cond,
+            ).clamp(0.0, 1.0)
 
         if via_ids and return_lowres:
             # decoded only because the caller asked for the images
-            lowres_image = base.vae.decode_from_ids(base_out).clamp(0.0, 1.0)
+            with span("muse.vae_decode"):
+                lowres_image = base.vae.decode_from_ids(base_out).clamp(0.0, 1.0)
 
         if return_pil_images:
             superres_image = to_pil_images(superres_image)

@@ -53,6 +53,7 @@ from muse_maskgit_pytorch_tpu_torch.models.t5 import DEFAULT_T5_NAME, get_encode
 from muse_maskgit_pytorch_tpu_torch.ops.attention import qknorm_attend
 from muse_maskgit_pytorch_tpu_torch.parallel.tensor import copy_in, gather_last, max_over, reduce_out
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
+from muse_maskgit_pytorch_tpu_torch.utils.metrics import span
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 Scale = Union[float, torch.Tensor]
@@ -467,7 +468,8 @@ class Transformer(nn.Module):
     def encode_text(self, texts) -> torch.Tensor:
         """Texts -> (b, n, text_embed_dim) T5 embeddings, padding zeroed, on
         this module's device (the frozen encoder named `t5_name`)."""
-        return t5_encode_text(texts, name=self.t5_name, device=self.token_emb.weight.device)
+        with span("muse.t5"):
+            return t5_encode_text(texts, name=self.t5_name, device=self.token_emb.weight.device)
 
     def _context(
         self, text_embeds: torch.Tensor, conditioning_token_ids: Optional[torch.Tensor] = None
@@ -748,17 +750,19 @@ class Transformer(nn.Module):
             # a vocab-parallel cross entropy on this rank's logits; the whole
             # rows only where they are returned
             local = self.to_logits(copy_in(head_in, vocab_split))
-            loss = cross_entropy_ignore_index(local, labels, ignore_index, loss_denominator, vocab_split)
+            with span("muse.loss"):
+                loss = cross_entropy_ignore_index(local, labels, ignore_index, loss_denominator, vocab_split)
             return (loss, gather_last(local, vocab_split)) if return_logits else loss
         logits = self._head(head_in)
         if return_embed:
             return logits, embed
         if not exists(labels):
             return logits
-        if self.dim_out == 1:
-            loss = sigmoid_bce(logits[..., 0], labels)
-        else:
-            loss = cross_entropy_ignore_index(logits, labels, ignore_index, loss_denominator)
+        with span("muse.loss"):
+            if self.dim_out == 1:
+                loss = sigmoid_bce(logits[..., 0], labels)
+            else:
+                loss = cross_entropy_ignore_index(logits, labels, ignore_index, loss_denominator)
         return (loss, logits) if return_logits else loss
 
 

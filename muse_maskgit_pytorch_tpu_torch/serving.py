@@ -60,6 +60,7 @@ from muse_maskgit_pytorch_tpu_torch.parallel.batch import rows_from
 from muse_maskgit_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS, axis_coordinate, mesh_axes
 from muse_maskgit_pytorch_tpu_torch.parallel.tensor import all_gather
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import resolve_device
+from muse_maskgit_pytorch_tpu_torch.utils.metrics import span
 
 
 def _quantize_u8(imgs: torch.Tensor) -> torch.Tensor:
@@ -224,10 +225,11 @@ class GeneratePipeline:
     def _encode_prompts(self, prompts: Sequence[str]):
         """T5 embeddings and mask of exactly `text_len` tokens (longer prompts
         are cut), so every batch has one shape."""
-        return t5_encode_text_with_mask(
-            list(prompts), name=self._transformer().t5_name, max_length=self.text_len,
-            pad_to_multiple=self.text_len, device=self.device,
-        )
+        with span("muse.t5"):
+            return t5_encode_text_with_mask(
+                list(prompts), name=self._transformer().t5_name, max_length=self.text_len,
+                pad_to_multiple=self.text_len, device=self.device,
+            )
 
     def _next_generator(self) -> torch.Generator:
         """The next batch's generator on the device, from the seed stream."""
@@ -293,18 +295,21 @@ class GeneratePipeline:
                 return self._gather_rows(self._base_generate(self.model, embeds, mask, generator, cond_scale, neg_embeds))
             g_base, g_sr = child_generators(generator, self.device)
             via_ids = self.cond_via == "ids"
-            low = self._base_generate(
-                self.model.base_maskgit, embeds, mask, g_base, cond_scale, neg_embeds, return_ids=via_ids
-            )
-            sr_cond = dict(cond_token_ids=low) if via_ids else dict(cond_images=low.clamp(0.0, 1.0))
-            return self._gather_rows(self.model.superres_maskgit.generate(
-                text_embeds=embeds, text_mask=mask, generator=g_sr, **sr_cond,
-                neg_text_embeds=neg_embeds,
-                timesteps=self.timesteps,
-                cond_scale=self.cond_scale if cond_scale is None else cond_scale,
-                temperature=self.temperature,
-                image_size=self._gen_sr_size,
-            ))
+            with span("muse.base"):
+                low = self._base_generate(
+                    self.model.base_maskgit, embeds, mask, g_base, cond_scale, neg_embeds, return_ids=via_ids
+                )
+                sr_cond = dict(cond_token_ids=low) if via_ids else dict(cond_images=low.clamp(0.0, 1.0))
+            with span("muse.superres"):
+                images = self.model.superres_maskgit.generate(
+                    text_embeds=embeds, text_mask=mask, generator=g_sr, **sr_cond,
+                    neg_text_embeds=neg_embeds,
+                    timesteps=self.timesteps,
+                    cond_scale=self.cond_scale if cond_scale is None else cond_scale,
+                    temperature=self.temperature,
+                    image_size=self._gen_sr_size,
+                )
+            return self._gather_rows(images)
 
     def _gather_rows(self, images: torch.Tensor) -> torch.Tensor:
         """Every rank's rows of a batch, in rank order (the rows as they
@@ -326,7 +331,8 @@ class GeneratePipeline:
 
     def _to_host(self, imgs: torch.Tensor) -> np.ndarray:
         """Quantise on the device, then copy the uint8 images to the host."""
-        return _quantize_u8(imgs).cpu().numpy()
+        with span("muse.to_host"):
+            return _quantize_u8(imgs).cpu().numpy()
 
     def _output(self, images: np.ndarray):
         if self.return_pil:
@@ -390,45 +396,46 @@ class GeneratePipeline:
         `negative_prompt`, else the CFG null; `_encode_neg_rows`). A batch
         with any negative prompt runs with per-row negative embeddings and
         per-row scales, one more T5 pass a batch."""
-        if isinstance(prompts, str):
-            prompts = [prompts]
-        n = len(prompts)
-        scales = _per_row(cond_scale, n, "cond_scale")
-        negs = None
-        if negative_prompts is not None:
-            negs = [negative_prompts] * n if isinstance(negative_prompts, str) else list(negative_prompts)
-            if len(negs) != n:
-                raise ValueError(
-                    f"negative_prompts must be a string or one entry (str or None) per prompt ({n}), got {len(negs)}"
-                )
-            if all(e is None for e in negs):
-                negs = None  # nothing to do: the default program
-        self.stats["requests"] += 1
+        with span("muse.request"):
+            if isinstance(prompts, str):
+                prompts = [prompts]
+            n = len(prompts)
+            scales = _per_row(cond_scale, n, "cond_scale")
+            negs = None
+            if negative_prompts is not None:
+                negs = [negative_prompts] * n if isinstance(negative_prompts, str) else list(negative_prompts)
+                if len(negs) != n:
+                    raise ValueError(
+                        f"negative_prompts must be a string or one entry (str or None) per prompt ({n}), "
+                        f"got {len(negs)}"
+                    )
+                if all(e is None for e in negs):
+                    negs = None  # nothing to do: the default program
+            self.stats["requests"] += 1
 
-        outputs = []
-        b = self.batch_size
-        with torch.inference_mode():
-            for start in range(0, n, b):
-                chunk = list(prompts[start : start + b])
-                pad = b - len(chunk)
-                chunk_scale = chunk_negs = None
-                if scales is not None or negs is not None:
-                    # per-request negatives always ride the per-row scales
-                    sc = list(scales[start : start + b]) if scales is not None else [self.cond_scale] * len(chunk)
-                    chunk_scale = self._scale_vector(sc + [self.cond_scale] * pad)
-                if negs is not None:
-                    chunk_negs = self._encode_neg_rows(list(negs[start : start + b]) + [None] * pad)
-                embeds, mask = self._encode_prompts(chunk + [""] * pad)
-                t0 = time.perf_counter()
-                imgs = self._to_host(self._generate_batch(embeds, mask, chunk_scale, chunk_negs))
-                self.stats["generate_seconds"] += time.perf_counter() - t0
-                self.stats["batches"] += 1
-                self.warm_surfaces.add(
-                    "neg_dynamic" if chunk_negs is not None else ("generate" if chunk_scale is None else "dynamic_scale")
-                )
-                outputs.append(imgs[: len(chunk)])
-        self.stats["images"] += n
-        return self._output(np.concatenate(outputs, axis=0))
+            outputs = []
+            b = self.batch_size
+            with torch.inference_mode():
+                for start in range(0, n, b):
+                    chunk = list(prompts[start : start + b])
+                    pad = b - len(chunk)
+                    chunk_scale = chunk_negs = None
+                    if scales is not None or negs is not None:
+                        # per-request negatives always ride the per-row scales
+                        sc = list(scales[start : start + b]) if scales is not None else [self.cond_scale] * len(chunk)
+                        chunk_scale = self._scale_vector(sc + [self.cond_scale] * pad)
+                    if negs is not None:
+                        chunk_negs = self._encode_neg_rows(list(negs[start : start + b]) + [None] * pad)
+                    embeds, mask = self._encode_prompts(chunk + [""] * pad)
+                    t0 = time.perf_counter()
+                    imgs = self._to_host(self._generate_batch(embeds, mask, chunk_scale, chunk_negs))
+                    self.stats["generate_seconds"] += time.perf_counter() - t0
+                    self.stats["batches"] += 1
+                    surface = "generate" if chunk_scale is None else "dynamic_scale"
+                    self.warm_surfaces.add("neg_dynamic" if chunk_negs is not None else surface)
+                    outputs.append(imgs[: len(chunk)])
+            self.stats["images"] += n
+            return self._output(np.concatenate(outputs, axis=0))
 
     def edit(self, images, edit_masks, prompts: Union[str, List[str]], cond_scale=None):
         """Batched editing: regenerate the masked region of each image under
@@ -439,45 +446,46 @@ class GeneratePipeline:
         Chunked and padded like __call__; a padding row has an all-False mask,
         so it passes through untouched, and is dropped. `cond_scale` as in
         __call__. Returns uint8 images (or PIL with `return_pil`)."""
-        if isinstance(prompts, str):
-            prompts = [prompts]
-        images = np.asarray(images)
-        if images.dtype == np.uint8:
-            images = images.astype(np.float32) / 255.0
-        images = images.astype(np.float32, copy=False)
-        edit_masks = np.asarray(edit_masks)
-        if edit_masks.dtype != np.bool_:
-            edit_masks = edit_masks > 0.5
-        n = len(prompts)
-        if not images.shape[0] == edit_masks.shape[0] == n:
-            raise ValueError(
-                f"prompts ({n}), images ({images.shape[0]}) and masks ({edit_masks.shape[0]}) must align"
-            )
-        scales = _per_row(cond_scale, n, "cond_scale")
-        self.stats["requests"] += 1
+        with span("muse.request"):
+            if isinstance(prompts, str):
+                prompts = [prompts]
+            images = np.asarray(images)
+            if images.dtype == np.uint8:
+                images = images.astype(np.float32) / 255.0
+            images = images.astype(np.float32, copy=False)
+            edit_masks = np.asarray(edit_masks)
+            if edit_masks.dtype != np.bool_:
+                edit_masks = edit_masks > 0.5
+            n = len(prompts)
+            if not images.shape[0] == edit_masks.shape[0] == n:
+                raise ValueError(
+                    f"prompts ({n}), images ({images.shape[0]}) and masks ({edit_masks.shape[0]}) must align"
+                )
+            scales = _per_row(cond_scale, n, "cond_scale")
+            self.stats["requests"] += 1
 
-        outputs = []
-        b = self.batch_size
-        with torch.inference_mode():
-            for start in range(0, n, b):
-                chunk = list(prompts[start : start + b])
-                pad = b - len(chunk)
-                img = torch.zeros((b, *images.shape[1:]), device=self.device)
-                img[: len(chunk)] = torch.from_numpy(images[start : start + b]).to(self.device)
-                mask = torch.zeros((b, *edit_masks.shape[1:]), dtype=torch.bool, device=self.device)
-                mask[: len(chunk)] = torch.from_numpy(edit_masks[start : start + b]).to(self.device)
-                chunk_scale = None
-                if scales is not None:
-                    chunk_scale = self._scale_vector(list(scales[start : start + b]) + [self.cond_scale] * pad)
-                embeds, tmask = self._encode_prompts(chunk + [""] * pad)
-                t0 = time.perf_counter()
-                out = self._to_host(self._edit_batch(img, mask, embeds, tmask, self._next_generator(), chunk_scale))
-                self.stats["generate_seconds"] += time.perf_counter() - t0
-                self.stats["batches"] += 1
-                self.warm_surfaces.add("edit" if chunk_scale is None else "edit_dynamic_scale")
-                outputs.append(out[: len(chunk)])
-        self.stats["images"] += n
-        return self._output(np.concatenate(outputs, axis=0))
+            outputs = []
+            b = self.batch_size
+            with torch.inference_mode():
+                for start in range(0, n, b):
+                    chunk = list(prompts[start : start + b])
+                    pad = b - len(chunk)
+                    img = torch.zeros((b, *images.shape[1:]), device=self.device)
+                    img[: len(chunk)] = torch.from_numpy(images[start : start + b]).to(self.device)
+                    mask = torch.zeros((b, *edit_masks.shape[1:]), dtype=torch.bool, device=self.device)
+                    mask[: len(chunk)] = torch.from_numpy(edit_masks[start : start + b]).to(self.device)
+                    chunk_scale = None
+                    if scales is not None:
+                        chunk_scale = self._scale_vector(list(scales[start : start + b]) + [self.cond_scale] * pad)
+                    embeds, tmask = self._encode_prompts(chunk + [""] * pad)
+                    t0 = time.perf_counter()
+                    out = self._to_host(self._edit_batch(img, mask, embeds, tmask, self._next_generator(), chunk_scale))
+                    self.stats["generate_seconds"] += time.perf_counter() - t0
+                    self.stats["batches"] += 1
+                    self.warm_surfaces.add("edit" if chunk_scale is None else "edit_dynamic_scale")
+                    outputs.append(out[: len(chunk)])
+            self.stats["images"] += n
+            return self._output(np.concatenate(outputs, axis=0))
 
     @property
     def images_per_second(self) -> Optional[float]:

@@ -43,7 +43,7 @@ from muse_maskgit_pytorch_tpu_torch.utils.png import decode_png, encode_png
 class _Pending:
     """One enqueued prompt (and its edit payload) and its result slot."""
 
-    __slots__ = ("prompt", "source", "mask", "cond_scale", "negative_prompt", "event", "image", "error")
+    __slots__ = ("prompt", "source", "mask", "cond_scale", "negative_prompt", "event", "image", "error", "enqueued")
 
     def __init__(self, prompt: str, source=None, mask=None, cond_scale=None, negative_prompt=None):
         self.prompt = prompt
@@ -54,6 +54,7 @@ class _Pending:
         self.event = threading.Event()
         self.image: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
+        self.enqueued = time.monotonic()  # for the queue wait
 
 
 class DynamicBatcher:
@@ -82,6 +83,10 @@ class DynamicBatcher:
             "images": 0,
             "coalesced_batches": 0,  # batches serving more than one prompt
             "batch_fill_sum": 0,  # real prompts per batch, for the fill rate
+            # seconds from a prompt's enqueue to the start of its batch:
+            # summed over prompts (over `images`: the mean wait) and the longest
+            "queue_wait_seconds": 0.0,
+            "queue_wait_max_seconds": 0.0,
         }
 
     def start(self):
@@ -186,6 +191,10 @@ class DynamicBatcher:
             kind, batch = self._collect()
             if not batch:
                 continue
+            started = time.monotonic()
+            waits = [started - p.enqueued for p in batch]
+            self.stats["queue_wait_seconds"] += sum(waits)
+            self.stats["queue_wait_max_seconds"] = max(self.stats["queue_wait_max_seconds"], *waits)
             try:
                 self._serve(kind, batch)
             except Exception as e:  # sent to every waiter of the batch

@@ -92,7 +92,7 @@ from muse_maskgit_pytorch_tpu_torch.utils.checkpoint import (
     wait_for_saves,
 )
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists
-from muse_maskgit_pytorch_tpu_torch.utils.metrics import MetricsLogger, StepTimer
+from muse_maskgit_pytorch_tpu_torch.utils.metrics import MetricsLogger, StepTimer, span
 
 FROZEN_CHILDREN = ("vae", "cond_vae")
 
@@ -674,63 +674,68 @@ class MaskGitTrainer:
         clipped, applied and followed by the EMA. Logs `loss`, `grad_norm`
         (before the clip), `lr` (under a schedule) and `steps_per_sec` to
         `metrics.jsonl`, with one host read a step."""
-        accum = self.grad_accum_every
-        if len(images) != accum:
-            raise ValueError(f"leading dim {len(images)} != grad_accum_every {accum}")
-        dp = self.dp
-        dp.materialize()
-        for p in self.params:
-            p.grad = None
-        loss_sum = torch.zeros((), device=self.device)
-        for i in range(accum):
-            micro = [self._micro(t, i) for t in (images, text_embeds, text_mask, cond_token_ids)]
-            draw, denominator = draws[i] if draws is not None else None, None
-            if dp.active:
-                # the global batch's draws, as one process draws them; this rank's rows of them
-                b = micro[0].shape[0]
-                if local_rows:
-                    start, stop, parts = dp.data_index * b, (dp.data_index + 1) * b, dp.data_size
-                    b *= parts
-                else:
-                    start, stop, parts = dp.rows(b)
-                    micro = [None if t is None else t[start:stop] for t in micro]
-                if draw is None:
-                    draw = self.maskgit.train_draws(
-                        (b, *micro[0].shape[1:]), micro[0].is_floating_point(), generator=self.generator
+        with span("muse.train_step"):
+            accum = self.grad_accum_every
+            if len(images) != accum:
+                raise ValueError(f"leading dim {len(images)} != grad_accum_every {accum}")
+            dp = self.dp
+            dp.materialize()
+            for p in self.params:
+                p.grad = None
+            loss_sum = torch.zeros((), device=self.device)
+            for i in range(accum):
+                micro = [self._micro(t, i) for t in (images, text_embeds, text_mask, cond_token_ids)]
+                draw, denominator = draws[i] if draws is not None else None, None
+                if dp.active:
+                    # the global batch's draws, as one process draws them; this rank's rows of them
+                    b = micro[0].shape[0]
+                    if local_rows:
+                        start, stop, parts = dp.data_index * b, (dp.data_index + 1) * b, dp.data_size
+                        b *= parts
+                    else:
+                        start, stop, parts = dp.rows(b)
+                        micro = [None if t is None else t[start:stop] for t in micro]
+                    if draw is None:
+                        draw = self.maskgit.train_draws(
+                            (b, *micro[0].shape[1:]), micro[0].is_floating_point(), generator=self.generator
+                        )
+                    if parts > 1:
+                        # each rank's cross-entropy sum over its share of the global masked count
+                        denominator = self.maskgit.masked_token_count(draw) / parts
+                    draw = draw.rows(start, stop)
+                with span("muse.forward"):
+                    loss = self.maskgit(
+                        micro[0], text_embeds=micro[1], text_mask=micro[2], cond_token_ids=micro[3],
+                        generator=self.generator, draws=draw, loss_denominator=denominator,
                     )
-                if parts > 1:
-                    # each rank's cross-entropy sum over its share of the global masked count
-                    denominator = self.maskgit.masked_token_count(draw) / parts
-                draw = draw.rows(start, stop)
-            loss = self.maskgit(
-                micro[0], text_embeds=micro[1], text_mask=micro[2], cond_token_ids=micro[3], generator=self.generator,
-                draws=draw, loss_denominator=denominator,
-            )
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-        with torch.no_grad():
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-            grads, (loss_sum,) = dp.reduce(grads, loss_sum)
-            torch._foreach_div_(local_tensors(grads), float(accum))
-            norm = global_norm(grads)
-            lr = self.optimizer.lr_at(self.optimizer.count)
-            self.optimizer.step(grads, norm)
-            if self.use_ema:
-                ema_update(self.ema, dp.masters, self._step, **self.ema_kwargs)
-            self._step += 1
-            loss_v, norm_v = torch.stack([loss_sum / accum, norm]).tolist()  # the step's one host read
-        for p in self.params:
-            p.grad = None
-        dp.release()
-        logs = {"loss": loss_v, "grad_norm": norm_v}
-        if callable(self._lr_sched):
-            logs["lr"] = lr
-        self.timer.tick()
-        sps = self.timer.steps_per_sec
-        if sps is not None:
-            logs["steps_per_sec"] = round(sps, 3)
-        self.metrics.log(self.steps - 1, **logs)
-        return logs
+                with span("muse.backward"):
+                    loss.backward()
+                loss_sum = loss_sum + loss.detach()
+            with torch.no_grad():
+                with span("muse.optimizer"):
+                    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+                    grads, (loss_sum,) = dp.reduce(grads, loss_sum)
+                    torch._foreach_div_(local_tensors(grads), float(accum))
+                    norm = global_norm(grads)
+                    lr = self.optimizer.lr_at(self.optimizer.count)
+                    self.optimizer.step(grads, norm)
+                if self.use_ema:
+                    with span("muse.ema"):
+                        ema_update(self.ema, dp.masters, self._step, **self.ema_kwargs)
+                self._step += 1
+                loss_v, norm_v = torch.stack([loss_sum / accum, norm]).tolist()  # the step's one host read
+            for p in self.params:
+                p.grad = None
+            dp.release()
+            logs = {"loss": loss_v, "grad_norm": norm_v}
+            if callable(self._lr_sched):
+                logs["lr"] = lr
+            self.timer.tick()
+            sps = self.timer.steps_per_sec
+            if sps is not None:
+                logs["steps_per_sec"] = round(sps, 3)
+            self.metrics.log(self.steps - 1, **logs)
+            return logs
 
     # -- loops ------------------------------------------------------------------
 

@@ -2,8 +2,9 @@
 `muse_maskgit_pytorch_tpu/utils/metrics.py`): an append-only JSONL of
 per-step scalars, a rolling step timer, and the analytic model FLOPs of a
 MaskGit forward, `generate` call and train step, for MFU against the H100's
-dense bf16 peak; and `profile_trace`, a TensorBoard trace of a block of
-work.
+dense bf16 peak; `profile_trace`, a TensorBoard trace of a block of work;
+and `span`, the named ranges (`muse.*`) that the generate and train paths
+mark inside a trace.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import time
 from collections import deque
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 # NVIDIA H100 SXM: 989 TFLOP/s dense bf16 tensor-core peak (data sheet, 700 W)
 H100_BF16_PEAK_FLOPS = 989e12
@@ -175,16 +178,38 @@ def maskgit_train_flops(
     return float(total + vae_encode_flops)
 
 
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+# a function-scope record: the host event alone. A `record_function` is a
+# user-scope record, which on a GPU also writes a device-side interval
+# ("gpu_user_annotation") over the span's kernels, and a reader of the
+# trace's device activity would count that as device work
+_record = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """`with span("muse.step"):` marks the block as a named range in the
+    running `torch.profiler` trace (a `profile_trace`, a benchmark's
+    traced run), on the profiler's clock: the kernels launched inside hold
+    it in their chain of host events, and an idle gap of the device inside
+    it is labelled with it. With no profiler running it is one shared
+    no-op context, about a microsecond a use. `name` is a fixed string;
+    the spans of the generate and train paths are listed in `PERF.md`,
+    section 3. There is no store of its own: the profiler keeps them."""
+    return _record(name) if _profiling() else _NO_SPAN
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir, enabled: bool = True):
     """`with profile_trace("traces/step"): trainer.train_step()` writes a
     TensorBoard-viewable trace (`torch.profiler`, the card's kernels too
     when a card is present) of everything run inside, into `log_dir`.
-    With `enabled=False` it runs the block and writes nothing."""
+    With `enabled=False` it runs the block and writes nothing. The trace
+    carries the `muse.*` spans of the generate and train paths (`span`;
+    their list is in `PERF.md`, section 3)."""
     if not enabled:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]

@@ -13,6 +13,7 @@ import json
 import struct
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 import zlib
@@ -285,6 +286,28 @@ def test_batcher_passes_per_row_settings():
         b.stop()
     assert rec.served[0] == ("generate", ["a", "b"], {"cond_scale": [3.0, 5.0], "negative_prompts": [None, "blurry"]})
     assert rec.served[1] == ("generate", ["c", "d"], {})
+
+
+def test_batcher_reports_queue_wait():
+    """A burst of four prompts queued 50 ms before the worker starts goes
+    out as two full batches; each prompt waits from its enqueue to its
+    batch's start, so every wait is at least the 50 ms and none outlasts
+    the burst."""
+    b = DynamicBatcher(_Recorder(), max_wait_ms=1000.0)
+    t0 = time.monotonic()
+    pendings = b.submit(["a", "b", "c", "d"])
+    time.sleep(0.05)
+    b.start()
+    try:
+        for p in pendings:
+            assert p.event.wait(timeout=10)
+    finally:
+        b.stop()
+    burst = time.monotonic() - t0
+    s = b.stats
+    assert s["batches"] == s["coalesced_batches"] == 2 and s["images"] == 4
+    assert 0.05 <= s["queue_wait_max_seconds"] <= burst
+    assert 4 * 0.05 <= s["queue_wait_seconds"] <= 4 * s["queue_wait_max_seconds"]
 
 
 def test_batcher_under_many_threads():
