@@ -23,6 +23,9 @@ read just after):
     cosine) -- K3 on every EMA-VQ encode;
   * the public `ops.attend` op at the unfused attention's shapes -- K4, which
     no model path calls (as in the JAX package);
+  * `norm`: the trunk's LayerNorm and GEGLU + LayerNorm kernel
+    (`csrc/trunk_norm.cu`) at the base and super-res stages' row counts,
+    against its plain version, its bytes bound and `F.layer_norm`;
   * `surfaces`: every other sampling surface at the base stage's width --
     a negative prompt, a guidance ramp with `cfg_fold=False` (K1 reading its
     scale from device memory), per-row scales, 256x384 and 320px requests,
@@ -72,7 +75,7 @@ raises and the exit code is non-zero. The last line is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
 Run from the root of a checkout: `python3 chip_smoke.py`. `--phases`
-selects a subset (env, build, k1, k2, k3, k4, generate, parity, tokenize,
+selects a subset (env, build, k1, k2, k3, k4, norm, generate, parity, tokenize,
 t5, surfaces, serving, train, gan, cascade, eval, parallel, tensor, export, profile) while iterating; a
 subset prints its phases' lines and no result lines. `export_no_ops` runs
 only when named: the base program with and without `serving._drop_no_ops`
@@ -84,6 +87,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -98,12 +102,14 @@ from pathlib import Path
 # has run in a process, every later launch costs the host more, and the
 # requests of `generate` and `cascade` are paced by the host's launches
 ALL_PHASES = (
-    "env", "build", "k1", "k2", "k3", "k4", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
+    "env", "build", "k1", "k2", "k3", "k4", "norm", "generate", "parity", "tokenize", "t5", "surfaces", "serving", "train",
     "gan", "cascade", "eval", "parallel", "tensor", "export", "profile",
 )
 # run only when named in --phases: a measurement, not a path
 EXTRA_PHASES = ("export_no_ops",)
-KERNEL_SOURCES = ("sampling_kernel", "qknorm_attention", "qknorm_attention_bwd", "vq_search", "flash_attention")
+KERNEL_SOURCES = (
+    "sampling_kernel", "qknorm_attention", "qknorm_attention_bwd", "vq_search", "flash_attention", "trunk_norm",
+)
 
 # main-path shapes
 BATCH, STEPS, CFG = 32, 18, 3.0
@@ -266,22 +272,23 @@ def plain_path(attend=None):
     plain version only for CPU tensors, so this swaps the names the model
     modules call."""
     from muse_maskgit_pytorch_tpu_torch.models import maskgit, quantizers, transformer
-    from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel, vq
+    from muse_maskgit_pytorch_tpu_torch.ops import attention, norm, sampling_kernel, vq
 
     saved = (
         transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample, maskgit.philox_gumbel_noise,
-        quantizers.nearest_code,
+        quantizers.nearest_code, transformer.layer_norm, transformer.geglu_layer_norm,
     )
     transformer.qknorm_attend = attend or attention.qknorm_attend_plain
     maskgit.fused_topk_gumbel_sample = sampling_kernel.fused_topk_gumbel_sample_plain
     maskgit.philox_gumbel_noise = sampling_kernel.philox_gumbel_noise_plain
     quantizers.nearest_code = vq.nearest_code_plain
+    transformer.layer_norm, transformer.geglu_layer_norm = norm.layer_norm_plain, norm.geglu_layer_norm_plain
     try:
         yield
     finally:
         (
             transformer.qknorm_attend, maskgit.fused_topk_gumbel_sample, maskgit.philox_gumbel_noise,
-            quantizers.nearest_code,
+            quantizers.nearest_code, transformer.layer_norm, transformer.geglu_layer_norm,
         ) = saved
 
 
@@ -324,7 +331,7 @@ def phase_env(torch, ctx):
 def phase_build(torch, ctx):
     from concurrent.futures import ThreadPoolExecutor
 
-    from muse_maskgit_pytorch_tpu_torch.ops import _build, attention, sampling_kernel, vq
+    from muse_maskgit_pytorch_tpu_torch.ops import _build, attention, norm, sampling_kernel, vq
 
     # each source with the flags its module loads it with, and the
     # instrumented builds that `[k1]` and `[train]` read the clocks of the
@@ -345,7 +352,7 @@ def phase_build(torch, ctx):
     secs = dict(zip(KERNEL_SOURCES, times))
     secs.update({f"{name} (timing)": t for (name, _), t in zip(timing, times[len(KERNEL_SOURCES):])})
     wall = time.perf_counter() - t0
-    for lib in (sampling_kernel._lib, attention._lib, attention._bwd_lib, attention._flash_lib, vq._lib):
+    for lib in (sampling_kernel._lib, attention._lib, attention._bwd_lib, attention._flash_lib, vq._lib, norm._lib):
         lib()  # load each library and bind its entry points
     each = ", ".join(f"{name} {t:.1f}s" for name, t in secs.items())
     log(f"[build] nvcc sm_90a, in parallel: {each}; {wall:.1f}s wall")
@@ -959,6 +966,99 @@ def phase_k4(torch, ctx):
     )
 
 
+# the trunk's norms at the main path's row counts: base b32 (16384 rows with
+# the CFG half, 8192 cross-attention rows), base b16 (8192) and super-res
+# b16 (32768); LayerNorm at 512, GEGLU at 2730 -> 1365
+NORM_ROWS = (16384, 8192, 32768)
+COLD_BYTES = 160 << 20  # more than three times the 50 MB L2
+
+
+def cold_ms(torch, fn, inputs, moved: int) -> float:
+    """Mean device ms of fn(*args) with its inputs cold in L2: copies of
+    `inputs` (`moved` bytes a call read and written) rotate, enough that a
+    call's inputs were last touched more than COLD_BYTES of traffic
+    before; the calls replay from one CUDA graph (`graph_ms`), so no host
+    time sits between them."""
+    copies = [inputs] + [tuple(t.clone() for t in inputs) for _ in range(max(1, -(-COLD_BYTES // moved)))]
+    turn = itertools.count()
+    return graph_ms(lambda: fn(*copies[next(turn) % len(copies)]), iters=2 * len(copies))
+
+
+def phase_norm(torch, ctx):
+    import torch.nn.functional as F
+
+    from muse_maskgit_pytorch_tpu_torch.ops.norm import (
+        F32_ATOL, F32_RTOL, bf16_mismatch, geglu_layer_norm, geglu_layer_norm_plain, layer_norm, layer_norm_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    shapes, worst = [], {"bf16": 0.0, "f32": 0.0}
+    with torch.no_grad():
+        for geglu in (False, True):
+            d = DIM if not geglu else int(DIM * 4 * 2 / 3)
+            fn, plain = (geglu_layer_norm, geglu_layer_norm_plain) if geglu else (layer_norm, layer_norm_plain)
+            gamma = 1 + 0.2 * torch.randn(d, generator=g, device="cuda")
+            for rows in NORM_ROWS:
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = (torch.randn(rows, 2 * d if geglu else d, generator=g, device="cuda") * 2 + 0.3).to(dtype)
+                    a, gate = x.chunk(2, dim=-1)
+                    v = gate * F.gelu(a) if geglu else x  # the values normalised
+                    before = fn.launches
+                    out, want = fn(x, gamma), plain(x, gamma)
+                    torch.cuda.synchronize()
+                    require(fn.launches == before + 1, f"{fn.__name__} did not launch its kernel")
+                    # the worst element against the norm in f64 of the same values
+                    v64 = v.double()
+                    var64 = v64.var(-1, keepdim=True, unbiased=False)
+                    exact = (v64 - v64.mean(-1, keepdim=True)) * torch.rsqrt(var64 + 1e-5) * gamma.double()
+                    if dtype == torch.bfloat16:
+                        err = bf16_mismatch(out, want, v, gamma)
+                        require(err <= 1.0, f"{fn.__name__} ({rows}, {d}) bf16 {err:.3g} of its allowance from plain")
+                    else:
+                        err = float(((out - want).abs() / (F32_ATOL + F32_RTOL * want.abs())).max())
+                        require(err <= 1.0, f"{fn.__name__} ({rows}, {d}) f32 {err:.3g} of rtol / atol from plain")
+                    key = "bf16" if dtype == torch.bfloat16 else "f32"
+                    worst[key] = max(worst[key], err)
+                    far = int((out.double() - want.double()).abs().argmax())
+                    apart = (
+                        f"largest gap at {far}: kernel {out.flatten()[far].item():.6g}, plain "
+                        f"{want.flatten()[far].item():.6g}, f64 {exact.flatten()[far].item():.6g}; kernel vs f64 "
+                        f"{(out.double() - exact).abs().max().item():.3g}, plain vs f64 {(want.double() - exact).abs().max().item():.3g}"
+                    )
+                    del v, v64, var64, exact, a, gate
+                    if dtype == torch.float32 and rows != NORM_ROWS[0]:
+                        log(f"[norm] {fn.__name__} ({rows}, {x.shape[1]}) -> {d} {key}: error {err:.3g} of its allowance; {apart}")
+                        continue  # f32 (the models' default) timed at one shape
+                    moved = nbytes(x, out, gamma)
+                    ms = cold_ms(torch, fn, (x, gamma), moved)
+                    plain_ms = cold_ms(torch, plain, (x, gamma), moved)
+                    g16 = gamma.to(dtype)
+                    if geglu:
+                        library = lambda h, w: F.layer_norm(h[:, d:] * F.gelu(h[:, :d]), (d,), w)  # noqa: E731
+                    else:
+                        library = lambda h, w: F.layer_norm(h, (d,), w)  # noqa: E731
+                    library_ms = cold_ms(torch, library, (x, g16), moved)
+                    bound_ms, bound_by = bound(0.0, moved, PEAK_BF16_TC)
+                    shapes.append(dict(
+                        kernel=fn.__name__, rows=rows, width=x.shape[1], d=d, dtype=key, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms, max_err=err,
+                    ))
+                    log(
+                        f"[norm] {fn.__name__} ({rows}, {x.shape[1]}) -> {d} {key}: {ms * 1e3:.2f} us (inputs cold "
+                        f"in L2, graph replay) vs bound {bound_ms * 1e3:.2f} us ({bound_by}, {100 * bound_ms / ms:.1f}%) | "
+                        f"plain {plain_ms * 1e3:.1f} us | {'F.gelu, mul, ' if geglu else ''}F.layer_norm "
+                        f"{library_ms * 1e3:.1f} us | error {err:.3g} of its allowance; {apart}"
+                    )
+                    del x, out, want
+    main = shapes[0]
+    ctx["norm"] = dict(
+        max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"], shapes=shapes,
+    )
+    log(f"[norm] ok: every shape within its allowance of the plain version (worst bf16 {worst['bf16']:.3g}, "
+        f"f32 {worst['f32']:.3g}) | {ctx['smi']}")
+
+
 def build_models(torch, dtype=None, with_vae=True, seed=0, self_cond=False, depth=DEPTH):
     """The main path's MaskGit, random weights from `seed` (bf16 compute
     unless `dtype` says otherwise; training turns `self_cond` on)."""
@@ -1080,6 +1180,7 @@ def kernel_total(rows, part):
 
 def phase_generate(torch, ctx):
     from muse_maskgit_pytorch_tpu_torch.ops.attention import attend, qknorm_attend
+    from muse_maskgit_pytorch_tpu_torch.ops.norm import geglu_layer_norm, layer_norm
     from muse_maskgit_pytorch_tpu_torch.ops.sampling_kernel import fused_topk_gumbel_sample, philox_gumbel_noise
 
     t0 = time.perf_counter()
@@ -1107,6 +1208,8 @@ def phase_generate(torch, ctx):
     counted = (fused_topk_gumbel_sample, qknorm_attend, attend, philox_gumbel_noise)  # K1, K2, K4, the exact noise
     for fn in counted:
         fn.launches = 0
+    norms = (layer_norm, geglu_layer_norm)
+    norm_before = [(fn.launches, fn.composite) for fn in norms]
     times, per_request = [], []
     for i in range(3):
         before = [fn.launches for fn in counted]
@@ -1115,6 +1218,12 @@ def phase_generate(torch, ctx):
         times.append(dt)
         require(tuple(img.shape) == (BATCH, 256, 256, 3), f"image shape {tuple(img.shape)}")
         require(bool(torch.isfinite(img).all()), "non-finite pixels")
+    # three LayerNorms and a GEGLU a block and the final LayerNorm a step
+    # (this model has no self-conditioning), never the composite code
+    norm_moved = [(fn.launches - b, fn.composite - c) for fn, (b, c) in zip(norms, norm_before)]
+    want = [(3 * STEPS * (3 * DEPTH + 1), 0), (3 * STEPS * DEPTH, 0)]
+    require(norm_moved == want, f"the norms' (launches, composite calls) in 3 requests {norm_moved}, expected {want}")
+    ctx["norm_per_request"] = sum(m[0] for m in norm_moved) // 3
     for k1, k2, k4, pg in per_request:
         require(k1 == STEPS, f"K1 launched {k1} times in a request, expected {STEPS}")
         require(k2 == STEPS * DEPTH * 2, f"K2 launched {k2} times in a request, expected {STEPS * DEPTH * 2}")
@@ -1134,8 +1243,8 @@ def phase_generate(torch, ctx):
         f"[generate] b{BATCH} T{STEPS} cfg{CFG:g} 256px: {img_s:.3f} img/s (median of "
         f"{', '.join(f'{t * 1000:.1f}' for t in times)} ms) | plain kernels {plain_img_s:.3f} img/s "
         f"({', '.join(f'{t * 1000:.1f}' for t in ptimes)} ms) | K1 +{per_request[0][0]}, "
-        f"K2 +{per_request[0][1]}, K4 +{per_request[0][2]}, philox_gumbel_noise +{per_request[0][3]} launches per "
-        f"request | {ctx['smi']} | models built "
+        f"K2 +{per_request[0][1]}, K4 +{per_request[0][2]}, philox_gumbel_noise +{per_request[0][3]}, trunk norms "
+        f"+{ctx['norm_per_request']} launches per request | {ctx['smi']} | models built "
         f"{t_build:.1f}s, warm-up {t_warm:.1f}s"
     )
 
@@ -4696,6 +4805,14 @@ def main(argv=None) -> int:
         )
         for tag, name, src, tpu in rows
     ]
+    kernels.append(
+        dict(
+            name="layer_norm / geglu_layer_norm", route="cuda", source="muse_maskgit_pytorch_tpu_torch/csrc/trunk_norm.cu",
+            # no Pallas kernel: the JAX package's LayerNorm and GEGLU are XLA's fusions
+            replaces="muse_maskgit_pytorch_tpu/models/transformer.py", launches_per_request=ctx["norm_per_request"],
+            **ctx["norm"],
+        )
+    )
     kernels.append(
         dict(
             name="philox_gumbel_noise", route="cuda", source="muse_maskgit_pytorch_tpu_torch/csrc/sampling_kernel.cu",

@@ -4,7 +4,10 @@
 Same structure and dtype flow as the JAX modules: parameters in f32,
 `Linear(dtype=bf16)` casts input and weight to bf16, LayerNorm computes in
 f32 and returns the input's dtype, the residual stream stays in the compute
-dtype, logits stay in the compute dtype. Every attention goes through K2
+dtype, logits stay in the compute dtype. Where no gradient is recorded each
+LayerNorm, and each GEGLU with the LayerNorm after it, is one operator
+(`ops.norm`: a kernel launch on the card); under autograd they stay
+composite PyTorch code. Every attention goes through K2
 (`ops.attention.qknorm_attend`); classifier-free guidance runs as one
 doubled-batch forward with the `cfg_fold` (combine before the bias-free
 vocab head) and `null_fold` (the null half's cross-attention is the constant
@@ -51,6 +54,7 @@ from torch import nn
 from muse_maskgit_pytorch_tpu_torch.models._layers import Embedding, Linear
 from muse_maskgit_pytorch_tpu_torch.models.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 from muse_maskgit_pytorch_tpu_torch.ops.attention import qknorm_attend
+from muse_maskgit_pytorch_tpu_torch.ops.norm import geglu_layer_norm, layer_norm
 from muse_maskgit_pytorch_tpu_torch.parallel.tensor import copy_in, gather_last, max_over, reduce_out
 from muse_maskgit_pytorch_tpu_torch.utils.helpers import default, exists, resolve_device
 from muse_maskgit_pytorch_tpu_torch.utils.metrics import span
@@ -85,22 +89,20 @@ def _pair_rows(weight: torch.Tensor, half: int, part: slice) -> torch.Tensor:
 
 
 class LayerNorm(nn.Module):
-    """Gamma-only LayerNorm, f32 statistics, eps 1e-5."""
+    """Gamma-only LayerNorm, f32 statistics, eps 1e-5 (`ops.norm.layer_norm`:
+    one kernel launch on the card where no gradient is recorded)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = x32.var(dim=-1, keepdim=True, unbiased=False)
-        normed = (x32 - mean) * torch.rsqrt(var + 1e-5)
-        return (normed * self.gamma).to(x.dtype)
+        return layer_norm(x, self.gamma)
 
 
 class FeedForward(nn.Module):
-    """LN -> Linear -> GEGLU (erf GELU) -> LN -> Linear."""
+    """LN -> Linear -> GEGLU (erf GELU) -> LN -> Linear. Unsplit, GEGLU and
+    the inner LN are one call, `ops.norm.geglu_layer_norm`."""
 
     def __init__(self, dim: int, mult: float = 4, dtype=torch.float32, *, generator=None):
         super().__init__()
@@ -122,9 +124,7 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tp = self.tensor_split
         if tp is None:
-            x, gate = self.proj_in(self.norm(x)).chunk(2, dim=-1)
-            x = gate * F.gelu(x)
-            return self.proj_out(self.norm_inner(x))
+            return self.proj_out(geglu_layer_norm(self.proj_in(self.norm(x)), self.norm_inner.gamma))
         part = tp.part(self.inner_dim)
         weight = _pair_rows(copy_in(self.proj_in.weight, tp), self.inner_dim, part)
         x, gate = _linear(self.proj_in, copy_in(self.norm(x), tp), weight).chunk(2, dim=-1)

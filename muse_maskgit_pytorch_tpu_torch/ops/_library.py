@@ -1,5 +1,6 @@
-"""The `muse_torch` operator namespace: K1, K2's forward, K3 and the exact
-sampler's noise (`philox_gumbel`) as PyTorch operators.
+"""The `muse_torch` operator namespace: K1, K2's forward, K3, the exact
+sampler's noise (`philox_gumbel`) and the trunk's norms (`layer_norm`,
+`geglu_layer_norm`) as PyTorch operators.
 
 Each operator has three implementations: a fake one (output shapes and
 dtypes only, for `torch.export` and other tracing), a "CPU" one that is the

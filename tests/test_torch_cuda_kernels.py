@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from muse_maskgit_pytorch_tpu_torch import LFQ, MaskGit, MaskGitTransformer, VQGanVAE
-from muse_maskgit_pytorch_tpu_torch.ops import attention, sampling_kernel, vq
+from muse_maskgit_pytorch_tpu_torch.ops import attention, norm, sampling_kernel, vq
 
 # bf16 attention: against the plain version with the TPU kernels' roundings,
 # one bf16 step of the output apart; against the f32 plain version, as far
@@ -1069,11 +1069,14 @@ def test_exported_program_launches_the_kernels(dev, where, tmp_path):
     te = torch.randn(4, 6, 32, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     tm = torch.ones(4, 6, dtype=torch.bool, device=dev)
     k1, k2 = sampling_kernel.fused_topk_gumbel_sample, attention.qknorm_attend
-    before = k1.launches, k2.launches
+    ln, geglu = norm.layer_norm, norm.geglu_layer_norm
+    before = k1.launches, k2.launches, ln.launches, geglu.launches
     with _cudnn_flags(True):
         got = loaded(model.state_dict(), te, tm, 9)
         want = model.generate(generator=torch.Generator(device=dev).manual_seed(9), text_embeds=te, text_mask=tm, timesteps=3)
     assert (k1.launches - before[0], k2.launches - before[1]) == (3 + 3, 3 * 2 * 2 * 2)  # artifact + eager
+    # three LayerNorms a block and the final one, a GEGLU a block
+    assert (ln.launches - before[2], geglu.launches - before[3]) == (2 * 3 * (3 * 2 + 1), 2 * 3 * 2)
     assert got.device.type == "cuda" and torch.equal(got, _quantize_u8(want))
 
 
@@ -1109,3 +1112,120 @@ def test_an_exported_program_is_held_to_the_kernels_contract(dev):
         ops.fused_topk_gumbel_sample(torch.zeros(5, 64, device=dev), 4, 1.0, seed, None, True, 1.0, None, 0)
     with pytest.raises(ValueError, match="multiple of 4"):
         ops.nearest_code(torch.zeros(5, 6, device=dev), torch.zeros(7, 6, device=dev), None)
+
+
+# -- the trunk's normalisation (`ops/norm.py`, `csrc/trunk_norm.cu`) -------------------
+
+
+# (rows, d, geglu): the main path's shapes (b32 base: 16384 rows with CFG,
+# 8192 without; super-res: GEGLU at 1365 of 2730), row counts that are no
+# multiple of the four rows a block holds, and a small odd width
+NORM_SHAPES = [
+    (16384, 512, False), (8192, 512, False), (16384, 1365, True), (1001, 512, False), (37, 1365, True),
+    (1003, 7, False), (1003, 7, True), (5, 85, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows, d, geglu", NORM_SHAPES)
+def test_trunk_norm_matches_plain(dev, dtype, rows, d, geglu):
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    x = (torch.randn(rows, 2 * d if geglu else d, generator=g, device=dev) * 2 + 0.3).to(dtype)
+    gamma = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    if geglu:
+        fn, plain = norm.geglu_layer_norm, norm.geglu_layer_norm_plain
+    else:
+        fn, plain = norm.layer_norm, norm.layer_norm_plain
+    before = fn.launches
+    with torch.no_grad():
+        got = fn(x, gamma)
+        # a strided row input read in place: a slice of a wider tensor, its rows 1 element off
+        wide = torch.randn(rows, 2 * x.shape[1] + 3, generator=g, device=dev).to(dtype)
+        strided = wide[:, 1 : 1 + x.shape[1]]
+        got_strided = fn(strided, gamma)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    for out, inp in ((got, x), (got_strided, strided)):
+        want = plain(inp, gamma)
+        assert out.dtype == dtype and out.shape == want.shape
+        if dtype == torch.bfloat16:
+            assert norm.bf16_mismatch(out, want, _normalised(inp, geglu), gamma) <= 1.0
+        else:
+            torch.testing.assert_close(out, want, rtol=norm.F32_RTOL, atol=norm.F32_ATOL)
+
+
+def _normalised(x, geglu):
+    """The values a norm normalises: x, or GEGLU's `gate * gelu(a)`."""
+    if not geglu:
+        return x
+    a, gate = x.chunk(2, dim=-1)
+    return gate * torch.nn.functional.gelu(a)
+
+
+def test_trunk_norm_operators_and_contract(dev):
+    """The operators called directly launch the kernel; what the kernel
+    does not take is refused before any launch."""
+    ops = torch.ops.muse_torch
+    x = torch.randn(6, 3, 64, device=dev).to(torch.bfloat16)
+    gamma = torch.rand(32, device=dev) + 0.5
+    before = norm.layer_norm.launches, norm.geglu_layer_norm.launches
+    ln_x = x[..., :32]
+    assert norm.bf16_mismatch(ops.layer_norm(ln_x, gamma), norm.layer_norm_plain(ln_x, gamma), ln_x, gamma) <= 1.0
+    got = ops.geglu_layer_norm(x, gamma)
+    assert norm.bf16_mismatch(got, norm.geglu_layer_norm_plain(x, gamma), _normalised(x, True), gamma) <= 1.0
+    assert (norm.layer_norm.launches, norm.geglu_layer_norm.launches) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        ops.layer_norm(x[..., :32].half(), gamma)
+    with pytest.raises(ValueError, match="gamma"):
+        ops.layer_norm(x, gamma)
+    with pytest.raises(ValueError, match="even width"):
+        ops.geglu_layer_norm(x[..., :63], gamma)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.layer_norm(x[..., :32], gamma.cpu())
+    assert (norm.layer_norm.launches, norm.geglu_layer_norm.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _norm_counts():
+    """(launches, launches, composite calls, composite calls) of LayerNorm and GEGLU."""
+    ln, geglu = norm.layer_norm, norm.geglu_layer_norm
+    return ln.launches, geglu.launches, ln.composite, geglu.composite
+
+
+def _self_cond_maskgit(dev):
+    gen = torch.Generator().manual_seed(0)
+    tr = MaskGitTransformer(
+        num_tokens=1024, dim=128, seq_len=16, depth=2, dim_head=64, heads=2, text_embed_dim=32, self_cond=True,
+        device=dev, generator=gen,
+    )
+    vae = VQGanVAE(use_vgg_and_gan=False, dim=16, layers=2, codebook_size=1024, device=dev, generator=gen)
+    return MaskGit(image_size=16, transformer=tr, vae=vae, self_cond_prob=1.0, device=dev)
+
+
+def test_trunk_norm_launches_in_generate(dev):
+    """A depth-2 `generate` launches, each step, a block's three LayerNorms
+    and its GEGLU, the final LayerNorm and the self-conditioning
+    FeedForward's LayerNorm and GEGLU, and no composite norm."""
+    model = _self_cond_maskgit(dev).eval()
+    te = torch.randn(4, 6, 32, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    before = _norm_counts()
+    model.generate(generator=torch.Generator(device=dev).manual_seed(2), text_embeds=te, timesteps=3)
+    moved = tuple(a - b for a, b in zip(_norm_counts(), before))
+    assert moved == (3 * (3 * 2 + 1 + 1), 3 * (2 + 1), 0, 0)
+
+
+def test_trunk_norm_in_a_train_step(dev):
+    """A train step's forward keeps the composite norms under autograd; only
+    its self-conditioning pass, run without a gradient, launches the kernel."""
+    from muse_maskgit_pytorch_tpu_torch.models.maskgit import TrainDraws
+
+    model = _self_cond_maskgit(dev).train()
+    ids = torch.randint(0, 1024, (4, 16), device=dev)
+    te = torch.randn(4, 6, 32, device=dev)
+    draws = TrainDraws.draw(4, 16, 1024, critic=False, generator=torch.Generator().manual_seed(3), device=dev)
+    before = _norm_counts()
+    loss = model(ids, text_embeds=te, draws=draws)
+    loss.backward()
+    moved = tuple(a - b for a, b in zip(_norm_counts(), before))
+    per_pass = (3 * 2 + 1 + 1, 2 + 1)
+    assert moved == per_pass + per_pass
+    assert torch.isfinite(loss) and model.transformer.transformer_blocks.norm.gamma.grad is not None
